@@ -1,0 +1,85 @@
+"""Build and load the package's CUDA kernels (nvcc -> shared library -> ctypes).
+
+Each csrc/<name>.cu exposes a plain C launcher and is compiled on first use
+for Hopper (sm_90a) into build/kernels/ at the repository root, under a name
+keyed by a hash of the source and the flags, so an edited source rebuilds and
+an unchanged one is reused. Nothing here runs at import time: the CPU path
+never needs nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+KERNEL_SOURCES = ("lcp_segside",)
+
+_PKG = Path(__file__).resolve().parent
+CSRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_LOADED: dict[str, ctypes.CDLL] = {}
+# Compiler messages of the builds this process ran (ptxas register and
+# shared-memory report per kernel).
+BUILD_LOG: dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def build(names=KERNEL_SOURCES) -> float:
+    """Compile every named kernel whose library is missing, one nvcc per
+    source, all started together. Returns the wall seconds spent."""
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name in names:
+        lib = library_path(name)
+        if lib.exists():
+            continue
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        procs.append((name, lib, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for name, lib, tmp, proc in procs:
+        log, _ = proc.communicate()
+        BUILD_LOG[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{log}")
+        else:
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The kernel library `name`, built first if needed."""
+    if name not in _LOADED:
+        build((name,))
+        _LOADED[name] = ctypes.CDLL(str(library_path(name)))
+    return _LOADED[name]

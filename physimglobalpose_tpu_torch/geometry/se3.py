@@ -1,0 +1,45 @@
+"""SE(3) helpers on torch tensors (the subset the estimate_pose path uses).
+
+Conventions as in the JAX package: quaternions are [w, x, y, z], poses are
+4x4 homogeneous matrices, world<->camera changes are plain matrix products.
+Every function accepts arbitrary leading batch dimensions.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from physimglobalpose_tpu_torch import _torchcfg  # noqa: F401  (precision setup)
+
+
+def matrix_to_quat(m: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix [..., 3, 3] -> quaternion [..., 4] (w, x, y, z).
+
+    Branch-free Shepperd's method: all four candidate forms, pick the one
+    with the largest pivot, canonical sign w >= 0.
+    """
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    qw = torch.stack([1.0 + tr, m21 - m12, m02 - m20, m10 - m01], dim=-1)
+    qx = torch.stack([m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10, m02 + m20], dim=-1)
+    qy = torch.stack([m02 - m20, m01 + m10, 1.0 - m00 + m11 - m22, m12 + m21], dim=-1)
+    qz = torch.stack([m10 - m01, m02 + m20, m12 + m21, 1.0 - m00 - m11 + m22], dim=-1)
+
+    pivots = torch.stack(
+        [1.0 + tr, 1.0 + m00 - m11 - m22, 1.0 - m00 + m11 - m22, 1.0 - m00 - m11 + m22],
+        dim=-1,
+    )
+    cands = torch.stack([qw, qx, qy, qz], dim=-2)  # [..., 4 cand, 4 comp]
+    best = torch.argmax(pivots, dim=-1)
+    idx = best[..., None, None].expand(best.shape + (1, 4))
+    q = torch.gather(cands, -2, idx)[..., 0, :]
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
+
+
+def to_world(pose_cam: torch.Tensor, cam_pose: torch.Tensor) -> torch.Tensor:
+    """Camera-frame object pose -> world frame."""
+    return cam_pose @ pose_cam

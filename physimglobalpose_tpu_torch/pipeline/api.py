@@ -1,0 +1,291 @@
+"""Public API: estimate_pose - the /pose_estimation service contract.
+
+Reference: the ROS service EstimateObjectPose.srv takes (OperationMode,
+SceneFiles, SegmentationMode, HypothesisGenerationMode,
+HypothesisVerificationMode) and returns per-object label+pose, also writing
+result.txt (main.cpp:86-171). Here the same contract is a plain function:
+scene in, per-object camera- and world-frame poses out, result.txt in the
+reference's format. The GT / PCS / LCP request is ported; the other modes
+raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from physimglobalpose_tpu_torch import _torchcfg
+from physimglobalpose_tpu_torch.config import PipelineConfig, DEFAULT_CONFIG
+from physimglobalpose_tpu_torch.geometry import se3
+from physimglobalpose_tpu_torch.models.objectdb import ObjectDB
+from physimglobalpose_tpu_torch.ops import icp as icp_mod
+from physimglobalpose_tpu_torch.pipeline import hypothesis, scene as scene_mod, segmentation
+from physimglobalpose_tpu_torch.pipeline.selection import lcp_select
+from physimglobalpose_tpu_torch.utils.tracing import trace_span, get_tracer
+
+_GEN_MODES = ("PCS", "CONGRUENT_SET_MATCHING")  # both are StoCS
+_UNPORTED_GEN_MODES = ("SUPER4PCS", "V4PCS", "PPF_VOTING", "Hough")
+
+
+def _finalize_hypotheses_batch(transforms, scores, best_transform, best_score, cam_pose, top_k):
+    """Per-object estimate fields of the batched branch, flat-packed so the
+    host pays one copy. Returns [K, top_k*16 + top_k + 16 + 16 + 1] rows:
+    (top_tf, top_scores, pose_cam, pose_world, best_score)."""
+    k = transforms.shape[0]
+    idx = torch.sort(scores, dim=1, descending=True, stable=True).indices[:, :top_k]
+    top_scores = torch.gather(scores, 1, idx)
+    top_tf = transforms[torch.arange(k, device=idx.device)[:, None], idx]
+    pose_cam = lcp_select(best_transform, best_score[:, None, None])
+    pose_world = se3.to_world(pose_cam, cam_pose)
+    return torch.cat(
+        [
+            top_tf.reshape(k, -1), top_scores.reshape(k, -1),
+            pose_cam.reshape(k, -1), pose_world.reshape(k, -1),
+            best_score.reshape(k, 1),
+        ],
+        dim=1,
+    )
+
+
+def _refine_final_batch(
+    poses, model_pts, model_nrm, seg_pts, seg_mask, cam_pose,
+    iters, trim_fraction, max_corr_dist, point_to_plane,
+):
+    """Final ICP polish of every object (one pose each), then the world
+    frame. Returns [K, 32] rows: (pose_cam, pose_world) flattened."""
+    refined = torch.stack([
+        icp_mod.refine_icp(
+            poses[i][None], model_pts[i], model_nrm[i], seg_pts[i], seg_mask[i],
+            iters=iters, trim_fraction=trim_fraction,
+            max_corr_dist=max_corr_dist, point_to_plane=point_to_plane,
+        )[0]
+        for i in range(poses.shape[0])
+    ])
+    world = se3.to_world(refined, cam_pose)
+    k = poses.shape[0]
+    return torch.cat([refined.reshape(k, 16), world.reshape(k, 16)], dim=1)
+
+
+@dataclasses.dataclass
+class ObjectPoseEstimate:
+    name: str
+    pose_cam: np.ndarray  # [4, 4] object pose in camera frame
+    pose_world: np.ndarray  # [4, 4]
+    score: float
+    hypotheses: Optional[np.ndarray] = None  # [K, 4, 4] top-k (camera frame)
+    hypothesis_scores: Optional[np.ndarray] = None  # [K]
+
+
+@dataclasses.dataclass
+class PoseEstimationResult:
+    objects: List[ObjectPoseEstimate]
+    timings: Dict[str, float]
+
+    def pose_of(self, name: str) -> ObjectPoseEstimate:
+        return next(o for o in self.objects if o.name == name)
+
+
+def default_result_path(scene_dir: str) -> str:
+    """Where result.txt goes when the caller gave no path: the scene
+    directory when this process may write there (by the mode bit of the
+    class that applies to it, not only os.access, which root always passes),
+    else the working directory."""
+    import stat as _stat
+
+    try:
+        st = os.stat(scene_dir)
+        if st.st_uid == os.geteuid():
+            bit = _stat.S_IWUSR
+        elif st.st_gid == os.getegid() or st.st_gid in os.getgroups():
+            bit = _stat.S_IWGRP
+        else:
+            bit = _stat.S_IWOTH
+        writable = bool(st.st_mode & bit) and os.access(scene_dir, os.W_OK)
+    except OSError:
+        writable = False
+    return os.path.join(scene_dir, "result.txt") if writable else os.path.abspath("result.txt")
+
+
+def write_result_txt(path: str, result: PoseEstimationResult) -> None:
+    """result.txt in the reference format: 'name tx ty tz qx qy qz qw' rows
+    (main.cpp:150-166)."""
+    with open(path, "w") as fh:
+        for obj in result.objects:
+            pose = obj.pose_world
+            q = se3.matrix_to_quat(torch.as_tensor(pose[:3, :3], dtype=torch.float32)).numpy()
+            t = pose[:3, 3]
+            fh.write(
+                f"{obj.name} {t[0]:.6f} {t[1]:.6f} {t[2]:.6f} "
+                f"{q[1]:.6f} {q[2]:.6f} {q[3]:.6f} {q[0]:.6f}\n"
+            )
+
+
+def estimate_pose(
+    scene_dir: str,
+    db: ObjectDB,
+    dataset: str = "APC",
+    segmentation_mode: str = "GT",
+    hypothesis_mode: str = "PCS",
+    verification_mode: str = "LCP",
+    cfg: PipelineConfig = DEFAULT_CONFIG,
+    seed: int = 0,
+    top_k: int = 25,
+    refine_final: bool = True,
+    write_result: bool = True,
+    result_path: Optional[str] = None,
+    debug_dir: Optional[str] = None,
+    scene: Optional[scene_mod.Scene] = None,
+    device=None,
+) -> PoseEstimationResult:
+    """Estimate 6D poses for every object in a scene.
+
+    Mirrors estimatePose (main.cpp:86-171): load scene -> remove table ->
+    segment -> per-object hypothesis generation -> selection -> world frame,
+    plus a point-to-plane ICP polish of each selected pose (refine_final).
+    Runs on the card unless device="cpu"; one torch.Generator seeded with
+    `seed` drives every random draw, so a seed gives one result per device.
+    """
+    if debug_dir is not None:
+        raise NotImplementedError("debug_dir dumps are not ported yet")
+    if verification_mode in ("MCTS", "GREEDY"):
+        raise NotImplementedError(f"verification mode {verification_mode!r} is not ported yet")
+    if verification_mode != "LCP":
+        raise ValueError(f"unknown verification mode {verification_mode!r}")
+    if hypothesis_mode in _UNPORTED_GEN_MODES:
+        raise NotImplementedError(f"hypothesis mode {hypothesis_mode!r} is not ported yet")
+    if hypothesis_mode not in _GEN_MODES:
+        raise ValueError(f"unknown hypothesis mode {hypothesis_mode!r}")
+
+    dev = _torchcfg.resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tracer = get_tracer()
+    timings: Dict[str, float] = {}
+    t0 = time.perf_counter()
+
+    with trace_span(tracer, "load_scene"):
+        sc = scene if scene is not None else scene_mod.load_scene(scene_dir, dataset=dataset)
+
+    with trace_span(tracer, "remove_table"):
+        intr = torch.as_tensor(sc.intrinsics, dtype=torch.float32, device=dev)
+        cam_pose = torch.as_tensor(sc.cam_pose, dtype=torch.float32, device=dev)
+        depth_clean, _plane, _table_pose = scene_mod.remove_table(
+            torch.as_tensor(sc.depth, dtype=torch.float32, device=dev), intr, cfg, generator=gen
+        )
+        _torchcfg.synchronize(dev)
+    timings["preprocess_s"] = time.perf_counter() - t0
+
+    with trace_span(tracer, "segmentation"):
+        class_ids = [db.class_of(n) for n in sc.object_names]
+        prob_images = segmentation.build_prob_images(
+            segmentation_mode, class_ids, class_mask=sc.class_mask
+        )
+
+    def to_dev(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    def segment_of(obj):
+        return segmentation.compute_3d_segment(
+            depth_clean, to_dev(prob_images[obj.class_id]), intr, cfg, generator=gen
+        )
+
+    estimates: List[ObjectPoseEstimate] = []
+    segs_by_name: Dict[str, segmentation.Segment3D] = {}
+    t_hyp = time.perf_counter()
+    batchable = (
+        len(sc.object_names) > 1
+        and len({db[n].validation_pts.shape for n in sc.object_names}) == 1
+        and len({db[n].search_pts.shape for n in sc.object_names}) == 1
+    )
+
+    if batchable:
+        with trace_span(tracer, "objects:batched"):
+            objs = [db[n] for n in sc.object_names]
+            segs_list = [segment_of(o) for o in objs]
+            segs = segmentation.Segment3D(*(torch.stack(f) for f in zip(*segs_list)))
+            segs_by_name = dict(zip(sc.object_names, segs_list))
+            res_b = hypothesis.generate_hypotheses_batch(
+                segs,
+                torch.stack([to_dev(o.search_pts) for o in objs]),
+                torch.stack([to_dev(o.search_mask, torch.bool) for o in objs]),
+                hypothesis.stack_object_tables([o.ppf_table for o in objs]),
+                torch.stack([to_dev(o.validation_pts) for o in objs]),
+                torch.stack([to_dev(o.validation_nrm) for o in objs]),
+                cfg, generator=gen,
+            )
+            flat = _finalize_hypotheses_batch(
+                res_b.transforms, res_b.scores, res_b.best_transform,
+                res_b.best_score, cam_pose, top_k,
+            ).cpu().numpy()
+            kk = min(top_k, res_b.scores.shape[1])
+            tf_sz, ts_sz = kk * 16, kk
+            for i, name in enumerate(sc.object_names):
+                row = flat[i]
+                estimates.append(ObjectPoseEstimate(
+                    name=name,
+                    pose_cam=row[tf_sz + ts_sz : tf_sz + ts_sz + 16].reshape(4, 4),
+                    pose_world=row[tf_sz + ts_sz + 16 : tf_sz + ts_sz + 32].reshape(4, 4),
+                    score=float(row[-1]),
+                    hypotheses=row[:tf_sz].reshape(kk, 4, 4),
+                    hypothesis_scores=row[tf_sz : tf_sz + ts_sz],
+                ))
+    else:
+        for name in sc.object_names:
+            obj = db[name]
+            with trace_span(tracer, f"object:{name}"):
+                seg = segs_by_name[name] = segment_of(obj)
+                res = hypothesis.generate_hypotheses(
+                    seg, to_dev(obj.search_pts), to_dev(obj.search_mask, torch.bool),
+                    obj.ppf_table, to_dev(obj.validation_pts), to_dev(obj.validation_nrm),
+                    cfg, generator=gen,
+                )
+                top_tf, top_scores = hypothesis.top_k_hypotheses(res, top_k)
+                pose_cam = lcp_select(res.best_transform, res.best_score)
+                estimates.append(ObjectPoseEstimate(
+                    name=name,
+                    pose_cam=pose_cam.cpu().numpy(),
+                    pose_world=se3.to_world(pose_cam, cam_pose).cpu().numpy(),
+                    score=float(res.best_score),
+                    hypotheses=top_tf.cpu().numpy(),
+                    hypothesis_scores=top_scores.cpu().numpy(),
+                ))
+    _torchcfg.synchronize(dev)
+    timings["hypothesis_s"] = time.perf_counter() - t_hyp
+
+    if refine_final:
+        with trace_span(tracer, "icp_refine"):
+            t_icp = time.perf_counter()
+            live = [i for i, est in enumerate(estimates) if est.score > 0]
+            if live:
+                names = [estimates[i].name for i in live]
+                flat = _refine_final_batch(
+                    to_dev(np.stack([estimates[i].pose_cam for i in live])),
+                    [to_dev(db[n].validation_pts[:1024]) for n in names],
+                    [to_dev(db[n].validation_nrm[:1024]) for n in names],
+                    [segs_by_name[n].pts for n in names],
+                    [segs_by_name[n].mask for n in names],
+                    cam_pose,
+                    cfg.icp.iters, cfg.icp.trim_fraction,
+                    cfg.icp.max_corr_dist, cfg.icp.point_to_plane,
+                ).cpu().numpy()
+                for row_i, i in enumerate(live):
+                    estimates[i] = dataclasses.replace(
+                        estimates[i],
+                        pose_cam=flat[row_i, :16].reshape(4, 4),
+                        pose_world=flat[row_i, 16:].reshape(4, 4),
+                    )
+            _torchcfg.synchronize(dev)
+            timings["icp_refine_s"] = time.perf_counter() - t_icp
+
+    timings["total_s"] = time.perf_counter() - t0
+    result = PoseEstimationResult(objects=estimates, timings=timings)
+    if write_result:
+        if result_path is None:
+            result_path = default_result_path(scene_dir)
+        write_result_txt(result_path, result)
+        timings["result_path"] = result_path
+    return result

@@ -1,0 +1,158 @@
+"""End-to-end: the port's estimate_pose (GT / PCS / LCP) on the CPU against
+the JAX package's, on a procedural two-box scene rendered with the JAX
+triangle rasterizer. No draws are injected end to end (the packages' random
+streams differ), so this holds outcomes: the same objects, each port pose
+within ADD-S 1 cm of ground truth and within 5 mm of the JAX translation.
+Exact parity is held module by module in the other test_torch_* files.
+
+Both packages have one rare failure mode on this scene: over seeds 10-21,
+about 1 in 20 (object, seed) draws of either package settles ~13 mm along
+a box face (ADD-S still < 1 cm). The 5 mm bar to JAX therefore holds per
+seed, not for every seed; seed 0 is a typical one for both."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_common import jax_object_fields
+from chip_smoke import box_pose_world, camera_pose, write_box_ply
+from physimglobalpose_tpu import config as jconfig
+from physimglobalpose_tpu.models import objectdb as jobjectdb
+from physimglobalpose_tpu.ops import raster_tri
+from physimglobalpose_tpu.pipeline import api as japi, scene as jscene
+from physimglobalpose_tpu_torch import config as tconfig
+from physimglobalpose_tpu_torch.models import objectdb
+from physimglobalpose_tpu_torch.pipeline import api, scene
+
+H, W = 240, 320
+INTR = np.array([[285.0, 0, 159.5], [0, 285.0, 119.5], [0, 0, 1]], np.float32)
+# (name, class id, full extents m, centre (x, y) on the table, yaw deg)
+BOXES = (
+    ("box_a", 1, (0.12, 0.08, 0.06), (-0.08, 0.02), 25.0),
+    ("box_b", 2, (0.07, 0.05, 0.14), (0.07, -0.03), -40.0),
+)
+CFG_KW = dict(max_model_points=384, max_validation_points=768)
+PRE_KW = dict(max_segment_points=384)
+ST_KW = dict(num_bases=48, max_quads_per_base=32, max_pairs_per_ppf=128)
+
+
+def _cfg(mod):
+    return mod.PipelineConfig(preprocess=mod.PreprocessConfig(**PRE_KW),
+                              stocs=mod.StoCSConfig(**ST_KW), **CFG_KW)
+
+
+def _render(pose_cam, verts, faces):
+    return np.asarray(raster_tri.render_mesh_depth(
+        jnp.asarray(pose_cam, jnp.float32), jnp.asarray(verts), jnp.asarray(faces),
+        jnp.ones(len(faces), bool), jnp.asarray(INTR), H, W,
+    ))
+
+
+@pytest.fixture(scope="module")
+def setup(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("e2e")
+    cam = camera_pose(distance=0.6)
+    inv = np.linalg.inv(cam)
+    table_v = np.array([[-0.4, -0.4, 0], [0.4, -0.4, 0], [0.4, 0.4, 0], [-0.4, 0.4, 0]], np.float32)
+    table_f = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
+    layers = [(_render(inv, table_v, table_f), 0)]
+    jcfg, gt, jobjs = _cfg(jconfig), {}, {}
+    for name, cls, size, xy, yaw in BOXES:
+        ply = str(tmp / f"{name}.ply")
+        verts, faces = write_box_ply(ply, size)
+        gt[name] = inv @ box_pose_world(size, xy, yaw)
+        layers.append((_render(gt[name], verts, faces), cls))
+        jobjs[name] = jobjectdb.prepare_object(name, ply, cls, [180, 180, 180], config=jcfg)
+    stack = np.stack([np.where(d > 0, d, np.inf) for d, _ in layers])
+    depth = stack.min(0)
+    label = np.asarray([c for _, c in layers])[stack.argmin(0)]
+    label = np.where(np.isfinite(depth), label, 0).astype(np.int32)
+    depth = np.where(np.isfinite(depth), depth, 0.0).astype(np.float32)
+    return dict(cam=cam, depth=depth, label=label, gt=gt, jobjs=jobjs, tmp=tmp)
+
+
+def _adds(pose_est, pose_gt, pts):
+    a = pts @ pose_gt[:3, :3].T + pose_gt[:3, 3]
+    b = pts @ pose_est[:3, :3].T + pose_est[:3, 3]
+    d = np.linalg.norm(a[:, None, :] - b[None, :, :], axis=-1)
+    return d.min(axis=1).mean()
+
+
+def test_estimate_pose_matches_jax_on_box_scene(setup):
+    s = setup
+    names = [b[0] for b in BOXES]
+    for _, cls, *_ in BOXES:
+        assert (s["label"] == cls).sum() > 800
+    jdb = jobjectdb.ObjectDB(s["jobjs"], {o.class_id: n for n, o in s["jobjs"].items()})
+    cfg = _cfg(tconfig)
+    tobjs = {n: objectdb.from_numpy(jax_object_fields(o), cfg, device="cpu")
+             for n, o in s["jobjs"].items()}
+    tdb = objectdb.ObjectDB(tobjs, {o.class_id: n for n, o in tobjs.items()})
+    kw = dict(color=np.zeros((H, W, 3), np.uint8), depth=s["depth"], intrinsics=INTR,
+              cam_pose=s["cam"], object_names=names, class_mask=s["label"])
+
+    want = japi.estimate_pose("<memory>", jdb, scene=jscene.scene_from_arrays(**kw),
+                              cfg=_cfg(jconfig), seed=0, write_result=False)
+    result_path = str(s["tmp"] / "result.txt")
+    got = api.estimate_pose("<memory>", tdb, scene=scene.scene_from_arrays(**kw), cfg=cfg,
+                            seed=0, result_path=result_path, device="cpu")
+
+    assert [o.name for o in got.objects] == [o.name for o in want.objects] == names
+    for est, jest in zip(got.objects, want.objects):
+        pts = s["jobjs"][est.name].validation_pts[::2]
+        assert _adds(est.pose_cam, s["gt"][est.name], pts) < 0.01, est.name
+        assert _adds(jest.pose_cam, s["gt"][est.name], pts) < 0.01, est.name
+        assert np.linalg.norm(est.pose_cam[:3, 3] - jest.pose_cam[:3, 3]) < 0.005, est.name
+        np.testing.assert_allclose(est.pose_world, s["cam"] @ est.pose_cam, atol=1e-5)
+        assert est.hypotheses.shape == (25, 4, 4) and est.score > 0.1
+    assert set(got.timings) >= {"preprocess_s", "hypothesis_s", "icp_refine_s", "total_s"}
+
+    rows = [r.split() for r in open(result_path).read().splitlines()]
+    assert [r[0] for r in rows] == names and all(len(r) == 8 for r in rows)
+    for r, est in zip(rows, got.objects):
+        np.testing.assert_allclose([float(x) for x in r[1:4]], est.pose_world[:3, 3], atol=1e-5)
+        q = np.array([float(x) for x in r[4:]])
+        assert abs(np.linalg.norm(q) - 1.0) < 1e-4
+
+
+def test_unported_modes_raise(setup):
+    s = setup
+    tdb = objectdb.ObjectDB({}, {})
+    sc = scene.scene_from_arrays(np.zeros((H, W, 3), np.uint8), s["depth"], INTR, s["cam"], [])
+    for kw in (dict(verification_mode="MCTS"), dict(segmentation_mode="FCN"),
+               dict(hypothesis_mode="SUPER4PCS"), dict(debug_dir="/nonexistent")):
+        with pytest.raises(NotImplementedError):
+            api.estimate_pose("<memory>", tdb, scene=sc, device="cpu", write_result=False, **kw)
+    with pytest.raises(ValueError):
+        api.estimate_pose("<memory>", tdb, scene=sc, device="cpu", verification_mode="BOGUS")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            api.estimate_pose("<memory>", tdb, scene=sc, write_result=False)
+
+
+def test_cli_drives_a_cam_scene_on_the_cpu(setup, capsys):
+    from physimglobalpose_tpu_torch import cli
+
+    s, tmp = setup, setup["tmp"]
+    name, cls = BOXES[0][0], BOXES[0][1]
+    label = np.where(s["label"] == cls, cls, 0)
+    np.savez(tmp / "scene.npz", color=np.zeros((H, W, 3), np.uint8), depth=s["depth"],
+             intrinsics=INTR, cam_pose=s["cam"], object_names=np.array([name]), class_mask=label)
+    (tmp / "obj_config.yml").write_text(
+        "objects:\n  num_objects: 1\n  modelDiscretization: 0.01\n"
+        f"  object_1:\n    name: {name}\n    classId: {cls}\n    symmetry: [180, 180, 180]\n"
+    )
+    rc = cli.main([
+        "--dataset", "CAM", "--scene", str(tmp / "scene.npz"), "--obj-config",
+        str(tmp / "obj_config.yml"), "--model-dir", str(tmp), "--cache-dir", str(tmp / "cache"),
+        "--preset", "small", "--device", "cpu", "--result", str(tmp / "cli_result.txt"),
+    ])
+    assert rc == 0
+    out = capsys.readouterr().out
+    assert out.startswith(f"{name}: t=(") and '"timings"' in out
+    rows = (tmp / "cli_result.txt").read_text().splitlines()
+    assert len(rows) == 1 and rows[0].split()[0] == name
+    t_world = np.array([float(x) for x in rows[0].split()[1:4]])
+    want = (s["cam"] @ s["gt"][name])[:3, 3]
+    assert np.linalg.norm(t_world - want) < 0.01
