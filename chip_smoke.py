@@ -4,15 +4,23 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; no phase catches an error and goes on):
-1. device: the card's name and power limit (nvidia-smi);
-2. build: compile every CUDA kernel of the main path from csrc/ (first use);
-3. kernel vs plain: each kernel against its plain PyTorch version on the card,
-   at the main-path shape and at ragged shapes, then timed alone;
-4. end to end: a 640x480 scene of three boxes on a table, ray-cast here in
-   numpy, through the port's prepare_object and estimate_pose (GT / PCS / LCP)
-   at the default configuration; every object must come back within ADD-S
-   1 cm, and the kernel launch counts of that run must be non-zero;
-5. one JSON line describing every kernel, the card line, and last a JSON
+1. [device] the card's name and power limit (nvidia-smi);
+2. [build] compile every CUDA kernel from csrc/, one nvcc per source, together;
+3. kernel vs plain, each kernel against its plain PyTorch version on the card
+   at the shapes its path gives it and at ragged shapes, then timed alone:
+   [lcp] the per-hypothesis LCP kernel, fp32 tier; [lcp-tiers] its "default"
+   and "high3" tiers; [lcp-hb] the hypothesis-block LCP kernel, also against
+   the per-hypothesis kernel; [icp] the segment-stationary ICP kernel, one
+   pass and four iterations;
+4. [e2e] a 640x480 scene of three boxes on a table, ray-cast here in numpy,
+   through the port's prepare_object and estimate_pose (GT / PCS / LCP) at the
+   default configuration; every object must come back within ADD-S 1 cm, and
+   the kernel launch counts of that run must be non-zero;
+5. [scoring] score_refine_pipeline at the benchmark's full shape (16,384
+   hypotheses) with the production flags, easy and clutter inputs, the launch
+   counts of one call, both fidelity gates against the exact pipeline, the
+   warm latency and the device-idle share of one call;
+6. one JSON line describing every kernel, the card line, and last a JSON
    line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX. Exits non-zero without a CUDA device.
@@ -33,8 +41,18 @@ import numpy as np
 import torch
 
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores (data sheet)
+PEAK_BF16_TENSOR_FLOPS = 989e12  # H100 SXM, dense bf16 on the tensor cores (data sheet)
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
 TOL_LCP = 2.0  # max abs score error allowed, in units of 1/Nv
+# ICP pass (A, b) against the plain version, relative to the largest entry:
+# both find the same correspondences and weights, only the order of the
+# float32 sums over ~500 correspondences differs.
+TOL_ICP_PASS = 1e-4
+# Four ICP iterations over the kernel against the same loop over the plain
+# pass: mean model-point displacement per hypothesis, metres. A last-bit
+# difference in a pose can move a bf16 rounding of the "default" tier and with
+# it a correspondence, so the loops part by more than one pass does.
+TOL_ICP_REFINE = 1e-4
 
 # Scene: three boxes of distinct sizes (full extents, m), their centre (x, y)
 # on the table and their yaw (deg).
@@ -205,8 +223,10 @@ def lcp_inputs(seed: int, h: int, nv: int, ns: int, n_masked: int, device):
             as_t(smask, torch.bool))
 
 
-def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median time of fn() on the card, each run between two CUDA events."""
+def cuda_time_ms(fn, reps: int, warmup: int = 2, inner: int = 1) -> float:
+    """Median time of fn() on the card. Each run is `inner` calls between two
+    CUDA events, divided by inner: for a kernel of well under a millisecond
+    many queued launches keep the host's launch cost out of the reading."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -214,11 +234,24 @@ def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def packed_lcp_args(args, delta: float = 0.005, gate_deg: float = 30.0):
+    """What lcp_scores hands the LCP kernels' wrappers for these inputs:
+    (tr12, model_pts, model_nrm, segcat, delta^2, cos gate)."""
+    from physimglobalpose_tpu_torch.ops import lcp
+
+    tfs, mpts, mnrm, spts, snrm, sprob, smask = args
+    seg_c, tr = lcp.center_at_segment(tfs, spts, smask)
+    return (tr[:, :3, :].reshape(-1, 12).contiguous(), mpts.contiguous(), mnrm.contiguous(),
+            lcp.pack_segment(seg_c, snrm, sprob, smask), delta * delta,
+            math.cos(math.radians(gate_deg)))
 
 
 # ----------------------------------------------------------------- phases
@@ -309,6 +342,344 @@ def phase_lcp(device) -> dict:
                 unweighted_ms=kernel_u_ms, cdist_yardstick_ms=cdist_ms, flop16_bound_ms=flop16_ms)
 
 
+def _pair_ops_s(pairs: float, tier: str | None) -> tuple[float, float]:
+    """Least seconds the card needs for the per-pair work of a nearest-point
+    search over `pairs` (point, point) pairs in the given tier, and beside it
+    the seconds of the same tier's instruction mix on the CUDA cores alone.
+
+    fp32: 3 FMA + 1 add for d2 and the running min, 8 FLOP a pair at the fp32
+    peak. "default": the d2 product is a K = 5 product of bf16 operands with a
+    float32 sum, 10 FLOP a pair at the bf16 tensor-core peak; the running min,
+    1 operation a pair, stays on the CUDA cores; the two units work side by
+    side, so the slower one binds. "high3" emulates a float32 product: three
+    such bf16 passes on the tensor cores or the 7 FLOP of the float32 product
+    on the CUDA cores, whichever is less, beside the same running min.
+    The CUDA-core figure counts what the kernels here issue: 8 FLOP a pair
+    for "default" (round, widen, the fp32 chain), 20 for "high3" (9 FMA, an
+    add, the min).
+    """
+    min_s = pairs / PEAK_FP32_FLOPS
+    if tier is None:
+        return 8.0 * pairs / PEAK_FP32_FLOPS, 8.0 * pairs / PEAK_FP32_FLOPS
+    passes = 3 if tier == "high3" else 1
+    product_s = min(passes * 10.0 * pairs / PEAK_BF16_TENSOR_FLOPS, 7.0 * pairs / PEAK_FP32_FLOPS)
+    core_flop = 20.0 if tier == "high3" else 8.0
+    return max(product_s, min_s), core_flop * pairs / PEAK_FP32_FLOPS
+
+
+def _lcp_bound_ms(h: int, nv: int, ns: int, tier: str | None) -> tuple[float, float]:
+    """Least time for one LCP call, (bound_ms, cuda_core_bound_ms): the pair
+    work of _pair_ops_s plus 40 FLOP a (hypothesis, model point) for the
+    transform and the normal gate at the fp32 peak, against the bytes of its
+    inputs and outputs at the memory rate."""
+    per_point_s = 40.0 * h * nv / PEAK_FP32_FLOPS
+    bytes_s = 4.0 * (12 * h + 6 * nv + 8 * ns + h) / PEAK_HBM_BYTES
+    ops_s, core_s = _pair_ops_s(float(h) * nv * ns, tier)
+    return max(ops_s + per_point_s, bytes_s) * 1e3, max(core_s + per_point_s, bytes_s) * 1e3
+
+
+def _cdist_scores_ms(args, delta: float = 0.005) -> float:
+    """One-library-call yardstick of the unweighted score: chunked
+    torch.cdist(...).amin(-1) <= delta, averaged over the model."""
+    tfs, mpts, _, spts = args[:4]
+
+    def run():
+        u = torch.einsum("hij,nj->hni", tfs[:, :3, :3], mpts) + tfs[:, None, :3, 3]
+        for uc in u.split(256):
+            (torch.cdist(uc, spts).amin(-1) <= delta).float().mean(-1)
+
+    return cuda_time_ms(run, reps=3, warmup=1)
+
+
+def phase_lcp_tiers(device) -> dict:
+    """lcp_segside's "default" and "high3" tiers against lcp_scores_plain of
+    the same tier: at the bulk fine and exact shapes of the scoring path and
+    at ragged shapes with masked points; then timed beside the fp32 tier."""
+    from physimglobalpose_tpu_torch.ops import lcp
+
+    cases = (
+        # (label, seed, H, Nv, Ns, masked)
+        ("fine", 20, 256, 4096, 256, 8),
+        ("exact", 21, 32, 4096, 1024, 24),
+        ("ragged", 22, 37, 1000, 333, 40),
+        ("ragged_ns1500", 23, 9, 2500, 1500, 7),
+    )
+    stats = {}
+    for label, seed, h, nv, ns, masked in cases:
+        args = lcp_inputs(seed, h, nv, ns, masked, device)
+        for tier in ("default", "high3"):
+            for weighted in (True, False):
+                got = lcp.lcp_scores(*args, weighted=weighted, matmul_precision=tier,
+                                     hb_lane_pack=False)
+                want = lcp.lcp_scores_plain(*args, weighted=weighted, matmul_precision=tier)
+                f32 = lcp.lcp_scores_plain(*args, weighted=weighted)
+                torch.cuda.synchronize()
+                if not bool(torch.isfinite(got).all()) or got.shape != (h,):
+                    fail(f"lcp_segside[{tier}] {label}: non-finite or misshapen output")
+                err = float((got - want).abs().max())
+                log(f"[lcp-tiers] {label} H={h} Nv={nv} Ns={ns} tier={tier} weighted={weighted}: "
+                    f"max_abs_err={err:.3e} (tol {TOL_LCP / nv:.3e}) "
+                    f"tier_vs_fp32={float((want - f32).abs().max()):.3e} "
+                    f"mean_score={float(want.mean()):.4f}")
+                if err > TOL_LCP / nv:
+                    fail(f"lcp_segside[{tier}] disagrees with plain on {label} (weighted={weighted})")
+                if (label, tier) in (("fine", "default"), ("exact", "high3")):
+                    stats.setdefault(tier, dict(max_abs_err=0.0))
+                    stats[tier]["max_abs_err"] = max(stats[tier]["max_abs_err"], err)
+        if label in ("fine", "exact"):
+            tier = "default" if label == "fine" else "high3"
+            packed = packed_lcp_args(args)
+            run = lambda t: cuda_time_ms(
+                lambda: lcp.lcp_segside(*packed, True, t), reps=5, inner=20)
+            ms = {t: run(t) for t in (None, "default", "high3")}
+            plain_ms = cuda_time_ms(
+                lambda: lcp.lcp_scores_plain(*args, matmul_precision=tier), reps=3, warmup=1)
+            # The other LCP kernel on this shape (it has no "high3" tier and
+            # runs its fp32 one): what a measured routing rule would compare.
+            hb_tier = None if tier == "high3" else tier
+            hb_ms = cuda_time_ms(
+                lambda: lcp.lcp_segside_hb(*packed, True, hb_tier), reps=5, inner=20)
+            bound, core_bound = _lcp_bound_ms(h, nv, ns, tier)
+            cdist_ms = _cdist_scores_ms(args)
+            log(f"[lcp-tiers] timed {label} H={h} Nv={nv} Ns={ns} weighted: fp32={ms[None]:.4f} ms "
+                f"default={ms['default']:.4f} ms high3={ms['high3']:.4f} ms; "
+                f"lcp_segside_hb[{hb_tier}]={hb_ms:.4f} ms; plain[{tier}]="
+                f"{plain_ms:.3f} ms; bound[{tier}]={bound:.5f} ms share {bound / ms[tier]:.4f} "
+                f"(CUDA cores alone {core_bound:.5f} ms share {core_bound / ms[tier]:.3f}); "
+                f"cdist_yardstick={cdist_ms:.3f} ms")
+            stats[tier].update(ms=ms[tier], fp32_ms=ms[None], plain_ms=plain_ms, bound_ms=bound,
+                               cuda_core_bound_ms=core_bound, lcp_segside_hb_ms=hb_ms,
+                               cdist_yardstick_ms=cdist_ms, shape=[h, nv, ns])
+    return stats
+
+
+def phase_lcp_hb(device) -> dict:
+    """lcp_segside_hb against lcp_scores_plain and against lcp_segside: at the
+    coarse shape of the scoring path, at ragged H and Nv, and once with a
+    model that needs the tile loop; then timed beside lcp_segside."""
+    from physimglobalpose_tpu_torch.ops import lcp
+
+    cases = (
+        # (label, seed, H, Nv, Ns, masked)
+        ("coarse", 30, 16384, 256, 256, 6),
+        ("ragged", 31, 1003, 300, 200, 15),
+        ("ragged_tiny", 32, 5, 77, 50, 3),
+        ("tile_loop", 33, 67, 4096, 256, 9),
+    )
+    worst = 0.0
+    for label, seed, h, nv, ns, masked in cases:
+        args = lcp_inputs(seed, h, nv, ns, masked, device)
+        for tier in (None, "default"):
+            for weighted in (True, False):
+                before = lcp.lcp_segside_hb.launches
+                got = lcp.lcp_scores(*args, weighted=weighted, matmul_precision=tier,
+                                     hb_lane_pack=True)
+                if lcp.lcp_segside_hb.launches != before + 1:
+                    fail(f"lcp_segside_hb {label}: the call did not take the hypothesis-block kernel")
+                k1 = lcp.lcp_scores(*args, weighted=weighted, matmul_precision=tier,
+                                    hb_lane_pack=False)
+                want = lcp.lcp_scores_plain(*args, weighted=weighted, matmul_precision=tier)
+                torch.cuda.synchronize()
+                if not bool(torch.isfinite(got).all()) or got.shape != (h,):
+                    fail(f"lcp_segside_hb {label}: non-finite or misshapen output")
+                err = float((got - want).abs().max())
+                err_k1 = float((got - k1).abs().max())
+                log(f"[lcp-hb] {label} H={h} Nv={nv} Ns={ns} tier={tier} weighted={weighted}: "
+                    f"vs_plain={err:.3e} vs_lcp_segside={err_k1:.3e} (tol {TOL_LCP / nv:.3e}) "
+                    f"mean_score={float(want.mean()):.4f}")
+                if err > TOL_LCP / nv:
+                    fail(f"lcp_segside_hb disagrees with plain on {label} ({tier}, {weighted})")
+                if err_k1 > TOL_LCP / nv:
+                    fail(f"lcp_segside_hb disagrees with lcp_segside on {label} ({tier}, {weighted})")
+                if label == "coarse":
+                    worst = max(worst, err)
+        if label == "coarse":
+            # The scoring path's coarse call: unweighted, "default".
+            kw = dict(weighted=False, matmul_precision="default")
+            packed = packed_lcp_args(args)
+            ms = cuda_time_ms(lambda: lcp.lcp_segside_hb(*packed, False, "default"),
+                              reps=5, inner=20)
+            k1_ms = cuda_time_ms(lambda: lcp.lcp_segside(*packed, False, "default"),
+                                 reps=5, inner=20)
+            w_ms = cuda_time_ms(lambda: lcp.lcp_segside_hb(*packed, True, "default"),
+                                reps=5, inner=20)
+            plain_ms = cuda_time_ms(lambda: lcp.lcp_scores_plain(*args, **kw), reps=2, warmup=1)
+            library_ms = _cdist_scores_ms(args)
+            bound, core_bound = _lcp_bound_ms(h, nv, ns, "default")
+            log(f"[lcp-hb] timed coarse H={h} Nv={nv} Ns={ns} unweighted default: "
+                f"lcp_segside_hb={ms:.4f} ms (weighted {w_ms:.4f} ms) lcp_segside={k1_ms:.4f} ms "
+                f"plain={plain_ms:.3f} ms cdist_library={library_ms:.3f} ms; "
+                f"bound={bound:.5f} ms share {bound / ms:.4f} "
+                f"(CUDA cores alone {core_bound:.5f} ms share {core_bound / ms:.3f})")
+            stats = dict(ms=ms, weighted_ms=w_ms, lcp_segside_ms=k1_ms, plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=bound, cuda_core_bound_ms=core_bound,
+                         shape=[h, nv, ns])
+    stats["max_abs_err"] = worst
+    return stats
+
+
+def icp_inputs(seed: int, h: int, nm: int, ns: int, n_masked: int, n_garbage: int, device):
+    """The box of lcp_inputs as the ICP model; the last n_garbage hypotheses
+    sit 0.5 m away, where no segment point is in range."""
+    tfs, mpts, mnrm, spts, _snrm, _sprob, smask = lcp_inputs(seed, h, nm, ns, n_masked, device)
+    tfs[h - n_garbage:, :3, 3] += torch.tensor([0.5, 0.5, 0.0], device=device)
+    return tfs, mpts, mnrm, spts, smask
+
+
+def phase_icp(device) -> dict:
+    """icp_corr_segside against icp_segside_pass_plain: (A, b) of one pass at
+    the scoring path's ICP shape with masked points and garbage hypotheses,
+    both tiers; four iterations of refine_icp_segside over the kernel against
+    the same loop over the plain pass; then the pass timed alone."""
+    from physimglobalpose_tpu_torch.ops import icp, lcp
+
+    h, nm, ns, n_garbage = 256, 512, 512, 8
+    tfs, mpts, mnrm, spts, smask = icp_inputs(40, h, nm, ns, 20, n_garbage, device)
+    seg_c, tr_c = lcp.center_at_segment(tfs, spts, smask)
+    seg4 = icp.pack_icp_segment(seg_c, smask)
+    tr12 = tr_c[:, :3, :].reshape(-1, 12).contiguous()
+    stats = {}
+    for tier in (None, "default"):
+        a, b = icp.icp_segside_pass(tr12, seg4, mpts, mnrm, 0.02, tier)
+        pa, pb = icp.icp_segside_pass_plain(tr12, seg4, mpts, mnrm, 0.02, tier)
+        torch.cuda.synchronize()
+        if a.shape != (h, 6, 6) or b.shape != (h, 6) or not bool(torch.isfinite(a).all()):
+            fail(f"icp_corr_segside[{tier}]: non-finite or misshapen output")
+        err_a = float((a - pa).abs().max() / pa.abs().max())
+        err_b = float((b - pb).abs().max() / pb.abs().max())
+        log(f"[icp] pass H={h} Nm={nm} Ns={ns} tier={tier}: rel_err_A={err_a:.3e} "
+            f"rel_err_b={err_b:.3e} (tol {TOL_ICP_PASS:.0e} of the largest entry) "
+            f"max|A|={float(pa.abs().max()):.3f} max|b|={float(pb.abs().max()):.3e}")
+        if err_a > TOL_ICP_PASS or err_b > TOL_ICP_PASS:
+            fail(f"icp_corr_segside[{tier}] disagrees with its plain version")
+        if float(a[h - n_garbage:].abs().max()) != 0.0 or float(b[h - n_garbage:].abs().max()) != 0.0:
+            fail(f"icp_corr_segside[{tier}]: a hypothesis without correspondences has A, b != 0")
+        if float(a[: h - n_garbage].abs().amax(dim=(1, 2)).min()) <= 0.0:
+            fail(f"icp_corr_segside[{tier}]: a near-truth hypothesis found no correspondence")
+
+        got = icp.refine_icp_segside(tfs, mpts, mnrm, spts, smask, iters=4, matmul_precision=tier)
+        want = tr_c.to(torch.float32)  # the same loop over the plain pass
+        for _ in range(4):
+            pa, pb = icp.icp_segside_pass_plain(
+                want[:, :3, :].reshape(-1, 12).contiguous(), seg4, mpts, mnrm, 0.02, tier)
+            want = icp.segside_update(want, pa, pb)
+        want = want.clone()
+        want[:, :3, 3] += lcp.segment_centroid(spts, smask)
+        torch.cuda.synchronize()
+        place = lambda tf: torch.einsum("hij,nj->hni", tf[:, :3, :3], mpts) + tf[:, None, :3, 3]
+        disp = (place(got) - place(want)).norm(dim=-1).mean(dim=-1)
+        moved = (place(got) - place(tfs)).norm(dim=-1).mean(dim=-1)
+        log(f"[icp] 4 iterations tier={tier}: mean point displacement kernel vs plain loop "
+            f"max={float(disp.max()):.3e} m (bound {TOL_ICP_REFINE:.0e} m); poses moved by "
+            f"{float(moved[: h - n_garbage].mean()) * 1e3:.3f} mm on average")
+        if not bool(torch.isfinite(got).all()) or float(disp.max()) > TOL_ICP_REFINE:
+            fail(f"refine_icp_segside[{tier}] over the kernel parts from the plain loop")
+        if float((got[h - n_garbage:] - tfs[h - n_garbage:]).abs().max()) > 1e-6:
+            fail(f"refine_icp_segside[{tier}] moved a hypothesis without correspondences")
+        ms = cuda_time_ms(lambda: icp.icp_corr_segside(tr12, seg4, mpts, mnrm, 0.02, tier),
+                          reps=5, inner=20)
+        plain_ms = cuda_time_ms(
+            lambda: icp.icp_segside_pass_plain(tr12, seg4, mpts, mnrm, 0.02, tier), reps=3, warmup=1)
+        stats[tier] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=max(err_a, err_b))
+
+    def cdist_nearest():
+        # Yardstick only: the nearest model point per segment point by one
+        # library call (no PyTorch call computes the normal equations).
+        u = torch.einsum("hij,nj->hni", tr_c[:, :3, :3], mpts) + tr_c[:, None, :3, 3]
+        torch.cdist(seg_c.expand(h, -1, -1), u).min(-1)
+
+    cdist_ms = cuda_time_ms(cdist_nearest, reps=5)
+    # The pair work of the "default" tier's d2 search plus 60 FLOP a
+    # (hypothesis, point) for the transform and the normal equations.
+    per_point_s = 60.0 * h * (nm + ns) / PEAK_FP32_FLOPS
+    bytes_s = 4.0 * (12 * h + 4 * ns + 6 * nm + 42 * h) / PEAK_HBM_BYTES
+    ops_s, core_s = _pair_ops_s(float(h) * nm * ns, "default")
+    bound = max(ops_s + per_point_s, bytes_s) * 1e3
+    core_bound = max(core_s + per_point_s, bytes_s) * 1e3
+    log(f"[icp] timed pass H={h} Nm={nm} Ns={ns}: fp32={stats[None]['ms']:.4f} ms "
+        f"default={stats['default']['ms']:.4f} ms plain[default]={stats['default']['plain_ms']:.3f} ms "
+        f"cdist_nearest_yardstick={cdist_ms:.3f} ms; bound={bound:.5f} ms "
+        f"share {bound / stats['default']['ms']:.4f} (CUDA cores alone {core_bound:.5f} ms "
+        f"share {core_bound / stats['default']['ms']:.3f})")
+    out = dict(stats["default"], fp32_ms=stats[None]["ms"], bound_ms=bound,
+               cuda_core_bound_ms=core_bound, cdist_yardstick_ms=cdist_ms, shape=[h, nm, ns])
+    out["max_abs_err"] = max(stats[None]["max_abs_err"], stats["default"]["max_abs_err"])
+    return out
+
+
+def phase_scoring(device) -> tuple[dict, dict]:
+    """score_refine_pipeline at the benchmark's full shape with the production
+    flags: launch counts of one call, the fidelity gates against the exact
+    pipeline (easy and clutter inputs), warm latency, device-idle share."""
+    from physimglobalpose_tpu_torch import bench_inputs
+    from physimglobalpose_tpu_torch.ops import icp, lcp, scoring
+
+    flags = bench_inputs.prod_flags()
+    launches, stats = {}, {}
+    for clutter in (False, True):
+        name = "clutter" if clutter else "easy"
+        inputs = bench_inputs.to_tensors(bench_inputs.make_inputs(seed=0, clutter=clutter), device)
+        run = lambda: scoring.score_refine_pipeline(*inputs, **flags)
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        log(f"[scoring] {name}: H={inputs[0].shape[0]} Nv={inputs[3].shape[0]} "
+            f"Nm={inputs[1].shape[0]} Ns={inputs[5].shape[0]}; first call "
+            f"{(time.perf_counter() - t0) * 1e3:.2f} ms")
+
+        for fn in (lcp.lcp_segside, lcp.lcp_segside_hb):
+            fn.launches, fn.tier_launches = 0, [0, 0, 0]
+        icp.icp_corr_segside.launches = 0
+        prod = run()
+        torch.cuda.synchronize()
+        counts = {
+            "lcp_segside": lcp.lcp_segside.launches,
+            "lcp_segside/default": lcp.lcp_segside.tier_launches[1],
+            "lcp_segside/high3": lcp.lcp_segside.tier_launches[2],
+            "lcp_segside_hb": lcp.lcp_segside_hb.launches,
+            "icp_corr_segside": icp.icp_corr_segside.launches,
+        }
+        log(f"[scoring] {name}: launches of one call {counts}")
+        want = {"lcp_segside": 2, "lcp_segside/default": 1, "lcp_segside/high3": 1,
+                "lcp_segside_hb": 1, "icp_corr_segside": flags["icp_iters"]}
+        if counts != want:
+            fail(f"scoring ({name}): launches {counts}, expected {want}")
+        k = flags["top_k"]
+        if (prod.top_transforms.shape != (k, 4, 4) or prod.top_scores.shape != (k,)
+                or prod.coarse_scores.shape != (inputs[0].shape[0],)
+                or not bool(torch.isfinite(prod.top_transforms).all())
+                or not bool(torch.isfinite(prod.top_scores).all())):
+            fail(f"scoring ({name}): non-finite or misshapen result")
+        gate = bench_inputs.fidelity_gate(inputs, prod, clutter)  # raises on a failed gate
+        log(f"[scoring] {name}: fidelity gates passed {json.dumps(gate)}; "
+            f"top score {float(prod.top_scores[0]):.4f}")
+
+        walls = []
+        for _ in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        wall_ms = statistics.median(walls)
+        event_ms = cuda_time_ms(run, reps=7, warmup=0)
+        h = inputs[0].shape[0]
+        stats[name] = dict(wall_ms=wall_ms, event_ms=event_ms, hyp_per_s=h / (wall_ms * 1e-3),
+                           walls_ms=walls, gate=gate)
+        log(f"[scoring] {name}: warm call wall {wall_ms:.3f} ms (7 runs {min(walls):.3f}-"
+            f"{max(walls):.3f}), CUDA events {event_ms:.3f} ms, "
+            f"{h / (wall_ms * 1e-3):.0f} hyp/s")
+        launches = counts
+    busy_ms = profile_scene(run, label="scoring, clutter inputs")
+    if busy_ms is not None:
+        # The profiler slows the host; against the unprofiled warm call the
+        # same device time gives the idle share a caller sees.
+        wall_ms = stats["clutter"]["wall_ms"]
+        log(f"[scoring] clutter: device busy {busy_ms:.3f} ms of the {wall_ms:.3f} ms warm call: "
+            f"idle share {1.0 - busy_ms / wall_ms:.3f} without the profiler")
+    return stats, launches
+
+
 def phase_e2e(device, workdir: str) -> tuple[dict, dict]:
     """Prepare the three box objects and run estimate_pose twice (warm-up,
     then timed with the launch counts read around it)."""
@@ -347,12 +718,12 @@ def phase_e2e(device, workdir: str) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     log(f"[e2e] warm-up call {time.perf_counter() - t0:.3f} s")
 
-    lcp.lcp_segside.launches = 0
+    lcp.lcp_segside.launches, lcp.lcp_segside.tier_launches = 0, [0, 0, 0]
     t0 = time.perf_counter()
     result = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"lcp_segside": lcp.lcp_segside.launches}
+    launches = {"lcp_segside": lcp.lcp_segside.tier_launches[0]}
 
     timings = {k: v for k, v in result.timings.items() if k != "result_path"}
     timings["wall_s"] = wall
@@ -381,9 +752,9 @@ def phase_e2e(device, workdir: str) -> tuple[dict, dict]:
     return timings, launches
 
 
-def profile_scene(run) -> None:
-    """One more scene under torch.profiler: device busy time, its share of
-    the wall time, and the device time by kernel (top entries)."""
+def profile_scene(run, label: str = "scene") -> float | None:
+    """One more call of run() under torch.profiler: device busy time, its
+    share of the wall time, and the device time by kernel (top entries)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -394,8 +765,8 @@ def profile_scene(run) -> None:
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not events:
-        log("[profile] no device events recorded: device busy share not measured")
-        return
+        log(f"[profile] {label}: no device events recorded: device busy share not measured")
+        return None
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     busy, cur_s, cur_e = 0.0, *spans[0]
     for s_, e_ in spans[1:]:
@@ -409,10 +780,11 @@ def profile_scene(run) -> None:
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     log("[profile] " + json.dumps({
-        "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "what": label, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms, "device_events": len(events),
         "top_device_ms": {k[:60]: round(v, 3) for k, v in top},
     }))
+    return busy_ms
 
 
 def main() -> int:
@@ -425,24 +797,45 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     lcp_stats = phase_lcp(device)
+    tier_stats = phase_lcp_tiers(device)
+    hb_stats = phase_lcp_hb(device)
+    icp_stats = phase_icp(device)
     with tempfile.TemporaryDirectory() as workdir:
         _timings, launches = phase_e2e(device, workdir)
+    _scoring_stats, scoring_launches = phase_scoring(device)
 
-    kernels = [{
-        "name": "lcp_segside",
-        "route": "cuda",
-        "source": "physimglobalpose_tpu_torch/csrc/lcp_segside.cu",
-        "replaces": "physimglobalpose_tpu/ops/lcp.py:420",
-        "tpu_kernel": "ops/lcp.py::_lcp_kernel_segside",
-        "launches": launches["lcp_segside"],
-        "max_abs_err": lcp_stats["max_abs_err"],
-        "ms": lcp_stats["ms"],
-        "kernel_ms": lcp_stats["ms"],
-        "plain_ms": lcp_stats["plain_ms"],
-        "bound_ms": lcp_stats["bound_ms"],
-        "bound_by": "operations",
-        "library_ms": None,
-    }]
+    lcp_src = "physimglobalpose_tpu_torch/csrc/lcp_segside.cu"
+
+    def entry(name, source, replaces, tpu_kernel, n_launches, st, library_ms=None):
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "tpu_kernel": tpu_kernel, "launches": n_launches,
+            "max_abs_err": st["max_abs_err"], "ms": st["ms"], "kernel_ms": st["ms"],
+            "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"], "bound_by": "operations",
+            "share_of_bound": st["bound_ms"] / st["ms"], "library_ms": library_ms,
+            # The same work on the CUDA cores alone (equal to bound_ms for fp32).
+            "cuda_core_bound_ms": st.get("cuda_core_bound_ms", st["bound_ms"]),
+        }
+
+    kernels = [
+        entry("lcp_segside", lcp_src, "physimglobalpose_tpu/ops/lcp.py:420",
+              "ops/lcp.py::_lcp_kernel_segside (fp32 tier)", launches["lcp_segside"], lcp_stats),
+        entry("lcp_segside/default", lcp_src, "physimglobalpose_tpu/ops/lcp.py:420",
+              "ops/lcp.py::_lcp_kernel_segside (default tier)",
+              scoring_launches["lcp_segside/default"], tier_stats["default"]),
+        entry("lcp_segside/high3", lcp_src, "physimglobalpose_tpu/ops/lcp.py:420",
+              "ops/lcp.py::_lcp_kernel_segside (high3 tier)",
+              scoring_launches["lcp_segside/high3"], tier_stats["high3"]),
+        entry("lcp_segside_hb", lcp_src, "physimglobalpose_tpu/ops/lcp.py:543",
+              "ops/lcp.py::_lcp_kernel_segside_hb", scoring_launches["lcp_segside_hb"], hb_stats,
+              library_ms=hb_stats["library_ms"]),
+        entry("icp_corr_segside", "physimglobalpose_tpu_torch/csrc/icp_corr_segside.cu",
+              "physimglobalpose_tpu/ops/icp.py:273", "ops/icp.py::_icp_corr_kernel_segside",
+              scoring_launches["icp_corr_segside"], icp_stats),
+    ]
+    for k in kernels:
+        if k["launches"] <= 0:
+            fail(f"kernel {k['name']} was not launched on its main path")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -10,13 +10,26 @@ true correspondence on the model under partial occlusion). Outliers are
 down-weighted by a Welsch kernel (default) or exactly trimmed to the best
 trim_fraction of in-range matches. Hypotheses run in chunks of h_chunk, so
 the [h_chunk, Ns, Nm] distance block is the largest tensor built.
+
+Two refiners:
+- refine_icp: plain PyTorch, every option (the final polish of estimate_pose);
+- refine_icp_segside: point-to-plane with Welsch weights only, in the
+  segment-centred frame, one correspondence pass per iteration that returns
+  just the 6x6 normal equations per hypothesis. On the card the pass is the
+  CUDA kernel csrc/icp_corr_segside.cu (icp_corr_segside below); on the CPU
+  it is icp_segside_pass_plain, which the tests and chip_smoke.py hold the
+  kernel against. The scoring pipeline refines its survivors with it.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from physimglobalpose_tpu_torch import _build
 from physimglobalpose_tpu_torch import _torchcfg  # noqa: F401  (precision setup)
+from physimglobalpose_tpu_torch.ops import lcp as lcp_mod
 
 
 def _trim_weights(mind2, seg_mask, trim_fraction, max_corr_dist):
@@ -166,3 +179,190 @@ def refine_icp(
         ok = torch.all(torch.isfinite(ref).reshape(ref.shape[0], -1), dim=-1)
         out.append(torch.where(ok[:, None, None], ref, tf))
     return torch.cat(out)
+
+
+# ------------------------------------------------- segment-stationary pass
+
+# Largest model the kernel holds in shared memory (16 bytes a point, 128 KB).
+MAX_SEGSIDE_MODEL_POINTS = 8192
+# matmul_precision -> the kernel's tier argument (no "high3" tier here).
+ICP_TIERS = {None: 0, "highest": 0, "default": 1}
+
+
+def pack_icp_segment(seg_c, seg_mask) -> torch.Tensor:
+    """[Ns, 4] kernel layout of a centred segment: x, y, z, |s|^2 (1e9 where
+    masked, so the point is never within max_corr_dist of anything)."""
+    seg_sq = torch.where(seg_mask, torch.sum(seg_c * seg_c, dim=-1), 1e9)
+    return torch.cat([seg_c, seg_sq[:, None]], dim=1).to(torch.float32).contiguous()
+
+
+def icp_segside_pass_plain(tr12, seg4, model_pts, model_nrm, max_corr_dist: float = 0.02,
+                           matmul_precision: str | None = None, h_chunk: int = 32):
+    """Plain PyTorch version of one correspondence pass: (A [H, 6, 6], b [H, 6]).
+
+    tr12 [H, 12] row-major (R | t) in the centred frame, seg4 from
+    pack_icp_segment. Per segment point j: the nearest transformed model
+    point by d2 = |s|^2 + |u|^2 - 2 s.u, the Welsch weight
+    w = exp(-mind2 / (2 sigma^2)) (sigma = max_corr_dist / 2) when
+    mind2 <= max_corr_dist^2 and 0 otherwise, shared equally by exactly tied
+    nearest points. With col_i = (u_i x R n_i, R n_i) and the residual
+    r_ji = (u_i - s_j) . R n_i:
+      A = sum w_ji col_i col_i^T,   b = -sum w_ji col_i r_ji.
+    "default" rounds to bf16 both operands of the d2 product (s, |s|^2, -2u,
+    |u|^2), then w / ties, the segment coordinates in r_ji and col_i; the
+    products and sums stay float32. d2 is a fixed chain of elementwise
+    products and sums, the kernel's own, so both find the same
+    correspondences.
+    """
+    lowp = bool(ICP_TIERS[matmul_precision])
+    max_corr2 = max_corr_dist * max_corr_dist
+    two_sigma2 = 2.0 * (max_corr_dist * 0.5) ** 2
+    s4 = lcp_mod.round_bf16(seg4) if lowp else seg4
+    a_out, b_out = [], []
+    for tc in tr12.split(h_chunk):
+        rt = tc.reshape(-1, 3, 4)
+        rot, t = rt[:, :, :3], rt[:, :, 3]
+        u = lcp_mod.rotate_points(rot, model_pts, t)  # [hc, Nm, 3]
+        un = lcp_mod.rotate_points(rot, model_nrm)
+        usq = (u[..., 0] * u[..., 0] + u[..., 1] * u[..., 1]) + u[..., 2] * u[..., 2]
+        a = -2.0 * u
+        if lowp:
+            a, usq = lcp_mod.round_bf16(a), lcp_mod.round_bf16(usq)
+        d2 = s4[:, 3, None] + usq[:, None, :]  # [hc, Ns, Nm]
+        for ax in (2, 1, 0):
+            d2 = s4[:, ax, None] * a[:, None, :, ax] + d2
+        mind2 = torch.amin(d2, dim=-1)  # [hc, Ns]
+        w = torch.where(mind2 <= max_corr2, torch.exp(-mind2 / two_sigma2), 0.0)
+        is_best = d2 <= mind2[..., None]
+        wq = w / torch.clamp(torch.sum(is_best, dim=-1), min=1)
+        if lowp:
+            wq = lcp_mod.round_bf16(wq)
+        wone = is_best * wq[..., None]  # [hc, Ns, Nm]
+        ux, uy, uz = u.unbind(-1)
+        nx, ny, nz = un.unbind(-1)
+        col = torch.stack(
+            [uy * nz - uz * ny, uz * nx - ux * nz, ux * ny - uy * nx, nx, ny, nz], dim=-1
+        )  # [hc, Nm, 6]
+        if lowp:
+            col = lcp_mod.round_bf16(col)
+        res = (
+            (ux[:, None, :] - s4[:, 0, None]) * nx[:, None, :]
+            + (uy[:, None, :] - s4[:, 1, None]) * ny[:, None, :]
+        ) + (uz[:, None, :] - s4[:, 2, None]) * nz[:, None, :]  # [hc, Ns, Nm]
+        w_model = torch.sum(wone, dim=1)  # [hc, Nm]
+        g_model = torch.sum(wone * res, dim=1)
+        a_out.append(torch.einsum("hia,hi,hib->hab", col, w_model, col))
+        b_out.append(-torch.einsum("hia,hi->ha", col, g_model))
+    return torch.cat(a_out), torch.cat(b_out)
+
+
+def _icp_launcher():
+    fn = _build.load("icp_corr_segside").icp_corr_segside_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+            ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def icp_corr_segside(tr12, seg4, model_pts, model_nrm, max_corr_dist: float = 0.02,
+                     matmul_precision: str | None = None):
+    """Launch csrc/icp_corr_segside.cu on the current stream: one
+    correspondence pass, the arguments and result of icp_segside_pass_plain.
+    Counts its launches in icp_corr_segside.launches."""
+    dev = tr12.device
+    for x in (tr12, seg4, model_pts, model_nrm):
+        if x.device != dev or x.device.type != "cuda":
+            raise ValueError("icp_corr_segside takes CUDA tensors on one device")
+        if x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError("icp_corr_segside takes contiguous float32 tensors")
+    h, ns, nm = tr12.shape[0], seg4.shape[0], model_pts.shape[0]
+    if tr12.shape != (h, 12) or seg4.shape != (ns, 4):
+        raise ValueError("icp_corr_segside: tr12 must be [H, 12] and seg4 [Ns, 4]")
+    if model_pts.shape != (nm, 3) or model_nrm.shape != (nm, 3) or nm < 1:
+        raise ValueError("icp_corr_segside: model_pts and model_nrm must be [Nm >= 1, 3]")
+    if nm > MAX_SEGSIDE_MODEL_POINTS:
+        raise NotImplementedError(
+            f"models above {MAX_SEGSIDE_MODEL_POINTS} points do not fit the kernel's "
+            "shared memory; use refine_icp"
+        )
+    out = torch.empty((h, 42), dtype=torch.float32, device=dev)
+    rc = _icp_launcher()(
+        tr12.data_ptr(), seg4.data_ptr(), model_pts.data_ptr(), model_nrm.data_ptr(),
+        out.data_ptr(), h, ns, nm, max_corr_dist * max_corr_dist,
+        2.0 * (max_corr_dist * 0.5) ** 2, ICP_TIERS[matmul_precision],
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"icp_corr_segside launch failed with CUDA error {rc}")
+    icp_corr_segside.launches += 1
+    return out[:, :36].reshape(h, 6, 6), out[:, 36:]
+
+
+icp_corr_segside.launches = 0
+
+
+def icp_segside_pass(tr12, seg4, model_pts, model_nrm, max_corr_dist: float = 0.02,
+                     matmul_precision: str | None = None):
+    """One correspondence pass: the kernel for tensors on the card, the plain
+    version for tensors on the CPU."""
+    fn = icp_segside_pass_plain if tr12.device.type == "cpu" else icp_corr_segside
+    return fn(tr12, seg4, model_pts, model_nrm, max_corr_dist, matmul_precision)
+
+
+def segside_update(tfs, a, b):
+    """One pose update from the normal equations: solve (A + 1e-8 I) x = b,
+    x = (omega, t) -> Rodrigues rotation, composed onto tfs [H, 4, 4]. A
+    hypothesis whose update is not finite keeps its pose."""
+    eye6 = torch.eye(6, device=tfs.device, dtype=a.dtype)
+    x = torch.linalg.solve_ex(a + 1e-8 * eye6, b[..., None]).result[..., 0]  # no host sync
+    omega, t = x[:, :3], x[:, 3:]
+    theta = torch.linalg.norm(omega, dim=-1, keepdim=True)
+    kx = _skew(omega / torch.clamp(theta, min=1e-12))
+    drot = (
+        torch.eye(3, device=tfs.device)
+        + torch.sin(theta)[..., None] * kx
+        + (1.0 - torch.cos(theta))[..., None] * (kx @ kx)
+    )
+    out = torch.zeros_like(tfs)
+    out[:, :3, :3] = drot @ tfs[:, :3, :3]
+    out[:, :3, 3] = torch.einsum("hij,hj->hi", drot, tfs[:, :3, 3]) + t
+    out[:, 3, 3] = 1.0
+    finite = torch.all(torch.isfinite(out).reshape(out.shape[0], -1), dim=-1)
+    return torch.where(finite[:, None, None], out, tfs)
+
+
+def refine_icp_segside(
+    transforms: torch.Tensor,  # [H, 4, 4]
+    model_pts: torch.Tensor,  # [Nm, 3]
+    model_nrm: torch.Tensor,  # [Nm, 3]
+    seg_pts: torch.Tensor,  # [Ns, 3]
+    seg_mask: torch.Tensor,  # [Ns]
+    iters: int = 6,
+    max_corr_dist: float = 0.02,
+    matmul_precision: str | None = None,
+) -> torch.Tensor:
+    """Segment-stationary point-to-plane ICP; returns [H, 4, 4].
+
+    The same function as refine_icp(point_to_plane=True, exact_trim=False,
+    nn_refresh=1): every iteration finds correspondences anew. Segment and
+    poses are centred at the masked segment centroid before the passes (the
+    "default" tier rounds coordinates to bf16, which is only safe at segment
+    scale) and the result is returned in the original frame.
+    matmul_precision: None / "highest" or "default".
+    """
+    if matmul_precision not in ICP_TIERS:
+        raise ValueError(f"unknown ICP matmul_precision {matmul_precision!r}")
+    seg_c, tfs = lcp_mod.center_at_segment(transforms, seg_pts, seg_mask)
+    seg4 = pack_icp_segment(seg_c, seg_mask)
+    mp = model_pts.to(torch.float32).contiguous()
+    mn = model_nrm.to(torch.float32).contiguous()
+    tfs = tfs.to(torch.float32)
+    for _ in range(iters):
+        tr12 = tfs[:, :3, :].reshape(-1, 12).contiguous()
+        a, b = icp_segside_pass(tr12, seg4, mp, mn, max_corr_dist, matmul_precision)
+        tfs = segside_update(tfs, a, b)
+    tfs = tfs.clone()
+    tfs[:, :3, 3] += lcp_mod.segment_centroid(seg_pts, seg_mask)
+    return tfs

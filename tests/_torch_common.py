@@ -43,3 +43,12 @@ def jax_object_fields(obj):
         presence=np.asarray(tab.presence), offsets=np.asarray(tab.offsets),
         counts=np.asarray(tab.counts), pairs=np.asarray(tab.pairs), diameter=obj.diameter,
     )
+
+
+def scoring_inputs(arrays):
+    """The nine arrays of bench.make_inputs (JAX or numpy arrays: transforms,
+    search cloud + normals, validation cloud + normals, segment points,
+    normals, probabilities, mask) as the port's CPU tensors, so that both
+    packages score the same inputs."""
+    *floats, mask = arrays
+    return tuple(t(a) for a in floats) + (tb(mask),)

@@ -1,4 +1,5 @@
-"""The port and chip_smoke.py import neither JAX nor the JAX package.
+"""The port and chip_smoke.py import neither JAX nor the JAX package nor its
+bench.py, and importing the port needs no CUDA compiler and no triton.
 
 Checked on the source (ast), not on sys.modules: the test process itself
 imports JAX. Note that physimglobalpose_tpu_torch shares its prefix with
@@ -6,10 +7,13 @@ physimglobalpose_tpu, so the check is on the top-level module name.
 """
 
 import ast
+import os
 import pathlib
+import subprocess
+import sys
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "physimglobalpose_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "physimglobalpose_tpu", "bench"}
 
 
 def _sources():
@@ -33,6 +37,10 @@ def _forbidden_imports(path):
 def test_port_imports_no_jax():
     files = _sources()
     assert len(files) > 20
+    names = {str(p.relative_to(ROOT)) for p in files}
+    assert {"physimglobalpose_tpu_torch/ops/scoring.py", "physimglobalpose_tpu_torch/ops/icp.py",
+            "physimglobalpose_tpu_torch/ops/lcp.py",
+            "physimglobalpose_tpu_torch/bench_inputs.py"} <= names
     offenders = {str(p.relative_to(ROOT)): b for p in files if (b := _forbidden_imports(p))}
     assert offenders == {}
 
@@ -42,5 +50,30 @@ def test_checker_catches_forbidden_imports(tmp_path):
     src.write_text(
         "import jax.numpy as jnp\nfrom physimglobalpose_tpu.ops import lcp\n"
         "import physimglobalpose_tpu_torch\nfrom physimglobalpose_tpu_torch.ops import lcp\n"
+        "import bench\nfrom physimglobalpose_tpu_torch import bench_inputs\n"
     )
-    assert _forbidden_imports(src) == ["jax.numpy", "physimglobalpose_tpu.ops"]
+    assert _forbidden_imports(src) == ["jax.numpy", "physimglobalpose_tpu.ops", "bench"]
+
+
+def test_importing_the_port_builds_and_loads_no_kernel():
+    # Every module of the port imports in a process that can find no CUDA
+    # compiler, without loading triton, building or loading a kernel library.
+    modules = sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts)
+        for p in (ROOT / "physimglobalpose_tpu_torch").rglob("*.py") if p.name != "__init__.py"
+    )
+    assert "physimglobalpose_tpu_torch.ops.scoring" in modules
+    code = (
+        "import importlib, sys\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        "from physimglobalpose_tpu_torch import _build\n"
+        "assert 'triton' not in sys.modules\n"
+        "assert _build._LOADED == {} and _build.BUILD_LOG == {}\n"
+        "print('imported', len(sys.modules))\n"
+    )
+    env = dict(os.environ, PATH="/nonexistent", CUDA_HOME="/nonexistent", CUDA_PATH="/nonexistent",
+               PYTHONPATH=str(ROOT))
+    done = subprocess.run([sys.executable, "-c", code], env=env, cwd=str(ROOT), timeout=300,
+                          capture_output=True, text=True)
+    assert done.returncode == 0, done.stderr[-2000:]
+    assert done.stdout.startswith("imported")

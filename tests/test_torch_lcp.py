@@ -1,7 +1,9 @@
 """Port parity: ops/lcp.lcp_scores_plain against the JAX XLA scorer and
-against the TPU kernel it replaces (_lcp_kernel_segside, run in Pallas
-interpret mode on the CPU). The CUDA kernel itself is held against
-lcp_scores_plain on the card by chip_smoke.py."""
+against the TPU kernels it stands for (_lcp_kernel_segside and
+_lcp_kernel_segside_hb, run in Pallas interpret mode on the CPU), tier by
+tier, and the copied kernel-routing rule against the JAX one. The CUDA
+kernels themselves are held against lcp_scores_plain on the card by
+chip_smoke.py."""
 
 import functools
 from unittest import mock
@@ -112,3 +114,119 @@ def test_tie_rule_takes_max_prob_and_max_normal():
     got = lcp.lcp_scores_plain(t(tf), t([[0, 0, 0.5]]), t([[0, 0, 1]]), t(seg), t(nrm),
                                t(prob), tb([True, True, True]))
     np.testing.assert_allclose(n(got), [0.9], atol=1e-6)
+
+
+# ------------------------------------------------------------ tiers, routing
+
+
+@pytest.mark.parametrize("weighted", [True, False], ids=["weighted", "unweighted"])
+@pytest.mark.parametrize("precision", [None, "default", "high3"])
+def test_plain_tiers_match_tpu_kernel_interpret(rng, precision, weighted):
+    # Per-hypothesis kernel (hb_lane_pack=False), 20 masked points. Tolerance
+    # 2/Nv: the packages sum the d^2 terms in different orders, so a point on
+    # the delta^2 threshold or an exact-tie rule may flip.
+    case = make_case(rng, 512, 200, 24, 20)
+    jargs, targs = _both(case)
+    want = _interpret_segside(jargs, weighted=weighted, matmul_precision=precision,
+                              hb_lane_pack=False)
+    got = n(lcp.lcp_scores_plain(*targs, weighted=weighted, matmul_precision=precision))
+    assert want.max() > 0.05
+    np.testing.assert_allclose(got, want, atol=2.0 / 512)
+
+
+@pytest.mark.parametrize("precision", [None, "default", "high3"])
+@pytest.mark.parametrize(
+    "n_model,n_seg,hb_lane_pack",
+    [(128, 96, None), (512, 200, True)],
+    ids=["auto_small_model", "forced_model_tiled"],
+)
+def test_dispatch_matches_tpu_hypothesis_block_interpret(rng, n_model, n_seg, hb_lane_pack,
+                                                        precision):
+    # The hypothesis-block branch (whole-model by the auto rule at a small Nv,
+    # model-tiled when forced). It has no high3 tier: both packages then score
+    # in float32. Tolerance 2/Nv as above.
+    case = make_case(rng, n_model, n_seg, 19, 8)
+    jargs, targs = _both(case)
+    assert lcp.uses_hypothesis_block(n_model, n_seg, hb_lane_pack)
+    for weighted in (True, False):
+        want = _interpret_segside(jargs, weighted=weighted, matmul_precision=precision,
+                                  hb_lane_pack=hb_lane_pack)
+        got = n(lcp.lcp_scores(*targs, weighted=weighted, matmul_precision=precision,
+                               hb_lane_pack=hb_lane_pack))
+        np.testing.assert_allclose(got, want, atol=2.0 / n_model)
+        if precision == "high3":
+            np.testing.assert_array_equal(got, n(lcp.lcp_scores_plain(*targs, weighted=weighted)))
+
+
+class _Routed(Exception):
+    pass
+
+
+def _jax_route(nv, ns, hb_lane_pack):
+    """Which TPU kernel lcp_scores_pallas_segside hands to pallas_call."""
+    from jax.experimental import pallas as pl
+
+    def record(kernel, **_kw):
+        raise _Routed(kernel.func.__name__)
+
+    args = (jnp.zeros((3, 4, 4)), jnp.zeros((nv, 3)), jnp.zeros((nv, 3)), jnp.zeros((ns, 3)),
+            jnp.zeros((ns, 3)), jnp.zeros(ns), jnp.ones(ns, bool))
+    with mock.patch.object(pl, "pallas_call", record):
+        with pytest.raises(_Routed) as info:
+            jlcp.lcp_scores_pallas_segside.__wrapped__(*args, hb_lane_pack=hb_lane_pack)
+    return str(info.value) == "_lcp_kernel_segside_hb"
+
+
+@pytest.mark.parametrize("hb_lane_pack", [None, True, False])
+def test_routing_rule_matches_jax(hb_lane_pack):
+    for nv in (1, 100, 128, 129, 256, 257, 512, 1000, 4096):
+        for ns in (1, 128, 256, 257, 768, 1024, 1500, 2048):
+            assert lcp.uses_hypothesis_block(nv, ns, hb_lane_pack) == _jax_route(
+                nv, ns, hb_lane_pack), (nv, ns, hb_lane_pack)
+    # The benchmark's tiers: coarse -> hypothesis block, fine and exact -> per hypothesis.
+    assert lcp.uses_hypothesis_block(256, 256)
+    assert not lcp.uses_hypothesis_block(4096, 256)
+    assert not lcp.uses_hypothesis_block(4096, 1024)
+
+
+def test_high3_is_float32_grade_and_default_is_not(rng):
+    # A tier silently computed in float32 fails the second half; a high3 tier
+    # that is really "default" fails the first.
+    # d^2-insensitive inputs: hypotheses exactly on or 3 delta off the truth,
+    # no noise, so no point sits near the delta^2 threshold.
+    case = list(make_case(rng, 400, 300, 8, 10, jitter=0.0))
+    tfs, model, mn, seg_pts = case[:4]
+    rot, tr = tfs[0, :3, :3], tfs[0, :3, 3]
+    k = 300 - 300 // 5
+    seg_pts[:k] = (seg_pts[:k] - tr) @ rot  # undo, then re-place without noise
+    idx = np.argmin(((seg_pts[:k, None] - model[None]) ** 2).sum(-1), axis=1)
+    seg_pts[:k] = model[idx] @ rot.T + tr
+    tfs[4:, :3, 3] += 0.015
+    tfs[-1] = tfs[0]
+    targs = tuple(t(a) for a in case[:-1]) + (tb(case[-1]),)
+    f32 = n(lcp.lcp_scores_plain(*targs))
+    high3 = n(lcp.lcp_scores_plain(*targs, matmul_precision="high3"))
+    assert f32[0] > 0.3
+    np.testing.assert_allclose(high3, f32, atol=1e-6)
+
+    # Scene-scale inputs (noise, jittered hypotheses): bf16 operands put
+    # ~5e-5 of noise on d^2, twice delta^2, so "default" scores move.
+    case = make_case(rng, 512, 200, 24, 12)
+    _, targs = _both(case)
+    f32 = n(lcp.lcp_scores_plain(*targs, weighted=False))
+    low = n(lcp.lcp_scores_plain(*targs, weighted=False, matmul_precision="default"))
+    assert np.abs(low - f32).max() >= 2.0 / 512
+    high3 = n(lcp.lcp_scores_plain(*targs, weighted=False, matmul_precision="high3"))
+    assert np.abs(high3 - f32).max() < np.abs(low - f32).max()
+
+
+def test_hb_wrapper_takes_only_cuda_tensors_and_no_high3():
+    tr12 = torch.zeros(4, 12)
+    args = (tr12, torch.zeros(8, 3), torch.zeros(8, 3), torch.zeros(5, 8), 2.5e-5, 0.866, True)
+    with pytest.raises(ValueError, match="CUDA"):
+        lcp.lcp_segside_hb(*args)
+    with pytest.raises(ValueError, match="high3"):
+        lcp.lcp_segside_hb(*args, matmul_precision="high3")
+    with pytest.raises(ValueError, match="matmul_precision"):
+        lcp.lcp_scores(torch.zeros(1, 4, 4), *[torch.zeros(4, 3)] * 4, torch.zeros(4),
+                       torch.ones(4, dtype=torch.bool), matmul_precision="bf16")
