@@ -11,7 +11,11 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    [lcp] the per-hypothesis LCP kernel, fp32 tier; [lcp-tiers] its "default"
    and "high3" tiers; [lcp-hb] the hypothesis-block LCP kernel, also against
    the per-hypothesis kernel; [icp] the segment-stationary ICP kernel, one
-   pass and four iterations;
+   pass and four iterations; [lcp-stream] the streaming LCP kernel for
+   segments of any size, both tiers, also against the per-hypothesis kernel
+   on a segment both take; [lcp-wide] its hypothesis-group variant, also
+   against the streaming kernel; [icp-stream] the model-streaming ICP kernel,
+   one pass and four iterations;
 4. [e2e] a 640x480 scene of three boxes on a table, ray-cast here in numpy,
    through the port's prepare_object and estimate_pose (GT / PCS / LCP) at the
    default configuration; every object must come back within ADD-S 1 cm, and
@@ -20,7 +24,12 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    hypotheses) with the production flags, easy and clutter inputs, the launch
    counts of one call, both fidelity gates against the exact pipeline, the
    warm latency and the device-idle share of one call;
-6. one JSON line describing every kernel, the card line, and last a JSON
+6. the large-segment path: [scoring-large] the same pipeline on 4,096-point
+   segments, whose exact tier and whose yardstick pipeline take the streaming
+   LCP kernel; [e2e-large] the scene again with max_segment_points = 4096,
+   whose hypothesis scoring takes it; the direct calls of [lcp-wide] and
+   [icp-stream] are the paths of the two kernels no pipeline routes to;
+7. one JSON line describing every kernel, the card line, and last a JSON
    line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX. Exits non-zero without a CUDA device.
@@ -28,6 +37,7 @@ Imports nothing of JAX. Exits non-zero without a CUDA device.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -164,17 +174,6 @@ def write_box_ply(path: str, size):
     return verts.astype(np.float32), np.asarray(tris, np.int32)
 
 
-def adds_error(pose_est: np.ndarray, pose_gt: np.ndarray, pts: np.ndarray, device) -> float:
-    """ADD-S: mean over GT-placed model points of the distance to the nearest
-    estimate-placed model point."""
-    p = torch.as_tensor(pts, dtype=torch.float64, device=device)
-    a = p @ torch.as_tensor(pose_gt[:3, :3], dtype=torch.float64, device=device).T
-    a = a + torch.as_tensor(pose_gt[:3, 3], dtype=torch.float64, device=device)
-    b = p @ torch.as_tensor(pose_est[:3, :3], dtype=torch.float64, device=device).T
-    b = b + torch.as_tensor(pose_est[:3, 3], dtype=torch.float64, device=device)
-    return float(torch.cdist(a, b).amin(dim=1).mean())
-
-
 # ----------------------------------------------------------------- LCP inputs
 
 
@@ -273,9 +272,14 @@ def phase_build() -> float:
     secs = _build.build()
     log(f"[build] {len(_build.KERNEL_SOURCES)} kernel source(s) built in {secs:.2f} s")
     for name, text in _build.BUILD_LOG.items():
+        kernel = ""
         for line in text.splitlines():
-            if "registers" in line or "smem" in line or "error" in line.lower():
-                log(f"[build] {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                # The mangled name holds the kernel and its template arguments
+                # (Li<tier>E, Lb<weighted>E).
+                kernel = line.split("'")[1].split("_GLOBAL__N_", 1)[-1][-60:]
+            elif "registers" in line or "smem" in line or "error" in line.lower():
+                log(f"[build] {name}: {kernel}: {line.strip()}")
     return secs
 
 
@@ -378,14 +382,15 @@ def _lcp_bound_ms(h: int, nv: int, ns: int, tier: str | None) -> tuple[float, fl
     return max(ops_s + per_point_s, bytes_s) * 1e3, max(core_s + per_point_s, bytes_s) * 1e3
 
 
-def _cdist_scores_ms(args, delta: float = 0.005) -> float:
-    """One-library-call yardstick of the unweighted score: chunked
-    torch.cdist(...).amin(-1) <= delta, averaged over the model."""
+def _cdist_scores_ms(args, delta: float = 0.005, chunk: int = 256) -> float:
+    """One-library-call yardstick of the unweighted score: torch.cdist(...)
+    .amin(-1) <= delta, averaged over the model, in chunks of `chunk`
+    hypotheses."""
     tfs, mpts, _, spts = args[:4]
 
     def run():
         u = torch.einsum("hij,nj->hni", tfs[:, :3, :3], mpts) + tfs[:, None, :3, 3]
-        for uc in u.split(256):
+        for uc in u.split(chunk):
             (torch.cdist(uc, spts).amin(-1) <= delta).float().mean(-1)
 
     return cuda_time_ms(run, reps=3, warmup=1)
@@ -607,27 +612,293 @@ def phase_icp(device) -> dict:
     return out
 
 
-def phase_scoring(device) -> tuple[dict, dict]:
+def stream_lcp_args(args, delta: float = 0.005, gate_deg: float = 30.0):
+    """What lcp_scores_stream hands the streaming kernels' wrappers for these
+    inputs: (tr12, model_pts, model_nrm, segcat, delta^2, cos gate)."""
+    from physimglobalpose_tpu_torch.ops import lcp
+
+    tfs, mpts, mnrm, spts, snrm, sprob, smask = args
+    return (tfs[:, :3, :].reshape(-1, 12).contiguous(), mpts.contiguous(), mnrm.contiguous(),
+            lcp.pack_stream_segment(spts, snrm, sprob, smask), delta * delta,
+            math.cos(math.radians(gate_deg)))
+
+
+def _check_scores(tag, what, got, want, h, tol):
+    """Fail unless got is finite, [h] and within tol of want; returns the error."""
+    torch.cuda.synchronize()
+    if got.shape != (h,) or not bool(torch.isfinite(got).all()):
+        fail(f"{tag} {what}: non-finite or misshapen output")
+    err = float((got - want).abs().max())
+    if err > tol:
+        fail(f"{tag} {what}: max_abs_err {err:.3e} above {tol:.3e}")
+    return err
+
+
+def phase_lcp_stream(device) -> dict:
+    """lcp_stream against lcp_scores_stream_plain, weighted and unweighted,
+    fp32 and "default": at the exact-tier shape of the large-segment scoring
+    path and at ragged shapes (Ns no multiple of the tile, a masked tail, an
+    all-masked segment, duplicated segment points that tie across a tile
+    edge); against lcp_segside on one 2,048-point segment; then timed at the
+    exact-tier shape and at the large-segment scene's shape."""
+    from physimglobalpose_tpu_torch.ops import lcp
+
+    cases = (
+        # (label, seed, H, Nv, Ns, masked, ns_tile)
+        ("exact", 50, 32, 4096, 4096, 50, 1024),
+        ("ragged", 51, 37, 1000, 2500, 40, 1024),
+        ("ragged_tile64", 52, 13, 700, 333, 20, 64),
+        ("cross_tile_ties", 53, 16, 2048, 3000, 30, 1024),
+        ("all_masked", 54, 9, 512, 2500, 0, 1024),
+    )
+    worst = 0.0
+    for label, seed, h, nv, ns, masked, tile in cases:
+        args = lcp_inputs(seed, h, nv, ns, masked, device)
+        if label == "cross_tile_ties":
+            # The first 50 segment points again 1,100 places on, in the next
+            # tile, with their own probabilities: exact ties across the edge.
+            args[3][1100:1150], args[4][1100:1150] = args[3][:50].clone(), args[4][:50].clone()
+        if label == "all_masked":
+            args[6][:] = False
+        if label == "ragged":
+            args[6][-300:] = False  # a masked tail, as a padded segment has
+        for tier in (None, "default"):
+            for weighted in (True, False):
+                kw = dict(weighted=weighted, matmul_precision=tier, ns_tile=tile)
+                got = lcp.lcp_scores_stream(*args, **kw)
+                want = lcp.lcp_scores_stream_plain(*args, **kw)
+                err = _check_scores("[lcp-stream]", f"{label} {tier} weighted={weighted}", got,
+                                    want, h, TOL_LCP / nv)
+                note = ""
+                if label == "cross_tile_ties" and weighted:
+                    one_tile = lcp.lcp_scores_stream_plain(*args, **dict(kw, ns_tile=4096))
+                    effect = float((one_tile - want).abs().max())
+                    note = f" tile_rule_effect={effect:.3e}"
+                    if effect == 0.0:
+                        fail("[lcp-stream] the tie case has no tie across a tile edge")
+                if label == "all_masked" and float(got.abs().max()) != 0.0:
+                    fail("[lcp-stream] an all-masked segment scored above 0")
+                log(f"[lcp-stream] {label} H={h} Nv={nv} Ns={ns} ns_tile={tile} tier={tier} "
+                    f"weighted={weighted}: max_abs_err={err:.3e} (tol {TOL_LCP / nv:.3e}) "
+                    f"mean_score={float(want.mean()):.4f}{note}")
+                if label == "exact":
+                    worst = max(worst, err)
+
+    # Two formulations of one score on a segment both kernels take.
+    args = lcp_inputs(55, 64, 4096, 2048, 30, device)
+    k1 = lcp.lcp_scores(*args)
+    err = _check_scores("[lcp-stream]", "vs lcp_segside", lcp.lcp_scores_stream(*args), k1, 64,
+                        TOL_LCP / 4096)
+    log(f"[lcp-stream] H=64 Nv=4096 Ns=2048 fp32 weighted: lcp_stream vs lcp_segside "
+        f"{err:.3e} (tol {TOL_LCP / 4096:.3e})")
+
+    # Timing. The exact-tier call of the scoring path: weighted, fp32.
+    h, nv, ns = 32, 4096, 4096
+    args = lcp_inputs(50, h, nv, ns, 50, device)
+    packed = stream_lcp_args(args)
+    run = lambda w, t: cuda_time_ms(lambda: lcp.lcp_stream(*packed, w, t), reps=5, inner=10)
+    ms, ms_default, ms_unw = run(True, None), run(True, "default"), run(False, None)
+    plain_ms = cuda_time_ms(lambda: lcp.lcp_scores_stream_plain(*args), reps=2, warmup=1)
+    cdist_ms = _cdist_scores_ms(args, chunk=32)
+    bound, _ = _lcp_bound_ms(h, nv, ns, None)
+    bound_default, core_default = _lcp_bound_ms(h, nv, ns, "default")
+    log(f"[lcp-stream] timed exact H={h} Nv={nv} Ns={ns} weighted: fp32={ms:.4f} ms "
+        f"default={ms_default:.4f} ms; unweighted fp32={ms_unw:.4f} ms; plain={plain_ms:.3f} ms; "
+        f"bound={bound:.5f} ms share {bound / ms:.4f}; bound[default]={bound_default:.5f} ms "
+        f"(CUDA cores alone {core_default:.5f} ms); cdist_yardstick={cdist_ms:.3f} ms")
+    stats = dict(max_abs_err=worst, ms=ms, default_ms=ms_default, unweighted_ms=ms_unw,
+                 plain_ms=plain_ms, bound_ms=bound, cdist_yardstick_ms=cdist_ms, shape=[h, nv, ns])
+
+    # The per-object call of the large-segment scene: H = 10,000.
+    h = 10_000
+    args = lcp_inputs(56, h, nv, ns, 50, device)
+    packed = stream_lcp_args(args)
+    run = lambda w, t: cuda_time_ms(lambda: lcp.lcp_stream(*packed, w, t), reps=3, warmup=1)
+    s_ms, s_default, s_unw = run(True, None), run(True, "default"), run(False, None)
+    s_cdist = _cdist_scores_ms(args, chunk=32)
+    s_bound, _ = _lcp_bound_ms(h, nv, ns, None)
+    log(f"[lcp-stream] timed scene H={h} Nv={nv} Ns={ns} weighted: fp32={s_ms:.3f} ms "
+        f"default={s_default:.3f} ms; unweighted fp32={s_unw:.3f} ms; bound={s_bound:.3f} ms "
+        f"share {s_bound / s_ms:.3f}; cdist_yardstick={s_cdist:.1f} ms "
+        f"(plain not timed at this H: hours of float64 blocks)")
+    stats.update(scene_ms=s_ms, scene_default_ms=s_default, scene_unweighted_ms=s_unw,
+                 scene_bound_ms=s_bound, scene_cdist_yardstick_ms=s_cdist,
+                 scene_shape=[h, nv, ns])
+    return stats
+
+
+def phase_lcp_wide(device) -> tuple[dict, int]:
+    """lcp_stream_wide against lcp_scores_stream_plain and against lcp_stream,
+    both tiers: at ragged shapes and at the coarse shape of the yardstick
+    pipeline on 4,096-point segments (H 16,384, Nv 512), where it is then
+    driven once as its path and timed beside lcp_stream."""
+    from physimglobalpose_tpu_torch.ops import lcp
+
+    tile = lcp.STREAM_WIDE_NS_TILE
+    cases = (
+        # (label, seed, H, Nv, Ns, masked, hypotheses the plain version scores)
+        ("coarse_large", 60, 16384, 512, 4096, 50, 64),
+        ("ragged", 61, 37, 700, 333, 20, 37),
+        ("ragged_tiny", 62, 5, 77, 2100, 9, 5),
+    )
+    worst = 0.0
+    for label, seed, h, nv, ns, masked, h_plain in cases:
+        args = lcp_inputs(seed, h, nv, ns, masked, device)
+        for tier in (None, "default"):
+            for weighted in (True, False):
+                kw = dict(weighted=weighted, matmul_precision=tier)
+                got = lcp.lcp_scores_stream_wide(*args, **kw)
+                k4 = lcp.lcp_scores_stream(*args, ns_tile=tile, **kw)
+                want = lcp.lcp_scores_stream_plain(args[0][:h_plain], *args[1:], ns_tile=tile, **kw)
+                what = f"{label} {tier} weighted={weighted}"
+                err = _check_scores("[lcp-wide]", what + " vs plain", got[:h_plain], want,
+                                    h_plain, TOL_LCP / nv)
+                err_k4 = _check_scores("[lcp-wide]", what + " vs lcp_stream", got, k4, h, 1e-6)
+                log(f"[lcp-wide] {label} H={h} Nv={nv} Ns={ns} tier={tier} weighted={weighted}: "
+                    f"vs_plain={err:.3e} (first {h_plain} hypotheses, tol {TOL_LCP / nv:.3e}) "
+                    f"vs_lcp_stream={err_k4:.3e} (tol 1e-6) mean_score={float(want.mean()):.4f}")
+                if label == "coarse_large":
+                    worst = max(worst, err)
+
+    # Its path: one direct call at the yardstick's coarse shape (weighted, fp32).
+    label, seed, h, nv, ns, masked, _ = cases[0]
+    args = lcp_inputs(seed, h, nv, ns, masked, device)
+    lcp.lcp_stream_wide.launches, lcp.lcp_stream_wide.tier_launches = 0, [0, 0, 0]
+    scores = lcp.lcp_scores_stream_wide(*args)
+    torch.cuda.synchronize()
+    launches = lcp.lcp_stream_wide.launches
+    if scores.shape != (h,) or not bool(torch.isfinite(scores).all()) or float(scores.max()) <= 0.1:
+        fail("[lcp-wide] the path call gave no usable scores")
+
+    packed = stream_lcp_args(args)
+    wide = lambda w, t: cuda_time_ms(lambda: lcp.lcp_stream_wide(*packed, w, t), reps=3, warmup=1)
+    ms, ms_default, ms_unw = wide(True, None), wide(True, "default"), wide(False, None)
+    k4_ms = cuda_time_ms(lambda: lcp.lcp_stream(*packed, True, None, tile), reps=3, warmup=1)
+    k4_unw = cuda_time_ms(lambda: lcp.lcp_stream(*packed, False, None, tile), reps=3, warmup=1)
+    plain_ms = cuda_time_ms(lambda: lcp.lcp_scores_stream_plain(*args, ns_tile=tile),
+                            reps=1, warmup=0)
+    cdist_ms = _cdist_scores_ms(args)
+    bound, _ = _lcp_bound_ms(h, nv, ns, None)
+    log(f"[lcp-wide] path call launches={launches}; timed H={h} Nv={nv} Ns={ns} weighted fp32: "
+        f"lcp_stream_wide={ms:.3f} ms (default {ms_default:.3f} ms, unweighted {ms_unw:.3f} ms) "
+        f"lcp_stream={k4_ms:.3f} ms (unweighted {k4_unw:.3f} ms) plain={plain_ms:.1f} ms "
+        f"cdist_yardstick={cdist_ms:.3f} ms; bound={bound:.4f} ms share {bound / ms:.3f}")
+    stats = dict(max_abs_err=worst, ms=ms, default_ms=ms_default, unweighted_ms=ms_unw,
+                 lcp_stream_ms=k4_ms, lcp_stream_unweighted_ms=k4_unw, plain_ms=plain_ms,
+                 bound_ms=bound, cdist_yardstick_ms=cdist_ms, shape=[h, nv, ns])
+    return stats, launches
+
+
+def phase_icp_stream(device) -> tuple[dict, int]:
+    """icp_corr_stream against icp_stream_pass_plain: (A, b) of one pass at the
+    shape the scoring pipeline's large-cloud ICP branch sees (H 256, Nm 1,024,
+    Ns 4,096) with masked points and garbage hypotheses, at two tiles; then
+    refine_icp_stream for four iterations, its path, against the same loop
+    over the plain pass; then the pass timed alone, beside one iteration of
+    plain refine_icp on the same inputs."""
+    from physimglobalpose_tpu_torch.ops import icp
+
+    h, nm, ns, n_garbage = 256, 1024, 4096, 8
+    tfs, mpts, mnrm, spts, smask = icp_inputs(70, h, nm, ns, 100, n_garbage, device)
+    seg4 = icp.pack_icp_stream_segment(spts, smask)
+    tr12 = tfs[:, :3, :].reshape(-1, 12).contiguous()
+    worst = 0.0
+    for tile in (icp.STREAM_NM_TILE, 100):
+        a, b = icp.icp_stream_pass(tr12, seg4, mpts, mnrm, 0.02, tile)
+        pa, pb = icp.icp_stream_pass_plain(tr12, seg4, mpts, mnrm, 0.02, tile)
+        torch.cuda.synchronize()
+        if a.shape != (h, 6, 6) or b.shape != (h, 6) or not bool(torch.isfinite(a).all()):
+            fail(f"icp_corr_stream[nm_tile={tile}]: non-finite or misshapen output")
+        err_a = float((a - pa).abs().max() / pa.abs().max())
+        err_b = float((b - pb).abs().max() / pb.abs().max())
+        log(f"[icp-stream] pass H={h} Nm={nm} Ns={ns} nm_tile={tile}: rel_err_A={err_a:.3e} "
+            f"rel_err_b={err_b:.3e} (tol {TOL_ICP_PASS:.0e} of the largest entry) "
+            f"max|A|={float(pa.abs().max()):.3f} max|b|={float(pb.abs().max()):.3e}")
+        if err_a > TOL_ICP_PASS or err_b > TOL_ICP_PASS:
+            fail(f"icp_corr_stream[nm_tile={tile}] disagrees with its plain version")
+        if float(a[h - n_garbage:].abs().max()) != 0.0 or float(b[h - n_garbage:].abs().max()) != 0.0:
+            fail("icp_corr_stream: a hypothesis without correspondences has A, b != 0")
+        if float(a[: h - n_garbage].abs().amax(dim=(1, 2)).min()) <= 0.0:
+            fail("icp_corr_stream: a near-truth hypothesis found no correspondence")
+        worst = max(worst, err_a, err_b)
+
+    icp.icp_corr_stream.launches = 0
+    got = icp.refine_icp_stream(tfs, mpts, mnrm, spts, smask, iters=4)
+    torch.cuda.synchronize()
+    launches = icp.icp_corr_stream.launches
+    want = tfs.to(torch.float32)  # the same loop over the plain pass
+    for _ in range(4):
+        pa, pb = icp.icp_stream_pass_plain(
+            want[:, :3, :].reshape(-1, 12).contiguous(), seg4, mpts, mnrm, 0.02)
+        want = icp.segside_update(want, pa, pb)
+    torch.cuda.synchronize()
+    place = lambda tf: torch.einsum("hij,nj->hni", tf[:, :3, :3], mpts) + tf[:, None, :3, 3]
+    disp = (place(got) - place(want)).norm(dim=-1).mean(dim=-1)
+    moved = (place(got) - place(tfs)).norm(dim=-1).mean(dim=-1)
+    log(f"[icp-stream] 4 iterations (launches={launches}): mean point displacement kernel vs "
+        f"plain loop max={float(disp.max()):.3e} m (bound {TOL_ICP_REFINE:.0e} m); poses moved "
+        f"by {float(moved[: h - n_garbage].mean()) * 1e3:.3f} mm on average")
+    if not bool(torch.isfinite(got).all()) or float(disp.max()) > TOL_ICP_REFINE:
+        fail("refine_icp_stream over the kernel parts from the plain loop")
+    if float((got[h - n_garbage:] - tfs[h - n_garbage:]).abs().max()) > 1e-6:
+        fail("refine_icp_stream moved a hypothesis without correspondences")
+
+    ms = cuda_time_ms(lambda: icp.icp_corr_stream(tr12, seg4, mpts, mnrm, 0.02), reps=5, inner=10)
+    plain_ms = cuda_time_ms(lambda: icp.icp_stream_pass_plain(tr12, seg4, mpts, mnrm, 0.02),
+                            reps=2, warmup=1)
+    refine_icp_ms = cuda_time_ms(
+        lambda: icp.refine_icp(tfs, mpts, mnrm, spts, smask, iters=1), reps=3, warmup=1)
+
+    def cdist_nearest():
+        # Yardstick only: the nearest model point per segment point.
+        u = torch.einsum("hij,nj->hni", tfs[:, :3, :3], mpts) + tfs[:, None, :3, 3]
+        for uc in u.split(64):
+            torch.cdist(spts.expand(uc.shape[0], -1, -1), uc).min(-1)
+
+    cdist_ms = cuda_time_ms(cdist_nearest, reps=3, warmup=1)
+    # 8 FLOP a pair for the search, 60 a (hypothesis, point) for the transform
+    # and the normal equations, at the fp32 peak; the bytes never bind.
+    ops_s = (8.0 * h * nm * ns + 60.0 * h * (nm + ns)) / PEAK_FP32_FLOPS
+    bytes_s = 4.0 * (12 * h + 4 * ns + 6 * nm + 42 * h) / PEAK_HBM_BYTES
+    bound = max(ops_s, bytes_s) * 1e3
+    log(f"[icp-stream] timed pass H={h} Nm={nm} Ns={ns}: icp_corr_stream={ms:.4f} ms "
+        f"plain={plain_ms:.3f} ms; one iteration of plain refine_icp={refine_icp_ms:.3f} ms; "
+        f"cdist_nearest_yardstick={cdist_ms:.3f} ms; bound={bound:.5f} ms share {bound / ms:.4f}")
+    stats = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                 refine_icp_iteration_ms=refine_icp_ms, cdist_yardstick_ms=cdist_ms,
+                 shape=[h, nm, ns])
+    return stats, launches
+
+
+def phase_scoring(device, large: bool = False) -> tuple[dict, dict]:
     """score_refine_pipeline at the benchmark's full shape with the production
     flags: launch counts of one call, the fidelity gates against the exact
-    pipeline (easy and clutter inputs), warm latency, device-idle share."""
+    pipeline (easy and clutter inputs), warm latency, device-idle share.
+    large=False: 1,024-point segments ([scoring]); large=True: 4,096-point
+    segments ([scoring-large]), where the strided coarse and bulk fine tiers
+    see 1,024 points and stay on lcp_segside, the ICP tier (2,048 x 512) stays
+    on icp_corr_segside, and the exact tier sees the whole segment and takes
+    lcp_stream in float32 (it has no "high3"); the exact pipeline of the gates
+    then runs its coarse and fine tiers through lcp_stream too."""
     from physimglobalpose_tpu_torch import bench_inputs
     from physimglobalpose_tpu_torch.ops import icp, lcp, scoring
 
+    tag = "[scoring-large]" if large else "[scoring]"
     flags = bench_inputs.prod_flags()
     launches, stats = {}, {}
     for clutter in (False, True):
         name = "clutter" if clutter else "easy"
-        inputs = bench_inputs.to_tensors(bench_inputs.make_inputs(seed=0, clutter=clutter), device)
+        inputs = bench_inputs.to_tensors(bench_inputs.make_inputs(
+            seed=0, clutter=clutter, ns=4 * bench_inputs.NS if large else bench_inputs.NS), device)
         run = lambda: scoring.score_refine_pipeline(*inputs, **flags)
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
-        log(f"[scoring] {name}: H={inputs[0].shape[0]} Nv={inputs[3].shape[0]} "
+        log(f"{tag} {name}: H={inputs[0].shape[0]} Nv={inputs[3].shape[0]} "
             f"Nm={inputs[1].shape[0]} Ns={inputs[5].shape[0]}; first call "
             f"{(time.perf_counter() - t0) * 1e3:.2f} ms")
 
-        for fn in (lcp.lcp_segside, lcp.lcp_segside_hb):
+        for fn in (lcp.lcp_segside, lcp.lcp_segside_hb, lcp.lcp_stream):
             fn.launches, fn.tier_launches = 0, [0, 0, 0]
         icp.icp_corr_segside.launches = 0
         prod = run()
@@ -638,21 +909,35 @@ def phase_scoring(device) -> tuple[dict, dict]:
             "lcp_segside/high3": lcp.lcp_segside.tier_launches[2],
             "lcp_segside_hb": lcp.lcp_segside_hb.launches,
             "icp_corr_segside": icp.icp_corr_segside.launches,
+            "lcp_stream": lcp.lcp_stream.launches,
+            "lcp_stream/fp32": lcp.lcp_stream.tier_launches[0],
         }
-        log(f"[scoring] {name}: launches of one call {counts}")
-        want = {"lcp_segside": 2, "lcp_segside/default": 1, "lcp_segside/high3": 1,
-                "lcp_segside_hb": 1, "icp_corr_segside": flags["icp_iters"]}
+        log(f"{tag} {name}: launches of one call {counts}")
+        if large:
+            # Coarse (Nv 256, Ns 1,024: beyond the hypothesis-block rule) and
+            # bulk fine on lcp_segside "default"; exact on lcp_stream.
+            want = {"lcp_segside": 2, "lcp_segside/default": 2, "lcp_segside/high3": 0,
+                    "lcp_segside_hb": 0, "icp_corr_segside": flags["icp_iters"],
+                    "lcp_stream": 1, "lcp_stream/fp32": 1}
+        else:
+            want = {"lcp_segside": 2, "lcp_segside/default": 1, "lcp_segside/high3": 1,
+                    "lcp_segside_hb": 1, "icp_corr_segside": flags["icp_iters"],
+                    "lcp_stream": 0, "lcp_stream/fp32": 0}
         if counts != want:
-            fail(f"scoring ({name}): launches {counts}, expected {want}")
+            fail(f"{tag} ({name}): launches {counts}, expected {want}")
         k = flags["top_k"]
         if (prod.top_transforms.shape != (k, 4, 4) or prod.top_scores.shape != (k,)
                 or prod.coarse_scores.shape != (inputs[0].shape[0],)
                 or not bool(torch.isfinite(prod.top_transforms).all())
                 or not bool(torch.isfinite(prod.top_scores).all())):
-            fail(f"scoring ({name}): non-finite or misshapen result")
+            fail(f"{tag} ({name}): non-finite or misshapen result")
+        lcp.lcp_stream.launches = 0
         gate = bench_inputs.fidelity_gate(inputs, prod, clutter)  # raises on a failed gate
-        log(f"[scoring] {name}: fidelity gates passed {json.dumps(gate)}; "
-            f"top score {float(prod.top_scores[0]):.4f}")
+        log(f"{tag} {name}: fidelity gates passed {json.dumps(gate)}; "
+            f"top score {float(prod.top_scores[0]):.4f}; the exact pipeline launched "
+            f"lcp_stream {lcp.lcp_stream.launches} time(s)")
+        if lcp.lcp_stream.launches != (2 if large else 0):  # its coarse and fine tiers
+            fail(f"{tag} ({name}): the exact pipeline took another LCP route")
 
         walls = []
         for _ in range(7):
@@ -666,27 +951,27 @@ def phase_scoring(device) -> tuple[dict, dict]:
         h = inputs[0].shape[0]
         stats[name] = dict(wall_ms=wall_ms, event_ms=event_ms, hyp_per_s=h / (wall_ms * 1e-3),
                            walls_ms=walls, gate=gate)
-        log(f"[scoring] {name}: warm call wall {wall_ms:.3f} ms (7 runs {min(walls):.3f}-"
+        log(f"{tag} {name}: warm call wall {wall_ms:.3f} ms (7 runs {min(walls):.3f}-"
             f"{max(walls):.3f}), CUDA events {event_ms:.3f} ms, "
             f"{h / (wall_ms * 1e-3):.0f} hyp/s")
         launches = counts
-    busy_ms = profile_scene(run, label="scoring, clutter inputs")
+    busy_ms = profile_scene(
+        run, label="scoring, clutter inputs" + (", 4,096-point segments" if large else ""))
     if busy_ms is not None:
         # The profiler slows the host; against the unprofiled warm call the
         # same device time gives the idle share a caller sees.
         wall_ms = stats["clutter"]["wall_ms"]
-        log(f"[scoring] clutter: device busy {busy_ms:.3f} ms of the {wall_ms:.3f} ms warm call: "
+        log(f"{tag} clutter: device busy {busy_ms:.3f} ms of the {wall_ms:.3f} ms warm call: "
             f"idle share {1.0 - busy_ms / wall_ms:.3f} without the profiler")
     return stats, launches
 
 
-def phase_e2e(device, workdir: str) -> tuple[dict, dict]:
-    """Prepare the three box objects and run estimate_pose twice (warm-up,
-    then timed with the launch counts read around it)."""
+def scene_setup(device, workdir: str) -> dict:
+    """Ray-cast the three-box scene and prepare its objects (shared by [e2e]
+    and [e2e-large])."""
     from physimglobalpose_tpu_torch.config import DEFAULT_CONFIG
     from physimglobalpose_tpu_torch.models import objectdb
-    from physimglobalpose_tpu_torch.ops import lcp
-    from physimglobalpose_tpu_torch.pipeline import api, scene as scene_mod
+    from physimglobalpose_tpu_torch.pipeline import scene as scene_mod
 
     cam_pose = camera_pose()
     t0 = time.perf_counter()
@@ -707,48 +992,74 @@ def phase_e2e(device, workdir: str) -> tuple[dict, dict]:
         color=np.zeros((HEIGHT, WIDTH, 3), np.uint8), depth=depth, intrinsics=INTRINSICS,
         cam_pose=cam_pose, object_names=[b[0] for b in BOXES], class_mask=label,
     )
-    result_path = os.path.join(workdir, "result.txt")
+    return dict(cam_pose=cam_pose, objects=objects, db=db, scene=sc)
+
+
+def phase_e2e(device, workdir: str, setup: dict, large: bool = False) -> tuple[dict, dict]:
+    """Run estimate_pose twice on the three-box scene (warm-up, then timed
+    with the launch counts read around it). large=False: the default
+    configuration, whose LCP calls take lcp_segside; large=True:
+    max_segment_points = 4096, whose LCP calls take lcp_stream."""
+    from physimglobalpose_tpu_torch.config import DEFAULT_CONFIG
+    from physimglobalpose_tpu_torch.geometry import metrics
+    from physimglobalpose_tpu_torch.ops import lcp
+    from physimglobalpose_tpu_torch.pipeline import api
+
+    tag = "[e2e-large]" if large else "[e2e]"
+    cfg = DEFAULT_CONFIG
+    if large:
+        cfg = dataclasses.replace(cfg, preprocess=dataclasses.replace(
+            cfg.preprocess, max_segment_points=4096))
+    cam_pose, objects = setup["cam_pose"], setup["objects"]
+    result_path = os.path.join(workdir, "result_large.txt" if large else "result.txt")
     run = lambda: api.estimate_pose(
-        "<memory>", db, segmentation_mode="GT", hypothesis_mode="PCS",
-        verification_mode="LCP", cfg=DEFAULT_CONFIG, seed=0, scene=sc,
+        "<memory>", setup["db"], segmentation_mode="GT", hypothesis_mode="PCS",
+        verification_mode="LCP", cfg=cfg, seed=0, scene=setup["scene"],
         result_path=result_path, device=device,
     )
     t0 = time.perf_counter()
     run()
     torch.cuda.synchronize()
-    log(f"[e2e] warm-up call {time.perf_counter() - t0:.3f} s")
+    log(f"{tag} max_segment_points={cfg.preprocess.max_segment_points}: warm-up call "
+        f"{time.perf_counter() - t0:.3f} s")
 
-    lcp.lcp_segside.launches, lcp.lcp_segside.tier_launches = 0, [0, 0, 0]
+    for fn in (lcp.lcp_segside, lcp.lcp_stream):
+        fn.launches, fn.tier_launches = 0, [0, 0, 0]
     t0 = time.perf_counter()
     result = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"lcp_segside": lcp.lcp_segside.tier_launches[0]}
+    launches = {"lcp_segside": lcp.lcp_segside.tier_launches[0],
+                "lcp_stream": lcp.lcp_stream.tier_launches[0]}
 
     timings = {k: v for k, v in result.timings.items() if k != "result_path"}
     timings["wall_s"] = wall
-    log(f"[e2e] timings {json.dumps(timings)}")
-    log(f"[e2e] launches during the timed call: {launches}")
+    log(f"{tag} timings {json.dumps(timings)}")
+    log(f"{tag} launches during the timed call: {launches}")
+    # One LCP call per object; the segment size decides which kernel takes it.
+    want = {"lcp_segside": 0, "lcp_stream": len(BOXES)} if large else \
+        {"lcp_segside": len(BOXES), "lcp_stream": 0}
+    if launches != want:
+        fail(f"{tag} launches {launches}, expected {want}")
     if [o.name for o in result.objects] != [b[0] for b in BOXES]:
         fail("estimate_pose returned another object list")
     inv_cam = np.linalg.inv(cam_pose)
+    as_t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
     for (name, _cls, size, xy, yaw), est in zip(BOXES, result.objects):
         gt_cam = inv_cam @ box_pose_world(size, xy, yaw)
         if not np.isfinite(est.pose_cam).all() or est.pose_cam.shape != (4, 4):
             fail(f"{name}: non-finite pose")
-        adds = adds_error(est.pose_cam, gt_cam, objects[name].validation_pts, device)
-        log(f"[e2e] {name}: score={est.score:.4f} ADD-S={adds * 1000:.2f} mm "
+        adds = float(metrics.adds_error(as_t(est.pose_cam), as_t(gt_cam),
+                                        as_t(objects[name].validation_pts)))
+        log(f"{tag} {name}: score={est.score:.4f} ADD-S={adds * 1000:.2f} mm "
             f"t_world={np.round(est.pose_world[:3, 3], 4).tolist()}")
-        if adds >= 0.01:
+        if not adds < 0.01:
             fail(f"{name}: ADD-S {adds * 1000:.2f} mm >= 10 mm")
     with open(result_path) as fh:
         rows = [r.split() for r in fh.read().splitlines()]
     if len(rows) != 3 or any(len(r) != 8 for r in rows):
         fail(f"result.txt has {len(rows)} rows, want 3 rows of 8 fields")
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"kernel {name} was not launched on the main path")
-    profile_scene(run)
+    profile_scene(run, label="scene, 4,096-point segments" if large else "scene")
     return timings, launches
 
 
@@ -800,13 +1111,20 @@ def main() -> int:
     tier_stats = phase_lcp_tiers(device)
     hb_stats = phase_lcp_hb(device)
     icp_stats = phase_icp(device)
+    stream_stats = phase_lcp_stream(device)
+    wide_stats, wide_launches = phase_lcp_wide(device)
+    icp_stream_stats, icp_stream_launches = phase_icp_stream(device)
     with tempfile.TemporaryDirectory() as workdir:
-        _timings, launches = phase_e2e(device, workdir)
+        setup = scene_setup(device, workdir)
+        _timings, launches = phase_e2e(device, workdir, setup)
+        _timings, large_launches = phase_e2e(device, workdir, setup, large=True)
     _scoring_stats, scoring_launches = phase_scoring(device)
+    _scoring_stats, scoring_large_launches = phase_scoring(device, large=True)
 
     lcp_src = "physimglobalpose_tpu_torch/csrc/lcp_segside.cu"
+    stream_src = "physimglobalpose_tpu_torch/csrc/lcp_stream.cu"
 
-    def entry(name, source, replaces, tpu_kernel, n_launches, st, library_ms=None):
+    def entry(name, source, replaces, tpu_kernel, n_launches, st, library_ms=None, **extra):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "tpu_kernel": tpu_kernel, "launches": n_launches,
@@ -815,6 +1133,7 @@ def main() -> int:
             "share_of_bound": st["bound_ms"] / st["ms"], "library_ms": library_ms,
             # The same work on the CUDA cores alone (equal to bound_ms for fp32).
             "cuda_core_bound_ms": st.get("cuda_core_bound_ms", st["bound_ms"]),
+            **extra,
         }
 
     kernels = [
@@ -832,6 +1151,21 @@ def main() -> int:
         entry("icp_corr_segside", "physimglobalpose_tpu_torch/csrc/icp_corr_segside.cu",
               "physimglobalpose_tpu/ops/icp.py:273", "ops/icp.py::_icp_corr_kernel_segside",
               scoring_launches["icp_corr_segside"], icp_stats),
+        # Launches: one call of the scoring path on 4,096-point segments (its
+        # exact tier); the large-segment scene adds one per object.
+        entry("lcp_stream", stream_src, "physimglobalpose_tpu/ops/lcp.py:99",
+              "ops/lcp.py::_lcp_kernel", scoring_large_launches["lcp_stream/fp32"], stream_stats,
+              launches_scene=large_launches["lcp_stream"],
+              **{k: stream_stats[k] for k in ("shape", "scene_shape", "scene_ms",
+                                              "scene_bound_ms", "cdist_yardstick_ms")}),
+        entry("icp_corr_stream", "physimglobalpose_tpu_torch/csrc/icp_corr_stream.cu",
+              "physimglobalpose_tpu/ops/icp.py:569", "ops/icp.py::_icp_corr_kernel",
+              icp_stream_launches, icp_stream_stats, shape=icp_stream_stats["shape"],
+              cdist_yardstick_ms=icp_stream_stats["cdist_yardstick_ms"]),
+        entry("lcp_stream_wide", stream_src, "scripts/lcp_wide_kernel_experiment.py:42",
+              "scripts/lcp_wide_kernel_experiment.py::_lcp_kernel_wide", wide_launches,
+              wide_stats, shape=wide_stats["shape"],
+              cdist_yardstick_ms=wide_stats["cdist_yardstick_ms"]),
     ]
     for k in kernels:
         if k["launches"] <= 0:

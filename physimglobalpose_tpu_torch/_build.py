@@ -17,7 +17,7 @@ import subprocess
 import time
 from pathlib import Path
 
-KERNEL_SOURCES = ("lcp_segside", "icp_corr_segside")
+KERNEL_SOURCES = ("lcp_segside", "icp_corr_segside", "lcp_stream", "icp_corr_stream")
 
 _PKG = Path(__file__).resolve().parent
 CSRC_DIR = _PKG / "csrc"

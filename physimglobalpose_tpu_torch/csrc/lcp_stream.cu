@@ -1,0 +1,428 @@
+// Weighted / unweighted LCP scores of H rigid hypotheses against a segment of
+// any size, streaming: two kernels that compute one function.
+//
+//   lcp_stream_kernel       replaces the TPU kernel
+//       physimglobalpose_tpu/ops/lcp.py::_lcp_kernel (body _score_one)
+//     (one hypothesis and one tile of model points per block);
+//   lcp_stream_wide_kernel  replaces
+//       scripts/lcp_wide_kernel_experiment.py::_lcp_kernel_wide
+//     (a group of 8 hypotheses per block share the pass over each segment tile).
+//
+// A segment above 2,048 points does not fit the shared memory of the
+// segment-stationary kernels (lcp_segside.cu), so here the model points stay in
+// registers and the segment streams past them. For hypothesis (R, t) a segment
+// point s with normal n_s is carried into the model frame once,
+//   q = R^T (s - t),  c = |s - t|^2 (1e9 where masked),  bn = R^T n_s,
+// and for model point m with normal n_m
+//   d2 = (c + |m|^2) - 2 m . q,   ndot = n_m . bn
+// (the TPU kernel's two products; no centring: the coordinates are the scene's).
+// The model point contributes
+//   unweighted: 1[d2* <= delta^2]
+//   weighted:   1[d2* <= delta^2] * 1[|ndot*| >= cos_gate] * prob*,
+// score = sum / Nv.
+//
+// Tie rule, the TPU kernels': the segment is cut into tiles of ns_tile points
+// (an argument: the TPU wrappers use min(1024, pad128(Ns)) and 128). Within a
+// tile exact ties of the nearest distance take the max prob and the max
+// |ndot|; across tiles a later tile replaces the running nearest only when it
+// is strictly nearer. One running state per model point does it: "<" replaces
+// and marks the state as set in this tile, "==" takes the max only while that
+// mark is up, and the marks drop at every tile edge. The running minimum starts
+// at 1e9, so a masked point (d2 = 1e9 in float32) never replaces it. The tile
+// is independent of how many points the kernel stages at a time.
+//
+// Tiers (the rounding places of the TPU kernels' matmul_precision):
+//   fp32      every operand and product in float32 (FMA chain);
+//   "default" both operands of both products rounded to bf16, (m, |m|^2, n_m)
+//             and (-2q, c, bn); products and sums in float32. A product of two
+//             bf16 values is exact in float32, so this is the bf16 matrix pass
+//             with a float32 sum, up to the order of the sum.
+// q, c, bn and |m|^2 are computed with separately rounded products and sums in a
+// fixed order (no FMA contraction), so the plain PyTorch version sees the same
+// float32 values before they round to bf16; the two products are explicit fmaf
+// chains in a fixed order, which the plain version reproduces through float64
+// (ops/lcp.py::fma). Both therefore find the same nearest points in each tier. There is no "high3" tier: the wrapper runs it in float32, as the TPU
+// wrapper does.
+//
+// What bounds them: fp32 arithmetic on the CUDA cores, 3 FMA + 1 add + the
+// running min per (hypothesis, model point, segment point), about 8 FLOP,
+// against 67 TFLOP/s; the inputs are a few hundred KB. What the design does:
+//  - a staged segment point is transformed once per (hypothesis, point), about
+//    40 FLOP shared by all model points of the block, not once per pair;
+//  - lcp_stream_kernel: grid H x model tiles of kThreads * kSlots points, so a
+//    call with few hypotheses (H = 32 in the exact tier) still makes
+//    32 * Nv / 1024 blocks; each broadcast shared-memory read feeds kSlots
+//    independent FMA chains;
+//  - lcp_stream_wide_kernel: on this card the TPU's "one wide product for 8
+//    hypotheses" is slot filling, as lcp_segside_hb is to lcp_segside: a thread
+//    holds kWidePts model points under 8 hypotheses, so a small model (Nv = 512)
+//    fills every slot where lcp_stream_kernel would leave half on padding. It
+//    stages 8 transformed copies of the segment chunk (one warp per hypothesis)
+//    rather than transforming the raw point per pair in registers: the
+//    transform is 40 FLOP against 8 for the pair itself;
+//  - the normal dot is evaluated only on a new nearest or a tie;
+//  - a block writes one partial sum per (hypothesis, model tile) through a
+//    warp-shuffle tree and a fixed-order sum over warps; a second kernel adds
+//    the tiles per hypothesis in index order. No atomics: scores are
+//    deterministic.
+// Both kernels evaluate a pair with the same instructions on the same staged
+// values, so they agree exactly on every nearest point; only the order of the
+// sum over model points differs (tiles of 1,024 against 512).
+// Tensor cores, TMA and wgmma are not used here.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kSlots = 4;      // lcp_stream_kernel: model points per thread
+constexpr int kStage = 512;    // lcp_stream_kernel: segment points staged at a time
+constexpr int kHypGroup = 8;   // lcp_stream_wide_kernel: hypotheses per block (one warp each)
+constexpr int kWidePts = 2;    // lcp_stream_wide_kernel: model points per thread
+constexpr int kWideStage = 128;  // lcp_stream_wide_kernel: segment points staged at a time
+constexpr float kBig = 1e9f;
+
+constexpr int kFp32 = 0;
+constexpr int kBf16 = 1;
+
+static_assert(kHypGroup == kWarps, "one warp stages the segment chunk of one hypothesis");
+
+__device__ __forceinline__ float bf(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// (a x + b y) + c z with every product and sum rounded on its own.
+__device__ __forceinline__ float dot3_rn(float a, float x, float b, float y, float c, float z) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(a, x), __fmul_rn(b, y)), __fmul_rn(c, z));
+}
+
+// Segment point j carried into the model frame of hypothesis r (row-major
+// R | t): a = (-2q, c), n = (bn, prob).
+template <int kTier, bool kWeighted>
+__device__ __forceinline__ void stage_point(const float* r, const float4* __restrict__ seg,
+                                            int j, float4& a, float4& n) {
+  const float4 p = seg[2 * j];  // x, y, z, mask
+  const float dx = __fsub_rn(p.x, r[3]), dy = __fsub_rn(p.y, r[7]), dz = __fsub_rn(p.z, r[11]);
+  float ax = -2.f * dot3_rn(r[0], dx, r[4], dy, r[8], dz);
+  float ay = -2.f * dot3_rn(r[1], dx, r[5], dy, r[9], dz);
+  float az = -2.f * dot3_rn(r[2], dx, r[6], dy, r[10], dz);
+  float c = (p.w > 0.5f) ? dot3_rn(dx, dx, dy, dy, dz, dz) : kBig;
+  if constexpr (kTier == kBf16) {
+    ax = bf(ax); ay = bf(ay); az = bf(az); c = bf(c);
+  }
+  a = make_float4(ax, ay, az, c);
+  if constexpr (kWeighted) {
+    const float4 q = seg[2 * j + 1];  // nx, ny, nz, prob
+    float bx = dot3_rn(r[0], q.x, r[4], q.y, r[8], q.z);
+    float by = dot3_rn(r[1], q.x, r[5], q.y, r[9], q.z);
+    float bz = dot3_rn(r[2], q.x, r[6], q.y, r[10], q.z);
+    if constexpr (kTier == kBf16) {
+      bx = bf(bx); by = bf(by); bz = bf(bz);
+    }
+    n = make_float4(bx, by, bz, q.w);
+  }
+}
+
+// A model point as the d2 and normal products take it.
+struct ModelPoint {
+  float x, y, z, sq;  // m, |m|^2
+  float nx, ny, nz;   // n_m
+};
+
+template <int kTier, bool kWeighted>
+__device__ __forceinline__ ModelPoint load_model(const float* __restrict__ pts,
+                                                 const float* __restrict__ nrm, int i, int n) {
+  ModelPoint m = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (i < n) {
+    m.x = pts[3 * i]; m.y = pts[3 * i + 1]; m.z = pts[3 * i + 2];
+    m.sq = dot3_rn(m.x, m.x, m.y, m.y, m.z, m.z);
+    if constexpr (kWeighted) {
+      m.nx = nrm[3 * i]; m.ny = nrm[3 * i + 1]; m.nz = nrm[3 * i + 2];
+    }
+    if constexpr (kTier == kBf16) {
+      m.x = bf(m.x); m.y = bf(m.y); m.z = bf(m.z); m.sq = bf(m.sq);
+      m.nx = bf(m.nx); m.ny = bf(m.ny); m.nz = bf(m.nz);
+    }
+  }
+  return m;
+}
+
+// Running nearest of one (hypothesis, model point) pair.
+struct Nearest {
+  float best, pb, ab;
+};
+
+// One pair: d2 of model point m against the staged point (a, n), folded into
+// the running state. `fresh` holds one bit per slot: the state was set in the
+// current tile, so an equal distance may still raise its prob and |ndot|.
+template <bool kWeighted>
+__device__ __forceinline__ void visit(const ModelPoint& m, const float4& a, const float4* s_n,
+                                      int j, Nearest& q, unsigned& fresh, unsigned bit) {
+  const float d = fmaf(m.x, a.x, fmaf(m.y, a.y, fmaf(m.z, a.z, __fadd_rn(a.w, m.sq))));
+  if constexpr (kWeighted) {
+    if (d <= q.best) {
+      const bool nearer = d < q.best;
+      if (nearer || (fresh & bit)) {
+        const float4 n = s_n[j];
+        const float nd = fabsf(fmaf(m.nz, n.z, fmaf(m.ny, n.y, __fmul_rn(m.nx, n.x))));
+        if (nearer) {
+          q.best = d;
+          q.pb = n.w;
+          q.ab = nd;
+          fresh |= bit;
+        } else {
+          q.pb = fmaxf(q.pb, n.w);
+          q.ab = fmaxf(q.ab, nd);
+        }
+      }
+    }
+  } else {
+    q.best = fminf(q.best, d);
+  }
+}
+
+template <bool kWeighted>
+__device__ __forceinline__ float contribution(const Nearest& q, float delta2, float cos_gate) {
+  if (!(q.best <= delta2)) return 0.f;
+  if constexpr (kWeighted) {
+    return (q.ab >= cos_gate) ? q.pb : 0.f;
+  } else {
+    return 1.f;
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
+#define LCP_STREAM_ARGS                                                                     \
+  const float* __restrict__ tr,          /* [H, 12] row-major (R | t), scene frame */       \
+  const float* __restrict__ model_pts,   /* [Nv, 3] */                                      \
+  const float* __restrict__ model_nrm,   /* [Nv, 3] */                                      \
+  const float4* __restrict__ seg,        /* [Ns, 2]: (x, y, z, mask), (nx, ny, nz, prob) */ \
+  float* __restrict__ partial,           /* [H, n_mtiles] sums over one model tile */       \
+  int H, int Nv, int Ns, int ns_tile, int n_mtiles, float delta2, float cos_gate
+
+// One hypothesis, one tile of kThreads * kSlots model points.
+template <int kTier, bool kWeighted>
+__global__ void __launch_bounds__(kThreads) lcp_stream_kernel(LCP_STREAM_ARGS) {
+  __shared__ float4 s_a[kStage];
+  __shared__ float4 s_n[kWeighted ? kStage : 1];
+  __shared__ float s_warp[kWarps];
+
+  const int tid = threadIdx.x;
+  const int h = static_cast<int>(blockIdx.x) / n_mtiles;
+  const int mt = static_cast<int>(blockIdx.x) % n_mtiles;
+
+  float r[12];
+#pragma unroll
+  for (int c = 0; c < 12; ++c) r[c] = tr[12 * h + c];
+
+  ModelPoint m[kSlots];
+  Nearest q[kSlots];
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) {
+    m[k] = load_model<kTier, kWeighted>(model_pts, model_nrm,
+                                        (mt * kSlots + k) * kThreads + tid, Nv);
+    q[k] = {kBig, 0.f, 0.f};
+  }
+
+  for (int tile0 = 0; tile0 < Ns; tile0 += ns_tile) {
+    const int tile_end = min(Ns, tile0 + ns_tile);
+    unsigned fresh = 0u;
+    for (int c0 = tile0; c0 < tile_end; c0 += kStage) {
+      const int n = min(kStage, tile_end - c0);
+      __syncthreads();  // the previous chunk has been scanned
+      for (int j = tid; j < n; j += kThreads) {
+        float4 a, nn = make_float4(0.f, 0.f, 0.f, 0.f);
+        stage_point<kTier, kWeighted>(r, seg, c0 + j, a, nn);
+        s_a[j] = a;
+        if constexpr (kWeighted) s_n[j] = nn;
+      }
+      __syncthreads();
+      for (int j = 0; j < n; ++j) {
+        const float4 a = s_a[j];
+#pragma unroll
+        for (int k = 0; k < kSlots; ++k) {
+          visit<kWeighted>(m[k], a, s_n, j, q[k], fresh, 1u << k);
+        }
+      }
+    }
+  }
+
+  float acc = 0.f;
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) {
+    if ((mt * kSlots + k) * kThreads + tid < Nv) {
+      acc += contribution<kWeighted>(q[k], delta2, cos_gate);
+    }
+  }
+  // Fixed-order block sum: warp shuffle tree, then warp partials in order.
+  acc = warp_sum(acc);
+  if ((tid & 31) == 0) s_warp[tid >> 5] = acc;
+  __syncthreads();
+  if (tid == 0) {
+    float total = 0.f;
+    for (int w = 0; w < kWarps; ++w) total += s_warp[w];
+    partial[h * n_mtiles + mt] = total;
+  }
+}
+
+// kHypGroup hypotheses together, one tile of kThreads * kWidePts model points;
+// a thread holds its model points under every hypothesis of the group.
+template <int kTier, bool kWeighted>
+__global__ void __launch_bounds__(kThreads) lcp_stream_wide_kernel(LCP_STREAM_ARGS) {
+  __shared__ float4 s_a[kHypGroup][kWideStage];
+  __shared__ float4 s_n[kWeighted ? kHypGroup : 1][kWeighted ? kWideStage : 1];
+  __shared__ float s_warp[kHypGroup][kWarps];
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int h0 = (static_cast<int>(blockIdx.x) / n_mtiles) * kHypGroup;
+  const int mt = static_cast<int>(blockIdx.x) % n_mtiles;
+
+  // Warp w stages for hypothesis h0 + w; a ragged last group scores the last
+  // hypothesis again in its idle slots and writes nothing for them.
+  float r[12];
+  {
+    const int h = min(h0 + warp, H - 1);
+#pragma unroll
+    for (int c = 0; c < 12; ++c) r[c] = tr[12 * h + c];
+  }
+
+  ModelPoint m[kWidePts];
+  Nearest q[kWidePts][kHypGroup];
+#pragma unroll
+  for (int p = 0; p < kWidePts; ++p) {
+    m[p] = load_model<kTier, kWeighted>(model_pts, model_nrm,
+                                        (mt * kWidePts + p) * kThreads + tid, Nv);
+#pragma unroll
+    for (int k = 0; k < kHypGroup; ++k) q[p][k] = {kBig, 0.f, 0.f};
+  }
+
+  for (int tile0 = 0; tile0 < Ns; tile0 += ns_tile) {
+    const int tile_end = min(Ns, tile0 + ns_tile);
+    unsigned fresh = 0u;  // bit p * kHypGroup + k
+    for (int c0 = tile0; c0 < tile_end; c0 += kWideStage) {
+      const int n = min(kWideStage, tile_end - c0);
+      __syncthreads();
+      for (int j = lane; j < n; j += 32) {
+        float4 a, nn = make_float4(0.f, 0.f, 0.f, 0.f);
+        stage_point<kTier, kWeighted>(r, seg, c0 + j, a, nn);
+        s_a[warp][j] = a;
+        if constexpr (kWeighted) s_n[warp][j] = nn;
+      }
+      __syncthreads();
+      for (int j = 0; j < n; ++j) {
+#pragma unroll
+        for (int k = 0; k < kHypGroup; ++k) {
+          const float4 a = s_a[k][j];
+#pragma unroll
+          for (int p = 0; p < kWidePts; ++p) {
+            visit<kWeighted>(m[p], a, s_n[kWeighted ? k : 0], j, q[p][k], fresh,
+                                    1u << (p * kHypGroup + k));
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int k = 0; k < kHypGroup; ++k) {
+    float acc = 0.f;
+#pragma unroll
+    for (int p = 0; p < kWidePts; ++p) {
+      if ((mt * kWidePts + p) * kThreads + tid < Nv) {
+        acc += contribution<kWeighted>(q[p][k], delta2, cos_gate);
+      }
+    }
+    acc = warp_sum(acc);
+    if (lane == 0) s_warp[k][warp] = acc;
+  }
+  __syncthreads();
+  if (tid < kHypGroup && h0 + tid < H) {
+    float total = 0.f;
+    for (int w = 0; w < kWarps; ++w) total += s_warp[tid][w];
+    partial[(h0 + tid) * n_mtiles + mt] = total;
+  }
+}
+
+// out[h] = (sum of the model tiles' partial sums, in tile order) / Nv.
+__global__ void lcp_stream_finish_kernel(const float* __restrict__ partial,
+                                         float* __restrict__ out, int H, int n_mtiles, int Nv) {
+  const int h = blockIdx.x * blockDim.x + threadIdx.x;
+  if (h >= H) return;
+  float total = 0.f;
+  for (int t = 0; t < n_mtiles; ++t) total += partial[h * n_mtiles + t];
+  out[h] = total / static_cast<float>(Nv);
+}
+
+template <int kTier, bool kWeighted>
+int launch(bool wide, const float* tr, const float* model_pts, const float* model_nrm,
+           const float* seg, float* partial, float* out, int H, int Nv, int Ns, int ns_tile,
+           float delta2, float cos_gate, cudaStream_t st) {
+  const float4* seg4 = reinterpret_cast<const float4*>(seg);
+  const int model_tile = kThreads * (wide ? kWidePts : kSlots);
+  const int n_mtiles = (Nv + model_tile - 1) / model_tile;
+  if (wide) {
+    const int groups = (H + kHypGroup - 1) / kHypGroup;
+    lcp_stream_wide_kernel<kTier, kWeighted><<<groups * n_mtiles, kThreads, 0, st>>>(
+        tr, model_pts, model_nrm, seg4, partial, H, Nv, Ns, ns_tile, n_mtiles, delta2, cos_gate);
+  } else {
+    lcp_stream_kernel<kTier, kWeighted><<<H * n_mtiles, kThreads, 0, st>>>(
+        tr, model_pts, model_nrm, seg4, partial, H, Nv, Ns, ns_tile, n_mtiles, delta2, cos_gate);
+  }
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  lcp_stream_finish_kernel<<<(H + 255) / 256, 256, 0, st>>>(partial, out, H, n_mtiles, Nv);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch(bool wide, const float* tr, const float* model_pts, const float* model_nrm,
+             const float* seg, float* partial, float* out, int H, int Nv, int Ns, int ns_tile,
+             float delta2, float cos_gate, int weighted, int tier, void* stream) {
+  if (H <= 0) return 0;
+  if (Nv <= 0 || Ns <= 0 || ns_tile <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define LCP_LAUNCH(T, W)                                                                     \
+  return launch<T, W>(wide, tr, model_pts, model_nrm, seg, partial, out, H, Nv, Ns, ns_tile, \
+                      delta2, cos_gate, st)
+  if (tier == kFp32) {
+    if (weighted) LCP_LAUNCH(kFp32, true);
+    LCP_LAUNCH(kFp32, false);
+  }
+  if (tier == kBf16) {
+    if (weighted) LCP_LAUNCH(kBf16, true);
+    LCP_LAUNCH(kBf16, false);
+  }
+#undef LCP_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// Both launch on `stream` and allocate nothing: `partial` is the caller's
+// workspace of H * ceil(Nv / model tile) floats (model tile 1,024 for
+// lcp_stream_launch, 512 for lcp_stream_wide_launch). tier is 0 (fp32) or 1
+// ("default"). They return cudaGetLastError().
+extern "C" int lcp_stream_launch(const float* tr, const float* model_pts,
+                                 const float* model_nrm, const float* seg, float* partial,
+                                 float* out, int H, int Nv, int Ns, int ns_tile, float delta2,
+                                 float cos_gate, int weighted, int tier, void* stream) {
+  return dispatch(false, tr, model_pts, model_nrm, seg, partial, out, H, Nv, Ns, ns_tile,
+                  delta2, cos_gate, weighted, tier, stream);
+}
+
+extern "C" int lcp_stream_wide_launch(const float* tr, const float* model_pts,
+                                      const float* model_nrm, const float* seg, float* partial,
+                                      float* out, int H, int Nv, int Ns, int ns_tile,
+                                      float delta2, float cos_gate, int weighted, int tier,
+                                      void* stream) {
+  return dispatch(true, tr, model_pts, model_nrm, seg, partial, out, H, Nv, Ns, ns_tile,
+                  delta2, cos_gate, weighted, tier, stream);
+}

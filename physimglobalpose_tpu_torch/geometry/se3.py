@@ -1,4 +1,5 @@
-"""SE(3) helpers on torch tensors (the subset the estimate_pose path uses).
+"""SE(3) helpers on torch tensors (the subset the estimate_pose path and the
+pose metrics use).
 
 Conventions as in the JAX package: quaternions are [w, x, y, z], poses are
 4x4 homogeneous matrices, world<->camera changes are plain matrix products.
@@ -43,3 +44,26 @@ def matrix_to_quat(m: torch.Tensor) -> torch.Tensor:
 def to_world(pose_cam: torch.Tensor, cam_pose: torch.Tensor) -> torch.Tensor:
     """Camera-frame object pose -> world frame."""
     return cam_pose @ pose_cam
+
+
+def transform_points(pose: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """Apply pose [..., 4, 4] to points [..., N, 3] -> [..., N, 3]."""
+    rot = pose[..., :3, :3]
+    t = pose[..., :3, 3]
+    return torch.einsum("...ij,...nj->...ni", rot, points) + t[..., None, :]
+
+
+def quat_to_euler_xyz(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion (w, x, y, z) -> (roll, pitch, yaw) radians: roll about x,
+    pitch about y (asin, clamped), yaw about z, the reference's
+    toEulerianAngle (utilities.cpp:341-361)."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    roll = torch.atan2(2.0 * (w * x + y * z), 1.0 - 2.0 * (x * x + y * y))
+    pitch = torch.asin(torch.clamp(2.0 * (w * y - z * x), -1.0, 1.0))
+    yaw = torch.atan2(2.0 * (w * z + x * y), 1.0 - 2.0 * (y * y + z * z))
+    return torch.stack([roll, pitch, yaw], dim=-1)
+
+
+def matrix_to_euler_xyz(m: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> euler XYZ via the quaternion path."""
+    return quat_to_euler_xyz(matrix_to_quat(m))

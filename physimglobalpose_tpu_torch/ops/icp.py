@@ -11,7 +11,7 @@ down-weighted by a Welsch kernel (default) or exactly trimmed to the best
 trim_fraction of in-range matches. Hypotheses run in chunks of h_chunk, so
 the [h_chunk, Ns, Nm] distance block is the largest tensor built.
 
-Two refiners:
+Three refiners:
 - refine_icp: plain PyTorch, every option (the final polish of estimate_pose);
 - refine_icp_segside: point-to-plane with Welsch weights only, in the
   segment-centred frame, one correspondence pass per iteration that returns
@@ -19,6 +19,12 @@ Two refiners:
   CUDA kernel csrc/icp_corr_segside.cu (icp_corr_segside below); on the CPU
   it is icp_segside_pass_plain, which the tests and chip_smoke.py hold the
   kernel against. The scoring pipeline refines its survivors with it.
+- refine_icp_stream: the same kind of pass for a model and a segment of any
+  size, in the scene frame, the model streaming past the segment in tiles of
+  nm_tile points (csrc/icp_corr_stream.cu, icp_corr_stream; plain version
+  icp_stream_pass_plain). Within a tile exactly tied nearest model points are
+  averaged; a later tile replaces the match only when strictly nearer. No
+  other code of the package calls it, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -365,4 +371,162 @@ def refine_icp_segside(
         tfs = segside_update(tfs, a, b)
     tfs = tfs.clone()
     tfs[:, :3, 3] += lcp_mod.segment_centroid(seg_pts, seg_mask)
+    return tfs
+
+
+# ------------------------------------------------------ model-streaming pass
+
+# Model points per tile of the tie rule, as the TPU wrapper sets it.
+STREAM_NM_TILE = 256
+_STREAM_SEG_CHUNK = 512  # segment points a block takes (csrc/icp_corr_stream.cu)
+
+
+def pack_icp_stream_segment(seg_pts, seg_mask) -> torch.Tensor:
+    """[Ns, 4] layout of the streaming ICP kernel: x, y, z, mask (1 or 0), in
+    the scene frame as given."""
+    return torch.cat(
+        [seg_pts, seg_mask.to(torch.float32)[:, None]], dim=1
+    ).to(torch.float32).contiguous()
+
+
+def icp_stream_pass_plain(tr12, seg4, model_pts, model_nrm, max_corr_dist: float = 0.02,
+                          nm_tile: int = STREAM_NM_TILE, h_chunk: int | None = None):
+    """Plain PyTorch version of one model-streaming correspondence pass:
+    (A [H, 6, 6], b [H, 6]).
+
+    tr12 [H, 12] row-major (R | t) in the scene frame, seg4 from
+    pack_icp_stream_segment. Per hypothesis the model is transformed,
+    p_i = R m_i + t, n_i = R nrm_i, and passes by in tiles of
+    min(nm_tile, Nm) points. Per segment point s the tile's nearest distance
+    by d2 = (|s|^2 + |p|^2) - 2 s . p (the kernel's fused chain, lcp.fma) and
+    the mean (p, n) over the tile's exactly tied nearest points; a later tile
+    replaces the running match only when strictly nearer. Then the Welsch
+    weight w = exp(-d2 / (2 sigma^2)), sigma = max_corr_dist / 2, zero beyond
+    max_corr_dist or where masked, the residual r = (p - s) . n and the row
+    c = (p x n, n):  A = sum w c c^T,  b = -sum w c r.
+    """
+    ns, nm = seg4.shape[0], model_pts.shape[0]
+    tile = min(nm_tile, nm)
+    if h_chunk is None:
+        h_chunk = max(1, lcp_mod._plain_block_values(tr12.device) // (ns * tile))
+    max_corr2 = max_corr_dist * max_corr_dist
+    two_sigma2 = 2.0 * (max_corr_dist * 0.5) ** 2
+    seg, smask = seg4[:, :3], seg4[:, 3] > 0.5
+    ssq = (seg[:, 0] * seg[:, 0] + seg[:, 1] * seg[:, 1]) + seg[:, 2] * seg[:, 2]
+    a = -2.0 * seg
+    a_out, b_out = [], []
+    for tc in tr12.split(h_chunk):
+        rt = tc.reshape(-1, 3, 4)
+        rot, t = rt[:, :, :3], rt[:, :, 3]
+        tm = lcp_mod.rotate_points(rot, model_pts, t)  # [hc, Nm, 3]
+        tn = lcp_mod.rotate_points(rot, model_nrm)
+        tsq = (tm[..., 0] * tm[..., 0] + tm[..., 1] * tm[..., 1]) + tm[..., 2] * tm[..., 2]
+        packed = torch.cat([tm, tn], dim=-1)  # [hc, Nm, 6]
+        run_min = torch.full((tc.shape[0], ns), 1e9, dtype=torch.float32, device=tc.device)
+        run_matched = torch.zeros((tc.shape[0], ns, 6), dtype=torch.float32, device=tc.device)
+        for m0 in range(0, nm, tile):
+            sl = slice(m0, min(m0 + tile, nm))
+            d2 = ssq[None, :, None] + tsq[:, None, sl]  # [hc, Ns, tile]
+            for ax in (2, 1, 0):
+                d2 = lcp_mod.fma(a[None, :, ax, None], tm[:, None, sl, ax], d2)
+            tile_min = torch.amin(d2, dim=-1)
+            onehot = (d2 <= tile_min[..., None]).to(torch.float32)
+            onehot = onehot / torch.clamp(torch.sum(onehot, dim=-1, keepdim=True), min=1.0)
+            matched = onehot @ packed[:, sl]  # [hc, Ns, 6]
+            better = tile_min < run_min
+            run_min = torch.where(better, tile_min, run_min)
+            run_matched = torch.where(better[..., None], matched, run_matched)
+        w = torch.where(smask & (run_min <= max_corr2), torch.exp(-run_min / two_sigma2), 0.0)
+        p, nn = run_matched[..., :3], run_matched[..., 3:]
+        resid = torch.sum((p - seg) * nn, dim=-1)  # [hc, Ns]
+        cols = torch.cat([torch.linalg.cross(p, nn), nn], dim=-1)  # [hc, Ns, 6]
+        a_out.append(torch.einsum("hsa,hs,hsb->hab", cols, w, cols))
+        b_out.append(-torch.einsum("hsa,hs->ha", cols, w * resid))
+    return torch.cat(a_out), torch.cat(b_out)
+
+
+def _icp_stream_launcher():
+    fn = _build.load("icp_corr_stream").icp_corr_stream_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+            ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def icp_corr_stream(tr12, seg4, model_pts, model_nrm, max_corr_dist: float = 0.02,
+                    nm_tile: int = STREAM_NM_TILE):
+    """Launch csrc/icp_corr_stream.cu on the current stream: one
+    model-streaming correspondence pass, the arguments and result of
+    icp_stream_pass_plain, for a model and a segment of any size. Counts its
+    launches in icp_corr_stream.launches."""
+    dev = tr12.device
+    for x in (tr12, seg4, model_pts, model_nrm):
+        if x.device != dev or x.device.type != "cuda":
+            raise ValueError("icp_corr_stream takes CUDA tensors on one device")
+        if x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError("icp_corr_stream takes contiguous float32 tensors")
+    h, ns, nm = tr12.shape[0], seg4.shape[0], model_pts.shape[0]
+    if tr12.shape != (h, 12) or seg4.shape != (ns, 4) or ns < 1:
+        raise ValueError("icp_corr_stream: tr12 must be [H, 12] and seg4 [Ns >= 1, 4]")
+    if model_pts.shape != (nm, 3) or model_nrm.shape != (nm, 3) or nm < 1:
+        raise ValueError("icp_corr_stream: model_pts and model_nrm must be [Nm >= 1, 3]")
+    if nm_tile < 1:
+        raise ValueError("icp_corr_stream: nm_tile must be positive")
+    out = torch.empty((h, 42), dtype=torch.float32, device=dev)
+    # 27 sums per (hypothesis, segment chunk); the launcher's second kernel adds
+    # the chunks per hypothesis in index order.
+    partial = torch.empty((h, -(-ns // _STREAM_SEG_CHUNK), 27), dtype=torch.float32, device=dev)
+    rc = _icp_stream_launcher()(
+        tr12.data_ptr(), seg4.data_ptr(), model_pts.data_ptr(), model_nrm.data_ptr(),
+        partial.data_ptr(), out.data_ptr(), h, ns, nm, min(int(nm_tile), nm),
+        max_corr_dist * max_corr_dist, 2.0 * (max_corr_dist * 0.5) ** 2,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"icp_corr_stream launch failed with CUDA error {rc}")
+    icp_corr_stream.launches += 1
+    return out[:, :36].reshape(h, 6, 6), out[:, 36:]
+
+
+icp_corr_stream.launches = 0
+
+
+def icp_stream_pass(tr12, seg4, model_pts, model_nrm, max_corr_dist: float = 0.02,
+                    nm_tile: int = STREAM_NM_TILE):
+    """One model-streaming correspondence pass: the kernel for tensors on the
+    card, the plain version for tensors on the CPU."""
+    fn = icp_stream_pass_plain if tr12.device.type == "cpu" else icp_corr_stream
+    return fn(tr12, seg4, model_pts, model_nrm, max_corr_dist, nm_tile)
+
+
+def refine_icp_stream(
+    transforms: torch.Tensor,  # [H, 4, 4]
+    model_pts: torch.Tensor,  # [Nm, 3]
+    model_nrm: torch.Tensor,  # [Nm, 3]
+    seg_pts: torch.Tensor,  # [Ns, 3]
+    seg_mask: torch.Tensor,  # [Ns]
+    iters: int = 10,
+    max_corr_dist: float = 0.02,
+    nm_tile: int = STREAM_NM_TILE,
+) -> torch.Tensor:
+    """Model-streaming point-to-plane ICP for clouds of any size (the JAX
+    package's refine_icp_pallas); returns [H, 4, 4].
+
+    Every iteration is one icp_stream_pass and one segside_update (the same
+    6x6 solve, Rodrigues rotation and composition; there a hypothesis whose
+    update is not finite keeps its pose). It works in the scene frame, without
+    centring, in float32 only. The matches differ from refine_icp's where
+    nearest distances tie exactly: ties are averaged within a tile of nm_tile
+    model points and a later tile does not join them.
+    """
+    seg4 = pack_icp_stream_segment(seg_pts, seg_mask)
+    mp = model_pts.to(torch.float32).contiguous()
+    mn = model_nrm.to(torch.float32).contiguous()
+    tfs = transforms.to(torch.float32)
+    for _ in range(iters):
+        tr12 = tfs[:, :3, :].reshape(-1, 12).contiguous()
+        a, b = icp_stream_pass(tr12, seg4, mp, mn, max_corr_dist, nm_tile)
+        tfs = segside_update(tfs, a, b)
     return tfs

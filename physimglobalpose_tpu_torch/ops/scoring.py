@@ -10,8 +10,10 @@ best of those in an exact tier.
 On the card one call launches the hypothesis-block LCP kernel once (coarse),
 the segment-stationary ICP kernel once per iteration, and the per-hypothesis
 LCP kernel once for the bulk fine tier and once for the exact tier
-(ops/lcp.py, ops/icp.py); on CPU tensors the same steps run through the
-kernels' plain versions. Everything between the kernels (top-k, the 6x6
+(ops/lcp.py, ops/icp.py); a tier that sees more than 2,048 segment points
+(the exact tier on a large segment) launches the streaming LCP kernel
+instead. On CPU tensors the same steps run through the kernels' plain
+versions. Everything between the kernels (top-k, the 6x6
 solves, the final sort) is plain PyTorch.
 """
 

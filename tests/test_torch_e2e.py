@@ -37,9 +37,9 @@ PRE_KW = dict(max_segment_points=384)
 ST_KW = dict(num_bases=48, max_quads_per_base=32, max_pairs_per_ppf=128)
 
 
-def _cfg(mod):
-    return mod.PipelineConfig(preprocess=mod.PreprocessConfig(**PRE_KW),
-                              stocs=mod.StoCSConfig(**ST_KW), **CFG_KW)
+def _cfg(mod, pre_kw=PRE_KW, st_kw=ST_KW):
+    return mod.PipelineConfig(preprocess=mod.PreprocessConfig(**pre_kw),
+                              stocs=mod.StoCSConfig(**st_kw), **CFG_KW)
 
 
 def _render(pose_cam, verts, faces):
@@ -114,6 +114,48 @@ def test_estimate_pose_matches_jax_on_box_scene(setup):
         np.testing.assert_allclose([float(x) for x in r[1:4]], est.pose_world[:3, 3], atol=1e-5)
         q = np.array([float(x) for x in r[4:]])
         assert abs(np.linalg.norm(q) - 1.0) < 1e-4
+
+
+def test_estimate_pose_with_large_segments_matches_jax(setup):
+    # max_segment_points above the routing constant (2,048): every segment is
+    # padded to 2,304 rows, so the hypothesis scoring takes the streaming LCP
+    # formulation (on the CPU its plain version), once per object. Fewer
+    # hypotheses than above keep it short. Outcome bars as above.
+    from physimglobalpose_tpu_torch.ops import lcp
+
+    s = setup
+    names = [b[0] for b in BOXES]
+    pre_kw, st_kw = dict(max_segment_points=2304), dict(ST_KW, num_bases=16, max_quads_per_base=12)
+    jdb = jobjectdb.ObjectDB(s["jobjs"], {o.class_id: n for n, o in s["jobjs"].items()})
+    cfg = _cfg(tconfig, pre_kw, st_kw)
+    tobjs = {n: objectdb.from_numpy(jax_object_fields(o), cfg, device="cpu")
+             for n, o in s["jobjs"].items()}
+    tdb = objectdb.ObjectDB(tobjs, {o.class_id: n for n, o in tobjs.items()})
+    kw = dict(color=np.zeros((H, W, 3), np.uint8), depth=s["depth"], intrinsics=INTR,
+              cam_pose=s["cam"], object_names=names, class_mask=s["label"])
+    want = japi.estimate_pose("<memory>", jdb, scene=jscene.scene_from_arrays(**kw),
+                              cfg=_cfg(jconfig, pre_kw, st_kw), seed=0, write_result=False)
+
+    seen, real = [], lcp.lcp_scores_stream
+
+    def spy(*a, **k):
+        seen.append((a[0].shape[0], a[3].shape[0]))
+        return real(*a, **k)
+
+    lcp.lcp_scores_stream = spy
+    try:
+        got = api.estimate_pose("<memory>", tdb, scene=scene.scene_from_arrays(**kw), cfg=cfg,
+                                seed=0, write_result=False, device="cpu")
+    finally:
+        lcp.lcp_scores_stream = real
+    assert seen == [(16 * 12, 2304)] * len(BOXES)
+    assert [o.name for o in got.objects] == [o.name for o in want.objects] == names
+    for est, jest in zip(got.objects, want.objects):
+        pts = s["jobjs"][est.name].validation_pts[::2]
+        assert _adds(est.pose_cam, s["gt"][est.name], pts) < 0.01, est.name
+        assert _adds(jest.pose_cam, s["gt"][est.name], pts) < 0.01, est.name
+        assert np.linalg.norm(est.pose_cam[:3, 3] - jest.pose_cam[:3, 3]) < 0.005, est.name
+        assert est.score > 0.1
 
 
 def test_unported_modes_raise(setup):

@@ -39,10 +39,28 @@ def test_port_imports_no_jax():
     assert len(files) > 20
     names = {str(p.relative_to(ROOT)) for p in files}
     assert {"physimglobalpose_tpu_torch/ops/scoring.py", "physimglobalpose_tpu_torch/ops/icp.py",
-            "physimglobalpose_tpu_torch/ops/lcp.py",
+            "physimglobalpose_tpu_torch/ops/lcp.py", "physimglobalpose_tpu_torch/geometry/metrics.py",
             "physimglobalpose_tpu_torch/bench_inputs.py"} <= names
     offenders = {str(p.relative_to(ROOT)): b for p in files if (b := _forbidden_imports(p))}
     assert offenders == {}
+
+
+def test_kernel_sources_are_all_built_and_stand_alone():
+    # _build.KERNEL_SOURCES names every .cu file of csrc/, and a kernel source
+    # includes the CUDA toolkit's headers only: no PyTorch, cuBLAS, cuDNN or
+    # CUTLASS device-level kernel, and nothing of Python.
+    from physimglobalpose_tpu_torch import _build
+
+    csrc = ROOT / "physimglobalpose_tpu_torch" / "csrc"
+    sources = sorted(p.stem for p in csrc.glob("*.cu"))
+    assert sources == sorted(_build.KERNEL_SOURCES)
+    assert {"lcp_stream", "icp_corr_stream"} <= set(sources)
+    allowed = {"cuda_runtime.h", "cuda_bf16.h", "math.h"}
+    for path in csrc.iterdir():
+        includes = {line.split("<")[1].split(">")[0] for line in path.read_text().splitlines()
+                    if line.startswith("#include")}
+        assert includes <= allowed, (path.name, includes - allowed)
+        assert 'extern "C"' in path.read_text()  # a plain C launcher for ctypes
 
 
 def test_checker_catches_forbidden_imports(tmp_path):
