@@ -6,11 +6,14 @@
 Phases (any failure exits non-zero; no phase catches an error and goes on):
 1. [device] the card's name and power limit (nvidia-smi);
 2. [build] compile every CUDA kernel from csrc/, one nvcc per source, together;
-3. kernel vs plain, each kernel against its plain PyTorch version on the card
-   at the shapes its path gives it and at ragged shapes, then timed alone:
+3. [launch] the time of an empty launch; then kernel vs plain, each kernel
+   against its plain PyTorch version on the card at the shapes its path gives
+   it, at ragged shapes and on constructed exact ties (RAGGED_LCP), then timed
+   alone, weighted and unweighted:
    [lcp] the per-hypothesis LCP kernel, fp32 tier; [lcp-tiers] its "default"
    and "high3" tiers; [lcp-hb] the hypothesis-block LCP kernel, also against
-   the per-hypothesis kernel; [icp] the segment-stationary ICP kernel, one
+   the per-hypothesis kernel, and both on the coarse shape of a scoring call
+   on 4,096-point segments; [icp] the segment-stationary ICP kernel, one
    pass and four iterations; [lcp-stream] the streaming LCP kernel for
    segments of any size, both tiers, also against the per-hypothesis kernel
    on a segment both take; [lcp-wide] its hypothesis-group variant, also
@@ -54,6 +57,11 @@ PEAK_FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores (data sheet)
 PEAK_BF16_TENSOR_FLOPS = 989e12  # H100 SXM, dense bf16 on the tensor cores (data sheet)
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
 TOL_LCP = 2.0  # max abs score error allowed, in units of 1/Nv
+# Where kernel and plain version compute d2 with the same bits (the lowered
+# tiers of lcp_segside, every tier of lcp_stream) they find the same nearest
+# points and the same ties, and only the order of the sum over the model is
+# left: the constructed tie cases are held to this.
+TOL_LCP_SAME_D2 = 1e-6
 # ICP pass (A, b) against the plain version, relative to the largest entry:
 # both find the same correspondences and weights, only the order of the
 # float32 sums over ~500 correspondences differs.
@@ -189,18 +197,20 @@ def _box_surface(rng, n, size):
     return pts.astype(np.float32), nrm.astype(np.float32)
 
 
-def lcp_inputs(seed: int, h: int, nv: int, ns: int, n_masked: int, device):
+def lcp_inputs(seed: int, h: int, nv: int, ns: int, n_masked: int, device, scale: float = 1.0):
     """A box model seen in a scene segment (noise + clutter + masked rows)
-    and h hypotheses scattered a few mm / degrees around the truth."""
+    and h hypotheses scattered a few mm / degrees around the truth. scale
+    enlarges the box and the clutter's spread and narrows the hypotheses'
+    rotations alike; the noise of a few mm stays."""
     rng = np.random.default_rng(seed)
-    mpts, mnrm = _box_surface(rng, nv, (0.12, 0.08, 0.06))
+    mpts, mnrm = _box_surface(rng, nv, (0.12 * scale, 0.08 * scale, 0.06 * scale))
     true_rot = _rot_z(30.0) @ np.array([[1, 0, 0], [0, 0.8, -0.6], [0, 0.6, 0.8]])
     true_t = np.array([0.05, -0.02, 0.7])
     n_obj = ns - ns // 8
     idx = rng.choice(nv, size=n_obj, replace=n_obj > nv)
     spts = mpts[idx] @ true_rot.T + true_t + rng.normal(scale=0.001, size=(n_obj, 3))
     snrm = mnrm[idx] @ true_rot.T
-    clutter = true_t + rng.uniform(-0.15, 0.15, size=(ns - n_obj, 3))
+    clutter = true_t + rng.uniform(-0.15, 0.15, size=(ns - n_obj, 3)) * scale
     cnrm = rng.normal(size=(ns - n_obj, 3))
     cnrm /= np.linalg.norm(cnrm, axis=1, keepdims=True)
     spts = np.concatenate([spts, clutter]).astype(np.float32)
@@ -212,7 +222,7 @@ def lcp_inputs(seed: int, h: int, nv: int, ns: int, n_masked: int, device):
     for k in range(h):
         axis = rng.normal(size=3)
         axis /= np.linalg.norm(axis)
-        ang = rng.uniform(0, math.radians(8.0))
+        ang = rng.uniform(0, math.radians(8.0)) / scale
         kx = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
         dr = np.eye(3) + math.sin(ang) * kx + (1 - math.cos(ang)) * kx @ kx
         tfs[k, :3, :3] = dr @ true_rot
@@ -220,6 +230,55 @@ def lcp_inputs(seed: int, h: int, nv: int, ns: int, n_masked: int, device):
     as_t = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt, device=device)
     return (as_t(tfs), as_t(mpts), as_t(mnrm), as_t(spts), as_t(snrm), as_t(sprob),
             as_t(smask, torch.bool))
+
+
+# Shapes and inputs that the kernels' tiling makes ragged: a model that is no
+# multiple of a warp's tile, one hypothesis, a segment of one point and of one
+# short of 1,024, no unmasked point, the masked points first, and exact ties of
+# the nearest distance (16 segment points placed again `offset` rows on, with
+# their own normals and probabilities): inside one chunk of 32 points, in two
+# and three chunks, and 1,024 rows on, where two chunks share a bit of
+# lcp_segside's mask. (label, seed, H, Nv, Ns, masked, twist)
+RAGGED_LCP = (
+    ("h1_nv300", 100, 1, 300, 333, 10, None),
+    ("h33_nv77", 101, 33, 77, 200, 5, None),
+    ("ns1", 102, 5, 256, 1, 0, None),
+    ("ns1023", 103, 9, 512, 1023, 30, None),
+    ("all_masked", 104, 5, 256, 200, 0, "all_masked"),
+    ("masked_first", 105, 7, 600, 300, 0, "masked_first"),
+    ("tie_one_chunk", 106, 8, 512, 256, 6, (16,)),
+    ("tie_two_chunks", 107, 8, 512, 256, 6, (40,)),
+    ("tie_three_chunks", 108, 8, 300, 256, 6, (40, 70)),
+    ("tie_shared_bit", 109, 4, 512, 2048, 6, (1024,)),
+)
+
+
+def ragged_lcp_inputs(seed, h, nv, ns, masked, twist, device):
+    """lcp_inputs with the twist of a RAGGED_LCP row applied; also the rows
+    that were placed again (empty unless the twist is a tie)."""
+    args = lcp_inputs(seed, h, nv, ns, masked, device)
+    spts, smask = args[3], args[6]
+    copies = []
+    if twist == "all_masked":
+        smask[:] = False
+    elif twist == "masked_first":
+        smask[:100] = False
+    elif twist is not None:
+        smask[:16] = True
+        for offset in twist:
+            spts[offset:offset + 16] = spts[:16]
+            smask[offset:offset + 16] = True
+            copies += range(offset, offset + 16)
+    return args, copies
+
+
+def tie_effect(score_fn, args, copies) -> float:
+    """How far the scores move when the rows placed again are masked: above 0
+    when the case really has ties that the tie rule decides."""
+    masked = list(args)
+    masked[6] = args[6].clone()
+    masked[6][copies] = False
+    return float((score_fn(*args) - score_fn(*masked)).abs().max())
 
 
 def cuda_time_ms(fn, reps: int, warmup: int = 2, inner: int = 1) -> float:
@@ -272,15 +331,85 @@ def phase_build() -> float:
     secs = _build.build()
     log(f"[build] {len(_build.KERNEL_SOURCES)} kernel source(s) built in {secs:.2f} s")
     for name, text in _build.BUILD_LOG.items():
-        kernel = ""
+        kernel = spills = ""
         for line in text.splitlines():
             if "Compiling entry function" in line:
                 # The mangled name holds the kernel and its template arguments
-                # (Li<tier>E, Lb<weighted>E).
+                # (Li<tier>E, Lb<weighted>E, Li<model points per thread>E).
                 kernel = line.split("'")[1].split("_GLOBAL__N_", 1)[-1][-60:]
+            elif "spill" in line:
+                spills = line.strip()
             elif "registers" in line or "smem" in line or "error" in line.lower():
-                log(f"[build] {name}: {kernel}: {line.strip()}")
+                log(f"[build] {name}: {kernel}: {line.strip()}; {spills}")
     return secs
+
+
+def check_ragged(tag, rows, tiers, kernels, plain, same_d2, device) -> None:
+    """Each of `kernels` (name -> scores(args, **kw)) against `plain` on the
+    RAGGED_LCP-style `rows` (a trailing dict of extra keywords allowed),
+    weighted and unweighted, in the given tiers. same_d2(tier): kernel and
+    plain compute d2 with the same bits there, which holds the tie cases to
+    TOL_LCP_SAME_D2."""
+    for label, seed, h, nv, ns, masked, twist, *extra in rows:
+        args, copies = ragged_lcp_inputs(seed, h, nv, ns, masked, twist, device)
+        for tier in tiers:
+            tol = TOL_LCP_SAME_D2 if copies and same_d2(tier) else TOL_LCP / nv
+            for weighted in (True, False):
+                kw = dict(weighted=weighted, matmul_precision=tier, **(extra[0] if extra else {}))
+                want = plain(*args, **kw)
+                errs = {}
+                for name, kernel in kernels.items():
+                    if name == "tensor cores" and (tier is None or weighted):
+                        continue  # the unweighted lowered tiers alone have that unit
+                    got = kernel(args, **kw)
+                    errs[name] = _check_scores(tag, f"{label} {tier} weighted={weighted} {name}",
+                                               got, want, h, tol)
+                    if twist == "all_masked" and float(got.abs().max()) != 0.0:
+                        fail(f"{tag} {name}: an all-masked segment scored above 0")
+                note = ""
+                if copies and weighted:
+                    effect = tie_effect(lambda *a: plain(*a, **kw), args, copies)
+                    note = f" tie_effect={effect:.3e}"
+                    if effect == 0.0:
+                        fail(f"{tag} {label}: the case has no tie that matters")
+                log(f"{tag} {label} H={h} Nv={nv} Ns={ns} {kw}: max_abs_err="
+                    + ", ".join(f"{e:.3e} ({k})" for k, e in errs.items())
+                    + f" (tol {tol:.3e}) mean_score={float(want.mean()):.4f}{note}")
+
+
+def check_ragged_lcp(tag, tiers, device) -> None:
+    """lcp_segside against lcp_scores_plain on RAGGED_LCP: through lcp_scores
+    (the launcher's own choice of unit) and, unweighted in the lowered tiers,
+    on the tensor-core filter, which finishes with the same d2. The fp32 plain
+    version takes d2 from a matrix product, the lowered ones term by term as
+    the kernel does."""
+    from physimglobalpose_tpu_torch.ops import lcp
+
+    check_ragged(tag, RAGGED_LCP, tiers, {
+        "lcp_scores": lambda args, **kw: lcp.lcp_scores(*args, hb_lane_pack=False, **kw),
+        "tensor cores": lambda args, weighted, matmul_precision: lcp._lcp_segside_on_unit(
+            lcp._UNIT_TENSOR_CORES, *packed_lcp_args(args), weighted, matmul_precision),
+    }, lcp.lcp_scores_plain, lambda tier: tier is not None, device)
+
+
+def phase_empty_launch(device) -> float:
+    """Time of a launch that does nothing (lcp_empty_kernel, queued back to
+    back): the floor under every kernel whose bound is a few microseconds."""
+    import ctypes
+
+    from physimglobalpose_tpu_torch import _build
+
+    launch = _build.load("lcp_segside").lcp_empty_launch
+    launch.argtypes, launch.restype = [ctypes.c_void_p], ctypes.c_int
+    stream = torch.cuda.current_stream(device).cuda_stream
+
+    def run():
+        if launch(stream) != 0:
+            fail("the empty kernel did not launch")
+
+    ms = cuda_time_ms(run, reps=5, inner=200)
+    log(f"[launch] an empty kernel takes {ms * 1e3:.2f} us a launch (200 queued back to back)")
+    return ms
 
 
 def phase_lcp(device) -> dict:
@@ -312,6 +441,8 @@ def phase_lcp(device) -> dict:
             if label == "main":
                 worst = max(worst, err)
 
+    check_ragged_lcp("[lcp]", (None,), device)
+
     # Timing at the main path's per-object call: H = 10,000, Nv 4096, Ns 1024.
     h, nv, ns = 10_000, 4096, 1024
     args = lcp_inputs(10, h, nv, ns, 24, device)
@@ -320,9 +451,16 @@ def phase_lcp(device) -> dict:
     if err > TOL_LCP / nv:
         fail("lcp_segside disagrees with plain at the main-path H")
     worst = max(worst, err)
-    kernel_ms = cuda_time_ms(lambda: lcp.lcp_scores(*args, weighted=True), reps=10)
+    # The kernel's wrapper on packed arguments, two launches queued per reading
+    # (as the other phases time theirs); lcp_scores adds the centring and the
+    # packing, a dozen small PyTorch launches that the host sends first.
+    packed = packed_lcp_args(args)
+    kernel_ms = cuda_time_ms(lambda: lcp.lcp_segside(*packed, True), reps=5, inner=2)
+    kernel_u_ms = cuda_time_ms(lambda: lcp.lcp_segside(*packed, False), reps=5, inner=2)
+    scores_ms = cuda_time_ms(lambda: lcp.lcp_scores(*args, weighted=True), reps=5)
+    cores_u_ms = cuda_time_ms(
+        lambda: lcp._lcp_segside_on_unit(lcp._UNIT_CUDA_CORES, *packed, False), reps=5, inner=2)
     plain_ms = cuda_time_ms(lambda: lcp.lcp_scores_plain(*args, weighted=True), reps=3, warmup=1)
-    kernel_u_ms = cuda_time_ms(lambda: lcp.lcp_scores(*args, weighted=False), reps=10)
     tfs, mpts, _, spts = args[:4]
 
     def cdist_yardstick():
@@ -339,11 +477,14 @@ def phase_lcp(device) -> dict:
     bound_ms = max(flops / PEAK_FP32_FLOPS, bytes_moved / PEAK_HBM_BYTES) * 1e3
     flop16_ms = 16.0 * pairs / PEAK_FP32_FLOPS * 1e3
     log(f"[lcp] timed H={h} Nv={nv} Ns={ns}: kernel_ms={kernel_ms:.3f} (weighted) "
-        f"{kernel_u_ms:.3f} (unweighted) plain_ms={plain_ms:.3f} cdist_yardstick_ms={cdist_ms:.3f}")
+        f"{kernel_u_ms:.3f} (unweighted: the earlier block kernel; the warp-item kernel "
+        f"{cores_u_ms:.3f}) lcp_scores_ms={scores_ms:.3f} (weighted, with centring and packing) "
+        f"plain_ms={plain_ms:.3f} cdist_yardstick_ms={cdist_ms:.3f}")
     log(f"[lcp] bound: {flops:.3e} FLOP (8/pair) -> {bound_ms:.3f} ms, share {bound_ms / kernel_ms:.3f}; "
         f"16 FLOP/pair count {16.0 * pairs:.3e} -> {flop16_ms:.3f} ms, share {flop16_ms / kernel_ms:.3f}")
     return dict(max_abs_err=worst, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                unweighted_ms=kernel_u_ms, cdist_yardstick_ms=cdist_ms, flop16_bound_ms=flop16_ms)
+                unweighted_ms=kernel_u_ms, unweighted_warp_items_ms=cores_u_ms,
+                lcp_scores_ms=scores_ms, cdist_yardstick_ms=cdist_ms, flop16_bound_ms=flop16_ms)
 
 
 def _pair_ops_s(pairs: float, tier: str | None) -> tuple[float, float]:
@@ -422,8 +563,15 @@ def phase_lcp_tiers(device) -> dict:
                 if not bool(torch.isfinite(got).all()) or got.shape != (h,):
                     fail(f"lcp_segside[{tier}] {label}: non-finite or misshapen output")
                 err = float((got - want).abs().max())
+                on_tensor = ""
+                if not weighted:
+                    err_t = _check_scores(
+                        "[lcp-tiers]", f"{label} {tier} unweighted on the tensor cores",
+                        lcp._lcp_segside_on_unit(lcp._UNIT_TENSOR_CORES, *packed_lcp_args(args),
+                                                 False, tier), want, h, TOL_LCP / nv)
+                    on_tensor = f" on the tensor cores {err_t:.3e}"
                 log(f"[lcp-tiers] {label} H={h} Nv={nv} Ns={ns} tier={tier} weighted={weighted}: "
-                    f"max_abs_err={err:.3e} (tol {TOL_LCP / nv:.3e}) "
+                    f"max_abs_err={err:.3e}{on_tensor} (tol {TOL_LCP / nv:.3e}) "
                     f"tier_vs_fp32={float((want - f32).abs().max()):.3e} "
                     f"mean_score={float(want.mean()):.4f}")
                 if err > TOL_LCP / nv:
@@ -437,6 +585,12 @@ def phase_lcp_tiers(device) -> dict:
             run = lambda t: cuda_time_ms(
                 lambda: lcp.lcp_segside(*packed, True, t), reps=5, inner=20)
             ms = {t: run(t) for t in (None, "default", "high3")}
+            unweighted_ms = cuda_time_ms(
+                lambda: lcp.lcp_segside(*packed, False, tier), reps=5, inner=20)
+            # The unweighted tier's two units side by side: (CUDA cores, tensor cores).
+            units_ms = tuple(cuda_time_ms(
+                lambda: lcp._lcp_segside_on_unit(unit, *packed, False, tier), reps=5, inner=20)
+                for unit in (lcp._UNIT_CUDA_CORES, lcp._UNIT_TENSOR_CORES))
             plain_ms = cuda_time_ms(
                 lambda: lcp.lcp_scores_plain(*args, matmul_precision=tier), reps=3, warmup=1)
             # The other LCP kernel on this shape (it has no "high3" tier and
@@ -448,14 +602,51 @@ def phase_lcp_tiers(device) -> dict:
             cdist_ms = _cdist_scores_ms(args)
             log(f"[lcp-tiers] timed {label} H={h} Nv={nv} Ns={ns} weighted: fp32={ms[None]:.4f} ms "
                 f"default={ms['default']:.4f} ms high3={ms['high3']:.4f} ms; "
+                f"unweighted {tier}={unweighted_ms:.4f} ms, on (CUDA cores, tensor cores) "
+                f"({units_ms[0]:.4f}, {units_ms[1]:.4f}) ms; "
                 f"lcp_segside_hb[{hb_tier}]={hb_ms:.4f} ms; plain[{tier}]="
                 f"{plain_ms:.3f} ms; bound[{tier}]={bound:.5f} ms share {bound / ms[tier]:.4f} "
                 f"(CUDA cores alone {core_bound:.5f} ms share {core_bound / ms[tier]:.3f}); "
                 f"cdist_yardstick={cdist_ms:.3f} ms")
             stats[tier].update(ms=ms[tier], fp32_ms=ms[None], plain_ms=plain_ms, bound_ms=bound,
                                cuda_core_bound_ms=core_bound, lcp_segside_hb_ms=hb_ms,
-                               cdist_yardstick_ms=cdist_ms, shape=[h, nv, ns])
+                               cdist_yardstick_ms=cdist_ms, shape=[h, nv, ns],
+                               unweighted_ms=unweighted_ms,
+                               unweighted_cuda_cores_ms=units_ms[0],
+                               unweighted_tensor_cores_ms=units_ms[1])
+    check_ragged_lcp("[lcp-tiers]", ("default", "high3"), device)
+    check_large_model("[lcp-tiers]", device)
     return stats
+
+
+def check_large_model(tag, device) -> None:
+    """lcp_segside's two units against each other and against plain on a box
+    eight times the size (about 1 m, |u| some hundred times delta), where the
+    rounding of the tensor-core filter's sum is largest against delta^2: the
+    unit the launcher chooses must be the filter, and the scores the same."""
+    from physimglobalpose_tpu_torch.ops import lcp
+
+    h, nv, ns = 512, 1024, 1024
+    args = lcp_inputs(24, h, nv, ns, 24, device, scale=8.0)
+    packed = packed_lcp_args(args)
+    for tier in ("default", "high3"):
+        if lcp._lcp_segside_unit_for(h, nv, ns, False, tier) != lcp._UNIT_TENSOR_CORES:
+            fail(f"{tag} large_model: the launcher does not take the tensor-core filter")
+        want = lcp.lcp_scores_plain(*args, weighted=False, matmul_precision=tier)
+        got = {unit: lcp._lcp_segside_on_unit(unit, *packed, False, tier)
+               for unit in (lcp._UNIT_CUDA_CORES, lcp._UNIT_TENSOR_CORES)}
+        got["rule"] = lcp.lcp_segside(*packed, False, tier)
+        errs = {k: _check_scores(tag, f"large_model {tier} unit={k}", v, want, h, TOL_LCP / nv)
+                for k, v in got.items()}
+        between = float((got[lcp._UNIT_CUDA_CORES] - got[lcp._UNIT_TENSOR_CORES]).abs().max())
+        mean = float(want.mean())
+        log(f"{tag} large_model H={h} Nv={nv} Ns={ns} tier={tier} unweighted: max_abs_err="
+            f"{errs} (tol {TOL_LCP / nv:.3e}); CUDA cores against tensor cores {between:.3e} "
+            f"(tol {TOL_LCP_SAME_D2:.0e}); mean_score={mean:.4f}")
+        if between > TOL_LCP_SAME_D2 or not torch.equal(got["rule"], got[lcp._UNIT_TENSOR_CORES]):
+            fail(f"{tag} large_model {tier}: the two units disagree")
+        if not 0.01 < mean < 0.99:
+            fail(f"{tag} large_model: the case has no mix of inliers and outliers")
 
 
 def phase_lcp_hb(device) -> dict:
@@ -520,6 +711,56 @@ def phase_lcp_hb(device) -> dict:
                          library_ms=library_ms, bound_ms=bound, cuda_core_bound_ms=core_bound,
                          shape=[h, nv, ns])
     stats["max_abs_err"] = worst
+
+    # The coarse call of the scoring path on 4,096-point segments (every 4th
+    # point: Ns 1,024), which the routing rule hands to lcp_segside and its
+    # launcher to the tensor-core filter: both kernels and both units on all
+    # 16,384 hypotheses, as the path launches them, against plain.
+    h, nv, ns = 16384, 256, 1024
+    args = lcp_inputs(34, h, nv, ns, 24, device)
+    packed = packed_lcp_args(args)
+    if lcp._lcp_segside_unit_for(h, nv, ns, False, "default") != lcp._UNIT_TENSOR_CORES:
+        fail("[lcp-hb] coarse_ns1024: the launcher does not take the tensor-core filter")
+    if lcp._lcp_segside_unit_for(h, nv, ns, True, "default") != lcp._UNIT_CUDA_CORES:
+        fail("[lcp-hb] coarse_ns1024: a weighted call does not stay on the CUDA cores")
+    timed = {}
+    for weighted in (False, True):
+        want = lcp.lcp_scores_plain(*args, weighted=weighted, matmul_precision="default",
+                                    h_chunk=512)
+        runs = {"lcp_segside": lambda: lcp.lcp_segside(*packed, weighted, "default"),
+                "lcp_segside_hb": lambda: lcp.lcp_segside_hb(*packed, weighted, "default"),
+                "lcp_segside on the CUDA cores": lambda: lcp._lcp_segside_on_unit(
+                    lcp._UNIT_CUDA_CORES, *packed, weighted, "default")}
+        if not weighted:
+            runs["lcp_segside on the tensor cores"] = lambda: lcp._lcp_segside_on_unit(
+                lcp._UNIT_TENSOR_CORES, *packed, False, "default")
+        for name, run in runs.items():
+            err = _check_scores("[lcp-hb]", f"coarse_ns1024 {name} weighted={weighted}",
+                                run(), want, h, TOL_LCP / nv)
+            timed[name, weighted] = cuda_time_ms(run, reps=5, inner=5)
+            log(f"[lcp-hb] coarse_ns1024 H={h} Nv={nv} Ns={ns} default weighted={weighted} {name}: "
+                f"max_abs_err={err:.3e} (tol {TOL_LCP / nv:.3e}) mean_score={float(want.mean()):.4f}")
+    units = {(1, False): timed["lcp_segside on the CUDA cores", False],
+             (2, False): timed["lcp_segside on the tensor cores", False],
+             (1, True): timed["lcp_segside on the CUDA cores", True]}
+    bound, core_bound = _lcp_bound_ms(h, nv, ns, "default")
+    log(f"[lcp-hb] timed coarse_ns1024 H={h} Nv={nv} Ns={ns} default: lcp_segside on (CUDA "
+        f"cores, tensor cores): unweighted ({units[1, False]:.4f}, {units[2, False]:.4f}) ms; "
+        f"weighted on the CUDA cores {units[1, True]:.4f} ms")
+    log(f"[lcp-hb] timed coarse_ns1024 H={h} Nv={nv} Ns={ns} default: unweighted "
+        f"lcp_segside={timed['lcp_segside', False]:.4f} ms "
+        f"lcp_segside_hb={timed['lcp_segside_hb', False]:.4f} ms; weighted "
+        f"lcp_segside={timed['lcp_segside', True]:.4f} ms "
+        f"lcp_segside_hb={timed['lcp_segside_hb', True]:.4f} ms; bound={bound:.5f} ms "
+        f"(CUDA cores alone {core_bound:.5f} ms)")
+    stats["coarse_ns1024"] = dict(
+        shape=[h, nv, ns], lcp_segside_ms=timed["lcp_segside", False],
+        lcp_segside_hb_ms=timed["lcp_segside_hb", False],
+        lcp_segside_weighted_ms=timed["lcp_segside", True],
+        lcp_segside_hb_weighted_ms=timed["lcp_segside_hb", True], bound_ms=bound,
+        cuda_core_bound_ms=core_bound,
+        cuda_cores_ms=units[1, False], tensor_cores_ms=units[2, False],
+        weighted_cuda_cores_ms=units[1, True])
     return stats
 
 
@@ -683,6 +924,17 @@ def phase_lcp_stream(device) -> dict:
                     f"mean_score={float(want.mean()):.4f}{note}")
                 if label == "exact":
                     worst = max(worst, err)
+
+    # The ragged shapes and the ties inside a tile: in one chunk of 32 staged
+    # points, in two chunks, and 1,024 rows on in a tile of 2,048, where two
+    # chunks share a bit of the kernel's mask (across a tile edge: above).
+    ragged = tuple((*row, dict(ns_tile=1024)) for row in RAGGED_LCP[:-1]) + (
+        ("tie_shared_bit", 110, 16, 512, 2100, 6, (1024,), dict(ns_tile=2048)),
+        ("h33_nv77_tile64", 111, 33, 77, 200, 5, None, dict(ns_tile=64)),
+    )
+    check_ragged("[lcp-stream]", ragged, (None, "default"),
+                 {"lcp_scores_stream": lambda args, **kw: lcp.lcp_scores_stream(*args, **kw)},
+                 lcp.lcp_scores_stream_plain, lambda tier: True, device)
 
     # Two formulations of one score on a segment both kernels take.
     args = lcp_inputs(55, 64, 4096, 2048, 30, device)
@@ -1107,6 +1359,7 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
     phase_build()
+    empty_ms = phase_empty_launch(device)
     lcp_stats = phase_lcp(device)
     tier_stats = phase_lcp_tiers(device)
     hb_stats = phase_lcp_hb(device)
@@ -1131,6 +1384,10 @@ def main() -> int:
             "max_abs_err": st["max_abs_err"], "ms": st["ms"], "kernel_ms": st["ms"],
             "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"], "bound_by": "operations",
             "share_of_bound": st["bound_ms"] / st["ms"], "library_ms": library_ms,
+            # A bound of a few microseconds is no attainable target: the share
+            # against the larger of the bound and an empty launch.
+            "empty_launch_ms": empty_ms,
+            "share_of_bound_or_launch": max(st["bound_ms"], empty_ms) / st["ms"],
             # The same work on the CUDA cores alone (equal to bound_ms for fp32).
             "cuda_core_bound_ms": st.get("cuda_core_bound_ms", st["bound_ms"]),
             **extra,
@@ -1138,13 +1395,21 @@ def main() -> int:
 
     kernels = [
         entry("lcp_segside", lcp_src, "physimglobalpose_tpu/ops/lcp.py:420",
-              "ops/lcp.py::_lcp_kernel_segside (fp32 tier)", launches["lcp_segside"], lcp_stats),
+              "ops/lcp.py::_lcp_kernel_segside (fp32 tier)", launches["lcp_segside"], lcp_stats,
+              unweighted_ms=lcp_stats["unweighted_ms"],
+              # ms is the kernel alone; the same call through lcp_scores, with
+              # the centring and the packing:
+              lcp_scores_ms=lcp_stats["lcp_scores_ms"]),
         entry("lcp_segside/default", lcp_src, "physimglobalpose_tpu/ops/lcp.py:420",
               "ops/lcp.py::_lcp_kernel_segside (default tier)",
-              scoring_launches["lcp_segside/default"], tier_stats["default"]),
+              scoring_launches["lcp_segside/default"], tier_stats["default"],
+              launches_large=scoring_large_launches["lcp_segside/default"],
+              unweighted_ms=tier_stats["default"]["unweighted_ms"],
+              coarse_ns1024=hb_stats["coarse_ns1024"]),
         entry("lcp_segside/high3", lcp_src, "physimglobalpose_tpu/ops/lcp.py:420",
               "ops/lcp.py::_lcp_kernel_segside (high3 tier)",
-              scoring_launches["lcp_segside/high3"], tier_stats["high3"]),
+              scoring_launches["lcp_segside/high3"], tier_stats["high3"],
+              unweighted_ms=tier_stats["high3"]["unweighted_ms"]),
         entry("lcp_segside_hb", lcp_src, "physimglobalpose_tpu/ops/lcp.py:543",
               "ops/lcp.py::_lcp_kernel_segside_hb", scoring_launches["lcp_segside_hb"], hb_stats,
               library_ms=hb_stats["library_ms"]),
@@ -1156,8 +1421,9 @@ def main() -> int:
         entry("lcp_stream", stream_src, "physimglobalpose_tpu/ops/lcp.py:99",
               "ops/lcp.py::_lcp_kernel", scoring_large_launches["lcp_stream/fp32"], stream_stats,
               launches_scene=large_launches["lcp_stream"],
-              **{k: stream_stats[k] for k in ("shape", "scene_shape", "scene_ms",
-                                              "scene_bound_ms", "cdist_yardstick_ms")}),
+              **{k: stream_stats[k] for k in (
+                  "shape", "scene_shape", "scene_ms", "scene_bound_ms", "cdist_yardstick_ms",
+                  "unweighted_ms", "default_ms", "scene_unweighted_ms", "scene_default_ms")}),
         entry("icp_corr_stream", "physimglobalpose_tpu_torch/csrc/icp_corr_stream.cu",
               "physimglobalpose_tpu/ops/icp.py:569", "ops/icp.py::_icp_corr_kernel",
               icp_stream_launches, icp_stream_stats, shape=icp_stream_stats["shape"],

@@ -1,9 +1,13 @@
 // Weighted / unweighted LCP scores of H rigid hypotheses, segment-stationary:
-// two kernels that compute one function.
+// kernels that compute one function.
 //
-//   lcp_segside_kernel     replaces the TPU kernel
+//   lcp_segside_launch     replaces the TPU kernel
 //       physimglobalpose_tpu/ops/lcp.py::_lcp_kernel_segside
-//     (one hypothesis at a time per block, tiers fp32 / "default" / "high3");
+//     (tiers fp32 / "default" / "high3") with lcp_segside_kernel, one hypothesis
+//     and one model tile per warp on the CUDA cores; for the unweighted lowered
+//     tiers of large calls with lcp_segside_mma_kernel, which finds the
+//     candidates on the tensor cores; for unweighted fp32 calls of many
+//     hypotheses with lcp_segside_block_kernel, the earlier design;
 //   lcp_segside_hb_kernel  replaces
 //       physimglobalpose_tpu/ops/lcp.py::_lcp_kernel_segside_hb
 //     (a group of hypotheses per block, tiers fp32 / "default"; whole-model and
@@ -35,33 +39,57 @@
 // computed with separately rounded products and sums in a fixed order, so the
 // plain PyTorch version reproduces the lowered tiers' d2 bit for bit.
 //
-// What bounds them: fp32 arithmetic on the CUDA cores. Per (hypothesis, model
-// point, segment point) pair the fp32 and "default" tiers execute 3 FMA + 1 add +
-// the running min (about 8 FLOP), "high3" 9 FMA + 1 add (about 20 FLOP); the
-// normal dot runs only on a new nearest or a tie. Against the 67 TFLOP/s fp32
-// peak of an H100 SXM the inputs (a few hundred KB) make memory traffic
-// negligible. "default" therefore costs what fp32 costs here and "high3" costs
-// more: the lowered tiers buy nothing on the CUDA cores, they only keep the
-// scores the TPU path reports.
+// What bounds them: the instruction rate of the CUDA cores. Per (hypothesis, model
+// point, segment point) pair the fp32 and "default" tiers execute 1 add + 3 FMA +
+// the running min (5 instructions, counted as 8 FLOP), "high3" 1 add + 9 FMA + the
+// min (about 20 FLOP). Against the 67 TFLOP/s fp32 peak of an H100 SXM the inputs
+// (a few hundred KB) make memory traffic negligible. On the CUDA cores "default"
+// costs what fp32 costs and "high3" more.
 // What the design does about it:
 //  - a block loads the packed segment into shared memory once ([Ns] float4
 //    positions, [Ns] float4 lo parts for "high3", [Ns] float4 normals/prob when
 //    weighted; above 48 KB through the dynamic shared memory opt-in);
-//  - every thread keeps kSlots (hypothesis, model point) pairs in registers, so
-//    each broadcast shared-memory read of a segment point feeds kSlots
+//  - every thread keeps its (hypothesis, model point) pairs in registers, so
+//    each broadcast shared-memory read of a segment point feeds that many
 //    independent FMA chains;
-//  - lcp_segside_kernel gives a thread kSlots model points of one hypothesis:
-//    right for Nv >= kThreads * kSlots (the fine and exact tiers, Nv = 4096);
+//  - lcp_segside_kernel: the unit of work is one warp on one (hypothesis, model
+//    tile of 32 * kS points); kS = 8, 4 or 2 follows Nv so that at most a quarter
+//    of the slots hold padding (Nv = 256 fills kS = 8 exactly; a call of few
+//    items takes 4 in place of 8), and the grid covers H x model tiles whatever
+//    H is: 32 hypotheses of 4,096 points are 1,024 warps on 256 blocks, not 8
+//    blocks. After the segment is staged the warps of a block never meet again.
+//    A call with many items gives a warp four of them in turn, so the staging
+//    is shared by more work. A warp writes one partial sum per item; a second
+//    kernel adds a hypothesis's tiles in index order (a model of one tile is
+//    written straight out);
+//  - its weighted variant runs the unweighted inner loop: only the running
+//    minimum, taken over chunks of 32 segment points. After a chunk two
+//    compares per slot keep a bit mask of the chunks that reached the minimum
+//    (a nearer chunk resets it, an equal one joins: in the lowered tiers equal
+//    d2 are common). After the scan a slot within delta^2 recomputes d2 over
+//    those chunks with the same instructions, hence the same bits, and takes
+//    prob and |ndot| of every point that equals the minimum; the model normal
+//    is rotated and the normal dot taken only there. The lanes walk their
+//    chunks in rotated order so that 32 different chunks are read without bank
+//    conflicts; the order does not matter, the tie rule is a max. The per-pair
+//    branch, the rotated normal and two of the three state words of the
+//    earlier design are gone from the loop. ptxas gives the weighted variants
+//    128 registers in every tier at kS = 8 (123 / 120 / 168 before, fp32 /
+//    "default" / "high3"; it spends them on unrolling, a cap measured slower)
+//    and 64 / 64 / 101 unweighted; 80 / 80 / 119 weighted at kS = 4;
+//  - lcp_segside_mma_kernel (unweighted): in the lowered tiers d2 is a product
+//    of bf16 operands, which one mma.sync computes for 16 model points x 8
+//    segment points, leaving one min per pair to the CUDA cores. The matrix
+//    unit only finds candidates; the exact minimum is taken with the chain
+//    above (its own note below), so the scores are the same bits on either
+//    unit. A weighted variant of it measured slower than the chunk scan at
+//    every shape (PERF.md) and is not built;
 //  - lcp_segside_hb_kernel gives a thread one model point under kSlots
-//    hypotheses: at the coarse shape (Nv = 256) every slot then holds a real
-//    point, where the other mapping would leave 7 of 8 slots on padding; the
-//    model point is loaded once for the group;
-//  - the normal dot is evaluated only when a segment point ties or beats the
-//    running nearest distance, which is rare after the first few points;
-//  - per-hypothesis sums are a warp-shuffle tree and a fixed-order sum over
-//    warps: no atomics, so scores are deterministic.
-// Tensor cores (mma on the padded K = 5 / K = 3 products), TMA and wgmma are
-// not used here.
+//    hypotheses and evaluates the normal dot in the inner loop, on a new
+//    nearest or a tie; the model point is loaded once for the group;
+//  - per-hypothesis sums are a warp-shuffle tree and a fixed-order sum: no
+//    atomics, so scores are deterministic.
+// TMA and wgmma are not used here: K is 8 or 16, one mma.sync deep.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,11 +97,14 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kSlots = 8;         // (hypothesis, model point) pairs per thread
-constexpr int kHypsPerBlock = 4;  // lcp_segside_kernel: hypotheses a block takes in turn
+constexpr int kThreads = 256;     // lcp_segside_hb_kernel; the most lcp_segside_kernel takes
+constexpr int kSlots = 8;         // lcp_segside_hb_kernel, lcp_segside_block_kernel: pairs a thread
 constexpr int kHypGroup = kSlots; // lcp_segside_hb_kernel: hypotheses a block takes together
+constexpr int kHypsPerBlock = 4;  // lcp_segside_block_kernel: hypotheses a block takes in turn
 constexpr int kWarps = kThreads / 32;
+constexpr int kChunk = 32;        // lcp_segside_kernel: segment points a chunk of the weighted scan
+constexpr int kItemsPerWarp = 4;  // the warp-item kernels: items a warp takes in a large call
+constexpr int kSMs = 132;         // H100 SXM; only sizes the grid
 
 constexpr int kFp32 = 0;
 constexpr int kBf16 = 1;
@@ -95,9 +126,22 @@ struct Slot {
   float ax, ay, az;  // -2u: fp32 | bf16(-2u) | hi part
   float lx, ly, lz;  // "high3" only: lo part of -2u
   float uq;          // |u|^2: fp32 | bf16 | hi + lo
+  float uql;         // "high3" only: lo part of |u|^2 (the hi part is uq - uql)
   float nx, ny, nz;  // R n: fp32 | bf16 | fp32 (split where it is used)
   float best, pb, ab;
 };
+
+// R n as the normal dot of the tier takes it.
+template <int kTier>
+__device__ __forceinline__ void rotate_normal(Slot& s, const float* r, float mnx, float mny,
+                                              float mnz) {
+  s.nx = dot3_rn(r[0], mnx, r[1], mny, r[2], mnz);
+  s.ny = dot3_rn(r[4], mnx, r[5], mny, r[6], mnz);
+  s.nz = dot3_rn(r[8], mnx, r[9], mny, r[10], mnz);
+  if constexpr (kTier == kBf16) {
+    s.nx = bf(s.nx); s.ny = bf(s.ny); s.nz = bf(s.nz);
+  }
+}
 
 template <int kTier, bool kWeighted>
 __device__ __forceinline__ void make_slot(Slot& s, const float* r, float mx, float my,
@@ -115,16 +159,12 @@ __device__ __forceinline__ void make_slot(Slot& s, const float* r, float mx, flo
     s.ax = bf(ax); s.ay = bf(ay); s.az = bf(az);
     s.lx = bf(ax - s.ax); s.ly = bf(ay - s.ay); s.lz = bf(az - s.az);
     const float uh = bf(usq);
-    s.uq = __fadd_rn(uh, bf(usq - uh));
+    s.uql = bf(usq - uh);
+    s.uq = __fadd_rn(uh, s.uql);
   }
   s.best = INFINITY;
   if constexpr (kWeighted) {
-    s.nx = dot3_rn(r[0], mnx, r[1], mny, r[2], mnz);
-    s.ny = dot3_rn(r[4], mnx, r[5], mny, r[6], mnz);
-    s.nz = dot3_rn(r[8], mnx, r[9], mny, r[10], mnz);
-    if constexpr (kTier == kBf16) {
-      s.nx = bf(s.nx); s.ny = bf(s.ny); s.nz = bf(s.nz);
-    }
+    rotate_normal<kTier>(s, r, mnx, mny, mnz);
     s.pb = 0.f;
     s.ab = 0.f;
   }
@@ -133,22 +173,45 @@ __device__ __forceinline__ void make_slot(Slot& s, const float* r, float mx, flo
 // Shared memory: [Ns] positions, then [Ns] lo parts ("high3"), then [Ns]
 // normals + prob (weighted).
 template <int kTier, bool kWeighted>
+__device__ __forceinline__ void stage_segment_point(const float4* __restrict__ seg, float4* s_pos,
+                                                    float4* s_lo, float4* s_nrm, int j) {
+  float4 p = seg[2 * j];
+  if constexpr (kTier == kBf16) {
+    p = make_float4(bf(p.x), bf(p.y), bf(p.z), bf(p.w));
+  } else if constexpr (kTier == kHigh3) {
+    const float4 hi = make_float4(bf(p.x), bf(p.y), bf(p.z), bf(p.w));
+    s_lo[j] = make_float4(bf(p.x - hi.x), bf(p.y - hi.y), bf(p.z - hi.z), 0.f);
+    p = make_float4(hi.x, hi.y, hi.z, __fadd_rn(hi.w, bf(p.w - hi.w)));
+  }
+  s_pos[j] = p;
+  if constexpr (kWeighted) {
+    float4 n = seg[2 * j + 1];
+    if constexpr (kTier == kBf16) n = make_float4(bf(n.x), bf(n.y), bf(n.z), n.w);
+    s_nrm[j] = n;
+  }
+}
+
+template <int kTier, bool kWeighted>
 __device__ __forceinline__ void stage_segment(const float4* __restrict__ seg, float4* s_pos,
                                               float4* s_lo, float4* s_nrm, int Ns) {
   for (int j = threadIdx.x; j < Ns; j += kThreads) {
-    float4 p = seg[2 * j];
-    if constexpr (kTier == kBf16) {
-      p = make_float4(bf(p.x), bf(p.y), bf(p.z), bf(p.w));
-    } else if constexpr (kTier == kHigh3) {
-      const float4 hi = make_float4(bf(p.x), bf(p.y), bf(p.z), bf(p.w));
-      s_lo[j] = make_float4(bf(p.x - hi.x), bf(p.y - hi.y), bf(p.z - hi.z), 0.f);
-      p = make_float4(hi.x, hi.y, hi.z, __fadd_rn(hi.w, bf(p.w - hi.w)));
-    }
-    s_pos[j] = p;
-    if constexpr (kWeighted) {
-      float4 n = seg[2 * j + 1];
-      if constexpr (kTier == kBf16) n = make_float4(bf(n.x), bf(n.y), bf(n.z), n.w);
-      s_nrm[j] = n;
+    stage_segment_point<kTier, kWeighted>(seg, s_pos, s_lo, s_nrm, j);
+  }
+}
+
+// The same for a block of any size, with the positions padded to a whole
+// number of chunks by points at infinity: their d2 is +inf against every
+// model point, so they are never the nearest and never tie.
+template <int kTier, bool kWeighted>
+__device__ __forceinline__ void stage_segment_chunks(const float4* __restrict__ seg,
+                                                     float4* s_pos, float4* s_lo, float4* s_nrm,
+                                                     int Ns, int Nsp) {
+  for (int j = threadIdx.x; j < Nsp; j += blockDim.x) {
+    if (j < Ns) {
+      stage_segment_point<kTier, kWeighted>(seg, s_pos, s_lo, s_nrm, j);
+    } else {
+      s_pos[j] = make_float4(0.f, 0.f, 0.f, INFINITY);
+      if constexpr (kTier == kHigh3) s_lo[j] = make_float4(0.f, 0.f, 0.f, 0.f);
     }
   }
 }
@@ -177,8 +240,30 @@ __device__ __forceinline__ float normal_dot(const float4& n, const Slot& s) {
   }
 }
 
-// Every slot against every segment point: running nearest d2 and, when
-// weighted, the prob and |ndot| of the nearest (max over exact ties).
+// d2 of one pair: staged segment point (s, and l for "high3") against the
+// model side of slot q, summed in this fixed order in every kernel here.
+template <int kTier>
+__device__ __forceinline__ float pair_d2(const float4& s, const float4& l, const Slot& q) {
+  float d = __fadd_rn(s.w, q.uq);
+  if constexpr (kTier == kHigh3) {
+    d = fmaf(l.z, q.az, d);
+    d = fmaf(s.z, q.lz, d);
+    d = fmaf(s.z, q.az, d);
+    d = fmaf(l.y, q.ay, d);
+    d = fmaf(s.y, q.ly, d);
+    d = fmaf(s.y, q.ay, d);
+    d = fmaf(l.x, q.ax, d);
+    d = fmaf(s.x, q.lx, d);
+    d = fmaf(s.x, q.ax, d);
+  } else {
+    d = fmaf(s.x, q.ax, fmaf(s.y, q.ay, fmaf(s.z, q.az, d)));
+  }
+  return d;
+}
+
+// lcp_segside_hb_kernel's scan: every slot against every segment point, the
+// running nearest d2 and, when weighted, the prob and |ndot| of the nearest
+// (max over exact ties), updated per pair.
 template <int kTier, bool kWeighted>
 __device__ __forceinline__ void scan_segment(Slot (&slot)[kSlots], const float4* s_pos,
                                              const float4* s_lo, const float4* s_nrm, int Ns) {
@@ -189,20 +274,7 @@ __device__ __forceinline__ void scan_segment(Slot (&slot)[kSlots], const float4*
 #pragma unroll
     for (int k = 0; k < kSlots; ++k) {
       Slot& q = slot[k];
-      float d = s.w + q.uq;
-      if constexpr (kTier == kHigh3) {
-        d = fmaf(l.z, q.az, d);
-        d = fmaf(s.z, q.lz, d);
-        d = fmaf(s.z, q.az, d);
-        d = fmaf(l.y, q.ay, d);
-        d = fmaf(s.y, q.ly, d);
-        d = fmaf(s.y, q.ay, d);
-        d = fmaf(l.x, q.ax, d);
-        d = fmaf(s.x, q.lx, d);
-        d = fmaf(s.x, q.ax, d);
-      } else {
-        d = fmaf(s.x, q.ax, fmaf(s.y, q.ay, fmaf(s.z, q.az, d)));
-      }
+      const float d = pair_d2<kTier>(s, l, q);
       if constexpr (kWeighted) {
         if (d <= q.best) {
           const float4 n = s_nrm[j];
@@ -249,6 +321,12 @@ __device__ __forceinline__ void load_point(const float* __restrict__ pts, int i,
   }
 }
 
+// Row-major (R | t) of hypothesis h.
+__device__ __forceinline__ void load_pose(const float* __restrict__ tr, int h, float (&r)[12]) {
+#pragma unroll
+  for (int c = 0; c < 12; ++c) r[c] = tr[12 * h + c];
+}
+
 #define LCP_KERNEL_ARGS                                                                    \
   const float* __restrict__ tr,          /* [H, 12] row-major (R | t) */                   \
   const float* __restrict__ model_pts,   /* [Nv, 3] */                                     \
@@ -257,42 +335,508 @@ __device__ __forceinline__ void load_point(const float* __restrict__ pts, int i,
   float* __restrict__ out,               /* [H] */                                         \
   int H, int Nv, int Ns, float delta2, float cos_gate
 
-// One hypothesis at a time; a thread holds kSlots model points of it.
-template <int kTier, bool kWeighted>
-__global__ void __launch_bounds__(kThreads) lcp_segside_kernel(LCP_KERNEL_ARGS) {
+// ---- lcp_segside_kernel: a warp per (hypothesis, model tile) item.
+
+// Unweighted scan: the running nearest d2 of kS slots over the padded segment.
+template <int kTier, int kS>
+__device__ __forceinline__ void scan_nearest(Slot (&slot)[kS], const float4* s_pos,
+                                             const float4* s_lo, int Nsp) {
+#pragma unroll 8
+  for (int j = 0; j < Nsp; ++j) {
+    const float4 s = s_pos[j];
+    float4 l = make_float4(0.f, 0.f, 0.f, 0.f);
+    if constexpr (kTier == kHigh3) l = s_lo[j];
+#pragma unroll
+    for (int k = 0; k < kS; ++k) slot[k].best = fminf(slot[k].best, pair_d2<kTier>(s, l, slot[k]));
+  }
+}
+
+// Weighted scan: the same inner loop over chunks of kChunk points; per slot the
+// nearest d2 and, in hit[k], which chunks reached it: chunk c sets bit
+// (c / kChunk) mod 32, so above 1,024 segment points two chunks share a bit.
+template <int kTier, int kS>
+__device__ __forceinline__ void scan_nearest_chunks(Slot (&slot)[kS], unsigned (&hit)[kS],
+                                                    const float4* s_pos, const float4* s_lo,
+                                                    int Nsp) {
+  for (int c = 0; c < Nsp; c += kChunk) {
+    float cm[kS];
+#pragma unroll
+    for (int k = 0; k < kS; ++k) cm[k] = INFINITY;
+#pragma unroll 8
+    for (int jj = 0; jj < kChunk; ++jj) {
+      const float4 s = s_pos[c + jj];
+      float4 l = make_float4(0.f, 0.f, 0.f, 0.f);
+      if constexpr (kTier == kHigh3) l = s_lo[c + jj];
+#pragma unroll
+      for (int k = 0; k < kS; ++k) cm[k] = fminf(cm[k], pair_d2<kTier>(s, l, slot[k]));
+    }
+    const unsigned bit = 1u << ((c / kChunk) & 31);
+#pragma unroll
+    for (int k = 0; k < kS; ++k) {
+      const unsigned joined = (cm[k] == slot[k].best) ? (hit[k] | bit) : hit[k];
+      hit[k] = (cm[k] < slot[k].best) ? bit : joined;
+      slot[k].best = fminf(slot[k].best, cm[k]);
+    }
+  }
+}
+
+// What a slot within delta^2 contributes when weighted: prob of the nearest
+// segment point if its normal agrees, max prob and max |ndot| over exact ties.
+// d2 is recomputed over the chunks named in `hit` with the scan's
+// instructions; lane L starts at point L of each chunk so that the lanes'
+// reads fall on different banks. A chunk that shares its bit without holding
+// the minimum costs its 32 points and changes nothing.
+template <int kTier>
+__device__ __forceinline__ float nearest_attributes(const Slot& q, unsigned hit, int lane,
+                                                    const float4* s_pos, const float4* s_lo,
+                                                    const float4* s_nrm, int Ns, int Nsp,
+                                                    float cos_gate) {
+  float pb = -INFINITY, ab = -1.f;
+  for (; hit != 0u; hit &= hit - 1u) {
+    for (int c = (__ffs(hit) - 1) * kChunk; c < Nsp; c += 32 * kChunk) {
+      for (int jj = 0; jj < kChunk; ++jj) {
+        const int j = c + ((jj + lane) & (kChunk - 1));
+        const float4 s = s_pos[j];
+        float4 l = make_float4(0.f, 0.f, 0.f, 0.f);
+        if constexpr (kTier == kHigh3) l = s_lo[j];
+        if (j < Ns && pair_d2<kTier>(s, l, q) == q.best) {
+          const float4 n = s_nrm[j];
+          pb = fmaxf(pb, n.w);
+          ab = fmaxf(ab, normal_dot<kTier>(n, q));
+        }
+      }
+    }
+  }
+  return (ab >= cos_gate) ? pb : 0.f;
+}
+
+// Grid: ceil(H * n_mtiles / (warps of the block * items_per_warp)) blocks. Item
+// it = h * n_mtiles + mt is hypothesis h on model points [mt, mt + 1) * 32 * kS;
+// lane L holds points mt * 32 * kS + k * 32 + L, k < kS.
+template <int kTier, bool kWeighted, int kS>
+__global__ void __launch_bounds__(kThreads)
+lcp_segside_kernel(LCP_KERNEL_ARGS, float* __restrict__ partial /* [H, n_mtiles] */,
+                   int n_mtiles, int items_per_warp) {
+  extern __shared__ float4 smem[];
+  const int Nsp = (Ns + kChunk - 1) / kChunk * kChunk;
+  float4* s_pos = smem;
+  float4* s_lo = smem + Nsp;
+  float4* s_nrm = smem + (kTier == kHigh3 ? 2 : 1) * Nsp;
+
+  stage_segment_chunks<kTier, kWeighted>(seg, s_pos, s_lo, s_nrm, Ns, Nsp);
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int warp = static_cast<int>(blockIdx.x) * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int items = H * n_mtiles;
+  const int it_end = min(items, (warp + 1) * items_per_warp);
+  for (int it = warp * items_per_warp; it < it_end; ++it) {
+    const int h = it / n_mtiles;
+    const int base = (it - h * n_mtiles) * 32 * kS + lane;
+    const float* r = tr + 12 * h;
+
+    Slot slot[kS];
+    {
+      float rr[12];
+      load_pose(tr, h, rr);
+#pragma unroll
+      for (int k = 0; k < kS; ++k) {
+        float mx, my, mz;
+        load_point(model_pts, base + k * 32, Nv, mx, my, mz);
+        make_slot<kTier, false>(slot[k], rr, mx, my, mz, 0.f, 0.f, 0.f);
+      }
+    }
+
+    float acc = 0.f;
+    if constexpr (kWeighted) {
+      unsigned hit[kS];
+#pragma unroll
+      for (int k = 0; k < kS; ++k) hit[k] = 0u;
+      scan_nearest_chunks<kTier, kS>(slot, hit, s_pos, s_lo, Nsp);
+#pragma unroll
+      for (int k = 0; k < kS; ++k) {
+        const int i = base + k * 32;
+        if (i < Nv && slot[k].best <= delta2) {
+          float mnx, mny, mnz;
+          load_point(model_nrm, i, Nv, mnx, mny, mnz);
+          rotate_normal<kTier>(slot[k], r, mnx, mny, mnz);
+          acc += nearest_attributes<kTier>(slot[k], hit[k], lane, s_pos, s_lo, s_nrm, Ns, Nsp,
+                                           cos_gate);
+        }
+      }
+    } else {
+      scan_nearest<kTier, kS>(slot, s_pos, s_lo, Nsp);
+#pragma unroll
+      for (int k = 0; k < kS; ++k) {
+        if (base + k * 32 < Nv && slot[k].best <= delta2) acc += 1.f;
+      }
+    }
+
+    // Fixed-order sum of the tile: a warp shuffle tree.
+    acc = warp_sum(acc);
+    if (lane == 0) {
+      if (n_mtiles == 1) {
+        out[h] = acc / static_cast<float>(Nv);
+      } else {
+        partial[it] = acc;
+      }
+    }
+  }
+}
+
+// ---- lcp_segside_mma_kernel: the lowered tiers with d2 on the tensor cores.
+//
+// The lowered tiers are products of bf16 values summed in float32: one
+// mma.sync (bf16 operands, float32 accumulate) computes d2 for 16 model points x
+// 8 segment points, with the tier's terms laid along K ("default" K = 5 of 8,
+// "high3" K = 13 of 16):
+//   "default"  model (ax, ay, az, 1, |u|^2)          segment (sx, sy, sz, |s|^2, 1)
+//   "high3"    model (axh, axl, axh, .., 1, 1, uh, ul) segment (lx, sx, sx, .., sh, sl, 1, 1)
+// Every product is exact, so the matrix unit computes the tier's d2 up to the
+// order and rounding of its float32 sum: a few ulp of the terms' size from the
+// chain of pair_d2. The scores must not depend on that, so the matrix unit only
+// FILTERS: per model point the scan keeps the smallest d2 it saw and a bit mask
+// of the chunks of kMmaChunk segment points whose minimum came within `eps` of
+// it (eps bounds twice the difference between the two sums for any pair near
+// the nearest). Afterwards a model point whose filtered minimum is within
+// delta^2 + eps walks those chunks with pair_d2 on the CUDA cores and takes the
+// exact minimum there: the same bits as lcp_segside_kernel and the plain
+// version, at one min per pair in the scan instead of five instructions. One
+// whose filtered minimum is under delta^2 - eps is an inlier without the walk.
+// Unweighted calls only: the score needs no attribute of the nearest point.
+// A warp takes kMmaRows = 128 model points of one hypothesis (8 row tiles of 16,
+// the A fragments, in registers) and walks the segment's B fragments, staged
+// once per block in fragment order. Lane (g, t) = (lane / 4, lane % 4) sees
+// rows g and g + 8 of every row tile and columns 2t, 2t + 1 of every column
+// tile; the four lanes of a row merge after the scan, then lane (g, t) finishes
+// the rows of row tiles t and t + 4.
+
+constexpr int kMmaRows = 128;   // model points per warp item
+constexpr int kMmaChunk = 128;  // segment points per chunk of the filter's mask
+constexpr int kRowTiles = kMmaRows / 16;
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// bf16x2 words of one point's K vector: 4 (K = 8) or 8 (K = 16).
+template <int kTier>
+constexpr int kWordsOf = kTier == kHigh3 ? 8 : 4;
+
+// The model side's words from the chain's operands (all bf16-valued).
+template <int kTier>
+__device__ __forceinline__ void model_words(const Slot& q, unsigned (&w)[7]) {
+  if constexpr (kTier == kHigh3) {
+    w[0] = pack_bf16(q.ax, q.lx);
+    w[1] = pack_bf16(q.ax, q.ay);
+    w[2] = pack_bf16(q.ly, q.ay);
+    w[3] = pack_bf16(q.az, q.lz);
+    w[4] = pack_bf16(q.az, 1.f);
+    w[5] = pack_bf16(1.f, q.uq - q.uql);
+    w[6] = pack_bf16(q.uql, 0.f);
+  } else {
+    w[0] = pack_bf16(q.ax, q.ay);
+    w[1] = pack_bf16(q.az, 1.f);
+    w[2] = pack_bf16(q.uq, 0.f);
+  }
+}
+
+// Word kp of segment point j in the fragment-ordered array: column tile j / 8,
+// lane (j % 8) * 4 + kp % 4, register kp / 4.
+template <int kTier>
+__device__ __forceinline__ int frag_index(int j, int kp) {
+  constexpr int kRegs = kWordsOf<kTier> / 4;
+  return (j >> 3) * (32 * kRegs) + (((j & 7) << 2) + (kp & 3)) * kRegs + (kp >> 2);
+}
+
+// Stage the segment for the filter and for the exact pass: s_pos / s_lo as
+// stage_segment_point leaves them, and the segment side's words.
+// Points from Ns to Nsp (a whole number of chunks) get |s|^2 = 1e30.
+template <int kTier>
+__device__ __forceinline__ void stage_segment_mma(const float4* __restrict__ seg, float4* s_pos,
+                                                  float4* s_lo, unsigned* s_frag, int Ns,
+                                                  int Nsp) {
+  for (int j = threadIdx.x; j < Nsp; j += blockDim.x) {
+    unsigned w[8] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
+    if (j < Ns) {
+      stage_segment_point<kTier, false>(seg, s_pos, s_lo, nullptr, j);
+      const float4 s = s_pos[j];
+      if constexpr (kTier == kHigh3) {
+        const float4 l = s_lo[j];
+        const float raw = seg[2 * j].w;
+        const float sh = bf(raw), sl = bf(raw - sh);
+        w[0] = pack_bf16(l.x, s.x);
+        w[1] = pack_bf16(s.x, l.y);
+        w[2] = pack_bf16(s.y, s.y);
+        w[3] = pack_bf16(l.z, s.z);
+        w[4] = pack_bf16(s.z, sh);
+        w[5] = pack_bf16(sl, 1.f);
+        w[6] = pack_bf16(1.f, 0.f);
+      } else {
+        w[0] = pack_bf16(s.x, s.y);
+        w[1] = pack_bf16(s.z, s.w);
+        w[2] = pack_bf16(1.f, 0.f);
+      }
+    } else {
+      s_pos[j] = make_float4(0.f, 0.f, 0.f, INFINITY);
+      if constexpr (kTier == kHigh3) {
+        s_lo[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+        w[4] = pack_bf16(0.f, 1e30f);
+        w[5] = pack_bf16(0.f, 1.f);
+        w[6] = pack_bf16(1.f, 0.f);
+      } else {
+        w[1] = pack_bf16(0.f, 1e30f);
+        w[2] = pack_bf16(1.f, 0.f);
+      }
+    }
+#pragma unroll
+    for (int kp = 0; kp < kWordsOf<kTier>; ++kp) s_frag[frag_index<kTier>(j, kp)] = w[kp];
+  }
+}
+
+// d[0..3] = A (16 x K, row-major) * B (K x 8, column-major) in float32.
+template <int kTier>
+__device__ __forceinline__ void mma_d2(float (&d)[4], const unsigned* a, const unsigned* b) {
+  if constexpr (kTier == kHigh3) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.f));
+  } else {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%7, %7, %7, %7};\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(b[0]), "f"(0.f));
+  }
+}
+
+// Word of lane `src`'s array chosen by this lane's t: w[t] (offset 0) or
+// w[t + 4] (offset 4); words from 3 ("default") or 7 ("high3") on are zero.
+template <int kTier>
+__device__ __forceinline__ unsigned word_from(const unsigned (&w)[7], int offset, int src, int t) {
+  constexpr int kUsed = kTier == kHigh3 ? 7 : 3;
+  unsigned mine = 0u;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    if (offset + c < kUsed) {
+      const unsigned v = __shfl_sync(0xffffffffu, w[offset + c], src);
+      mine = (t == c) ? v : mine;
+    }
+  }
+  return mine;
+}
+
+template <int kTier>
+__global__ void __launch_bounds__(kThreads)
+lcp_segside_mma_kernel(LCP_KERNEL_ARGS, float* __restrict__ partial /* [H, n_mtiles] */,
+                       int n_mtiles, int items_per_warp) {
+  static_assert(kTier != kFp32, "the float32 tier stays on the CUDA cores");
+  constexpr int kRegs = kWordsOf<kTier> / 4;  // registers of a B fragment; an A fragment has 2x
+  extern __shared__ float4 smem[];
+  const int Nsp = (Ns + kMmaChunk - 1) / kMmaChunk * kMmaChunk;
+  float4* s_pos = smem;
+  float4* s_lo = smem + Nsp;
+  unsigned* s_frag = reinterpret_cast<unsigned*>(smem + (kTier == kHigh3 ? 2 : 1) * Nsp);
+
+  stage_segment_mma<kTier>(seg, s_pos, s_lo, s_frag, Ns, Nsp);
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int warp = static_cast<int>(blockIdx.x) * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int items = H * n_mtiles;
+  const int it_end = min(items, (warp + 1) * items_per_warp);
+  for (int it = warp * items_per_warp; it < it_end; ++it) {
+    const int h = it / n_mtiles;
+    const int base = (it - h * n_mtiles) * kMmaRows;
+
+    // A fragments: lane (g, t) makes the words of its own four model points
+    // (row tiles t and t + 4, rows g and g + 8); the lanes of its quad hand
+    // each other the word each needs of every row tile.
+    unsigned afrag[kRowTiles][2 * kRegs];
+    float uq_max = 0.f;
+    {
+      float rr[12];
+      load_pose(tr, h, rr);
+      unsigned w[4][7];
+#pragma unroll
+      for (int o = 0; o < 4; ++o) {
+        Slot q;
+        float mx, my, mz;
+        load_point(model_pts, base + (t + 4 * (o >> 1)) * 16 + g + 8 * (o & 1), Nv, mx, my, mz);
+        make_slot<kTier, false>(q, rr, mx, my, mz, 0.f, 0.f, 0.f);
+        model_words<kTier>(q, w[o]);
+        uq_max = fmaxf(uq_max, q.uq);
+      }
+#pragma unroll
+      for (int m = 0; m < kRowTiles; ++m) {
+        const int src = (lane & ~3) | (m & 3);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const unsigned (&ws)[7] = w[(m >> 2) * 2 + half];
+          afrag[m][half] = word_from<kTier>(ws, 0, src, t);
+          if constexpr (kRegs == 2) afrag[m][2 + half] = word_from<kTier>(ws, 4, src, t);
+        }
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      uq_max = fmaxf(uq_max, __shfl_xor_sync(0xffffffffu, uq_max, off));
+    }
+    // More than twice the most the two sums can differ for a pair whose d2 is
+    // within delta^2. There |s| <= |u| + delta, and every partial sum of either
+    // order is at most the sum of the terms' sizes, |s|^2 + |u|^2 + 2 |s| |u| =
+    // (|s| + |u|)^2 <= (2 |u| + delta)^2 =: M. Each sum rounds (or truncates) at
+    // most K + 2 times ("default", K = 5) or K + 5 times ("high3", K = 13, with
+    // the hi + lo of |u|^2 and |s|^2) by one ulp <= 2^-23 M: 14 and 36 ulp for
+    // the two sums, 28 and 72 twice, under the 32 and 96 taken. The margin also
+    // covers the tier's own rounding of the operands to bf16 (|s|^2 and |u|^2
+    // each within 2^-8 of the rounded points' own), which lets |s| pass
+    // |u| + delta by up to |u| / 11: under 10 % of M, against the 14 % left. A
+    // pair further off than delta^2 + eps never decides a score, whatever its
+    // error.
+    const float reach = 2.f * sqrtf(uq_max) + sqrtf(delta2);
+    const float eps = (kTier == kHigh3 ? 96.f : 32.f) * 1.1920929e-7f * reach * reach;
+
+    // The filter: per row the smallest d2 this lane saw and the chunks near it.
+    float best[2 * kRowTiles];
+    unsigned hits[2 * kRowTiles];
+#pragma unroll
+    for (int k = 0; k < 2 * kRowTiles; ++k) {
+      best[k] = INFINITY;
+      hits[k] = 0u;
+    }
+    for (int c = 0; c < Nsp; c += kMmaChunk) {
+      float cm[2 * kRowTiles];
+#pragma unroll
+      for (int k = 0; k < 2 * kRowTiles; ++k) cm[k] = INFINITY;
+#pragma unroll 2
+      for (int n = 0; n < kMmaChunk / 8; ++n) {
+        unsigned b[kRegs];
+        const unsigned* src = s_frag + ((c >> 3) + n) * (32 * kRegs) + lane * kRegs;
+        if constexpr (kRegs == 2) {
+          const uint2 v = *reinterpret_cast<const uint2*>(src);
+          b[0] = v.x;
+          b[1] = v.y;
+        } else {
+          b[0] = *src;
+        }
+#pragma unroll
+        for (int m = 0; m < kRowTiles; ++m) {
+          float d[4];
+          mma_d2<kTier>(d, afrag[m], b);
+          cm[2 * m] = fminf(cm[2 * m], fminf(d[0], d[1]));
+          cm[2 * m + 1] = fminf(cm[2 * m + 1], fminf(d[2], d[3]));
+        }
+      }
+      const unsigned bit = 1u << (c / kMmaChunk);
+#pragma unroll
+      for (int k = 0; k < 2 * kRowTiles; ++k) {
+        const unsigned joined = (cm[k] <= best[k] + eps) ? (hits[k] | bit) : hits[k];
+        hits[k] = (cm[k] < best[k] - eps) ? bit : joined;
+        best[k] = fminf(best[k], cm[k]);
+      }
+    }
+    // The four lanes of a row: the smallest of their minima, and the chunks
+    // of the lanes that came near it.
+#pragma unroll
+    for (int k = 0; k < 2 * kRowTiles; ++k) {
+      float low = fminf(best[k], __shfl_xor_sync(0xffffffffu, best[k], 1));
+      low = fminf(low, __shfl_xor_sync(0xffffffffu, low, 2));
+      unsigned mask = (best[k] <= low + eps) ? hits[k] : 0u;
+      mask |= __shfl_xor_sync(0xffffffffu, mask, 1);
+      mask |= __shfl_xor_sync(0xffffffffu, mask, 2);
+      best[k] = low;
+      hits[k] = mask;
+    }
+
+    // The exact pass, on this lane's own four model points.
+    float acc = 0.f;
+#pragma unroll
+    for (int o = 0; o < 4; ++o) {
+      float low = INFINITY;
+      unsigned mask = 0u;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {  // row 2 * (t + 4 * (o / 2)) + o % 2, by this lane's t
+        const int k = 2 * (c + 4 * (o >> 1)) + (o & 1);
+        low = (t == c) ? best[k] : low;
+        mask = (t == c) ? hits[k] : mask;
+      }
+      const int i = base + (t + 4 * (o >> 1)) * 16 + g + 8 * (o & 1);
+      if (i >= Nv || !(low <= delta2 + eps)) continue;
+      if (low < delta2 - eps) {
+        acc += 1.f;
+        continue;
+      }
+      Slot q;
+      {
+        float rr[12];
+        load_pose(tr, h, rr);
+        float mx, my, mz;
+        load_point(model_pts, i, Nv, mx, my, mz);
+        make_slot<kTier, false>(q, rr, mx, my, mz, 0.f, 0.f, 0.f);
+      }
+      for (; mask != 0u; mask &= mask - 1u) {
+        const int c = (__ffs(mask) - 1) * kMmaChunk;
+        for (int jj = 0; jj < kMmaChunk; ++jj) {
+          const int j = c + ((jj + lane) & (kMmaChunk - 1));
+          if (j >= Ns) continue;
+          const float4 s = s_pos[j];
+          float4 l = make_float4(0.f, 0.f, 0.f, 0.f);
+          if constexpr (kTier == kHigh3) l = s_lo[j];
+          q.best = fminf(q.best, pair_d2<kTier>(s, l, q));
+        }
+      }
+      if (q.best <= delta2) acc += 1.f;
+    }
+
+    acc = warp_sum(acc);
+    if (lane == 0) {
+      if (n_mtiles == 1) {
+        out[h] = acc / static_cast<float>(Nv);
+      } else {
+        partial[it] = acc;
+      }
+    }
+  }
+}
+
+// The earlier design, kept for the unweighted float32 variant of large calls,
+// where it measures 2-3 % faster than the warp items (PERF.md): a block takes
+// kHypsPerBlock hypotheses in turn, a thread holds kSlots model points of one,
+// strided by the block, and the block meets once per hypothesis for its sum.
+template <int kTier>
+__global__ void __launch_bounds__(kThreads) lcp_segside_block_kernel(LCP_KERNEL_ARGS) {
   extern __shared__ float4 smem[];
   float4* s_pos = smem;
   float4* s_lo = smem + Ns;
-  float4* s_nrm = smem + (kTier == kHigh3 ? 2 : 1) * Ns;
   __shared__ float s_warp[kWarps];
 
   const int tid = threadIdx.x;
-  stage_segment<kTier, kWeighted>(seg, s_pos, s_lo, s_nrm, Ns);
+  stage_segment<kTier, false>(seg, s_pos, s_lo, nullptr, Ns);
   __syncthreads();
 
   const int block = static_cast<int>(blockIdx.x);
   const int h_end = min(H, (block + 1) * kHypsPerBlock);
   for (int h = block * kHypsPerBlock; h < h_end; ++h) {
     float r[12];
-#pragma unroll
-    for (int c = 0; c < 12; ++c) r[c] = tr[12 * h + c];
+    load_pose(tr, h, r);
 
     float acc = 0.f;
     for (int base = 0; base < Nv; base += kThreads * kSlots) {
       Slot slot[kSlots];
 #pragma unroll
       for (int k = 0; k < kSlots; ++k) {
-        const int i = base + k * kThreads + tid;
-        float mx, my, mz, mnx = 0.f, mny = 0.f, mnz = 0.f;
-        load_point(model_pts, i, Nv, mx, my, mz);
-        if constexpr (kWeighted) load_point(model_nrm, i, Nv, mnx, mny, mnz);
-        make_slot<kTier, kWeighted>(slot[k], r, mx, my, mz, mnx, mny, mnz);
+        float mx, my, mz;
+        load_point(model_pts, base + k * kThreads + tid, Nv, mx, my, mz);
+        make_slot<kTier, false>(slot[k], r, mx, my, mz, 0.f, 0.f, 0.f);
       }
-      scan_segment<kTier, kWeighted>(slot, s_pos, s_lo, s_nrm, Ns);
+      scan_segment<kTier, false>(slot, s_pos, s_lo, nullptr, Ns);
 #pragma unroll
       for (int k = 0; k < kSlots; ++k) {
         if (base + k * kThreads + tid < Nv) {
-          acc += contribution<kWeighted>(slot[k], delta2, cos_gate);
+          acc += contribution<false>(slot[k], delta2, cos_gate);
         }
       }
     }
@@ -309,6 +853,19 @@ __global__ void __launch_bounds__(kThreads) lcp_segside_kernel(LCP_KERNEL_ARGS) 
     __syncthreads();
   }
 }
+
+// out[h] = (sum of the model tiles' partial sums, in tile order) / Nv.
+__global__ void lcp_segside_finish_kernel(const float* __restrict__ partial,
+                                          float* __restrict__ out, int H, int n_mtiles, int Nv) {
+  const int h = blockIdx.x * blockDim.x + threadIdx.x;
+  if (h >= H) return;
+  float total = 0.f;
+  for (int t = 0; t < n_mtiles; ++t) total += partial[h * n_mtiles + t];
+  out[h] = total / static_cast<float>(Nv);
+}
+
+// Does nothing: what a launch costs on this card (timed beside the kernels).
+__global__ void lcp_empty_kernel() {}
 
 // kHypGroup hypotheses together; a thread holds one model point under each of
 // them and walks the model in tiles of kThreads points.
@@ -367,38 +924,163 @@ __global__ void __launch_bounds__(kThreads) lcp_segside_hb_kernel(LCP_KERNEL_ARG
   }
 }
 
-template <int kTier, bool kWeighted>
-int launch(bool hyp_block, const float* tr, const float* model_pts, const float* model_nrm,
-           const float* seg, float* out, int H, int Nv, int Ns, float delta2, float cos_gate,
-           cudaStream_t st) {
-  const int arrays = 1 + (kTier == kHigh3 ? 1 : 0) + (kWeighted ? 1 : 0);
-  const int smem = Ns * arrays * static_cast<int>(sizeof(float4));
-  const float4* seg4 = reinterpret_cast<const float4*>(seg);
-  if (hyp_block) {
-    if constexpr (kTier == kHigh3) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    } else {
-      auto kern = lcp_segside_hb_kernel<kTier, kWeighted>;
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      kern<<<(H + kHypGroup - 1) / kHypGroup, kThreads, smem, st>>>(
-          tr, model_pts, model_nrm, seg4, out, H, Nv, Ns, delta2, cos_gate);
-    }
-  } else {
-    auto kern = lcp_segside_kernel<kTier, kWeighted>;
-    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    kern<<<(H + kHypsPerBlock - 1) / kHypsPerBlock, kThreads, smem, st>>>(
-        tr, model_pts, model_nrm, seg4, out, H, Nv, Ns, delta2, cos_gate);
+// Model points per thread of lcp_segside_kernel: the largest of 8, 4, 2 that
+// leaves at most a quarter of a hypothesis's slots on padding; 4 in place of
+// 8 when the call has too few (hypothesis, model tile) items to give every SM
+// a full block of warps (the exact tier: 32 hypotheses).
+int slots_for(int H, int Nv) {
+  for (int s = 8; s > 2; s /= 2) {
+    const int tiles = (Nv + 32 * s - 1) / (32 * s);
+    const int padded = tiles * 32 * s;
+    if ((padded - Nv) * 4 > padded) continue;
+    if (s == 8 && static_cast<long long>(H) * tiles < kWarps * kSMs) continue;
+    return s;
   }
+  return 2;
+}
+
+template <int kTier, bool kWeighted>
+int segment_smem(int Ns, bool padded) {
+  const int n = padded ? (Ns + kChunk - 1) / kChunk * kChunk : Ns;
+  const int arrays = 1 + (kTier == kHigh3 ? 1 : 0) + (kWeighted ? 1 : 0);
+  return n * arrays * static_cast<int>(sizeof(float4));
+}
+
+// Grid of the two kernels whose unit of work is a warp on one item: enough
+// warps to fill the card come first; a call with more items than that gives
+// a warp several, and small calls take smaller blocks.
+struct ItemGrid {
+  int per_warp, block_threads, blocks;
+};
+
+ItemGrid item_grid(long long items) {
+  ItemGrid g;
+  g.per_warp = items >= 4LL * kItemsPerWarp * kWarps * kSMs ? kItemsPerWarp : 1;
+  const int warps = static_cast<int>((items + g.per_warp - 1) / g.per_warp);
+  const int block_warps = warps >= kWarps * kSMs ? kWarps : (warps >= 2 * kSMs ? 4 : 2);
+  g.block_threads = 32 * block_warps;
+  g.blocks = (warps + block_warps - 1) / block_warps;
+  return g;
+}
+
+int finish(const float* partial, float* out, int H, int n_mtiles, int Nv, cudaStream_t st) {
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err != 0 || n_mtiles == 1) return err;
+  lcp_segside_finish_kernel<<<(H + 255) / 256, 256, 0, st>>>(partial, out, H, n_mtiles, Nv);
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch(bool hyp_block, const float* tr, const float* model_pts, const float* model_nrm,
-             const float* seg, float* out, int H, int Nv, int Ns, float delta2,
+#define LCP_LAUNCH_ARGS                                                                    \
+  const float *tr, const float *model_pts, const float *model_nrm, const float4 *seg4,    \
+      float *partial, float *out, int H, int Nv, int Ns, float delta2, float cos_gate,    \
+      cudaStream_t st
+
+template <int kTier, bool kWeighted, int kS>
+int launch_warp_items(LCP_LAUNCH_ARGS) {
+  const int n_mtiles = (Nv + 32 * kS - 1) / (32 * kS);
+  const ItemGrid g = item_grid(static_cast<long long>(H) * n_mtiles);
+  const int smem = segment_smem<kTier, kWeighted>(Ns, true);
+  auto kern = lcp_segside_kernel<kTier, kWeighted, kS>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  kern<<<g.blocks, g.block_threads, smem, st>>>(tr, model_pts, model_nrm, seg4, out, H, Nv, Ns,
+                                                delta2, cos_gate, partial, n_mtiles, g.per_warp);
+  return finish(partial, out, H, n_mtiles, Nv, st);
+}
+
+template <int kTier>
+int launch_mma(LCP_LAUNCH_ARGS) {
+  const int n_mtiles = (Nv + kMmaRows - 1) / kMmaRows;
+  const ItemGrid g = item_grid(static_cast<long long>(H) * n_mtiles);
+  const int Nsp = (Ns + kMmaChunk - 1) / kMmaChunk * kMmaChunk;
+  const int arrays = kTier == kHigh3 ? 2 : 1;
+  const int smem = Nsp * (arrays * static_cast<int>(sizeof(float4)) + 4 * kWordsOf<kTier>);
+  auto kern = lcp_segside_mma_kernel<kTier>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  kern<<<g.blocks, g.block_threads, smem, st>>>(tr, model_pts, model_nrm, seg4, out, H, Nv, Ns,
+                                                delta2, cos_gate, partial, n_mtiles, g.per_warp);
+  return finish(partial, out, H, n_mtiles, Nv, st);
+}
+
+// Which of lcp_segside's kernels a call takes.
+constexpr int kUnitRule = 0;    // the measured rule below
+constexpr int kUnitCores = 1;   // the CUDA cores, whatever the shape
+constexpr int kUnitTensor = 2;  // the tensor-core filter (lowered tiers only)
+
+// Where the tensor-core filter measured faster than the CUDA cores (PERF.md):
+// the unweighted variants of the lowered tiers from 512 segment points and
+// about 2^18 (hypothesis, model point) pairs on, 1.3-2.3x. A weighted filter
+// measured slower at every shape (its exact pass over whole chunks costs more
+// than the scan saves) and is not built.
+bool rule_takes_tensor(int tier, bool weighted, int H, int Nv, int Ns) {
+  const int padded = (Nv + kMmaRows - 1) / kMmaRows * kMmaRows;
+  return tier != kFp32 && !weighted && Ns >= 512 &&
+         static_cast<long long>(H) * Nv >= (1 << 18) && (padded - Nv) * 4 <= padded;
+}
+
+template <int kTier, bool kWeighted>
+int launch(int unit, LCP_LAUNCH_ARGS) {
+  if constexpr (kTier != kFp32 && !kWeighted) {
+    if (unit == kUnitTensor ||
+        (unit == kUnitRule && rule_takes_tensor(kTier, kWeighted, H, Nv, Ns))) {
+      return launch_mma<kTier>(tr, model_pts, model_nrm, seg4, partial, out, H, Nv, Ns, delta2,
+                               cos_gate, st);
+    }
+  }
+  if (unit == kUnitTensor) return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (!kWeighted && kTier == kFp32) {
+    // Unweighted float32, many hypotheses, a model of whole 2,048-point
+    // passes: the earlier kernel (measured at H 10,000 x Nv 4,096 only).
+    if (unit == kUnitRule && H >= 4 * kHypsPerBlock * kSMs && Nv % (kThreads * kSlots) == 0) {
+      const int smem = segment_smem<kTier, false>(Ns, false);
+      auto kern = lcp_segside_block_kernel<kTier>;
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kern<<<(H + kHypsPerBlock - 1) / kHypsPerBlock, kThreads, smem, st>>>(
+          tr, model_pts, model_nrm, seg4, out, H, Nv, Ns, delta2, cos_gate);
+      return static_cast<int>(cudaGetLastError());
+    }
+  }
+#define LCP_ITEMS(S)                                                                          \
+  return launch_warp_items<kTier, kWeighted, S>(tr, model_pts, model_nrm, seg4, partial, out, \
+                                                H, Nv, Ns, delta2, cos_gate, st)
+  switch (slots_for(H, Nv)) {
+    case 8: LCP_ITEMS(8);
+    case 4: LCP_ITEMS(4);
+    default: LCP_ITEMS(2);
+  }
+#undef LCP_ITEMS
+}
+
+template <int kTier, bool kWeighted>
+int launch_hb(const float* tr, const float* model_pts, const float* model_nrm, const float4* seg4,
+              float* out, int H, int Nv, int Ns, float delta2, float cos_gate, cudaStream_t st) {
+  if constexpr (kTier == kHigh3) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    const int smem = segment_smem<kTier, kWeighted>(Ns, false);
+    auto kern = lcp_segside_hb_kernel<kTier, kWeighted>;
+    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    kern<<<(H + kHypGroup - 1) / kHypGroup, kThreads, smem, st>>>(
+        tr, model_pts, model_nrm, seg4, out, H, Nv, Ns, delta2, cos_gate);
+    return static_cast<int>(cudaGetLastError());
+  }
+}
+
+// unit < 0: the hypothesis-block kernel.
+int dispatch(int unit, const float* tr, const float* model_pts, const float* model_nrm,
+             const float* seg, float* partial, float* out, int H, int Nv, int Ns, float delta2,
              float cos_gate, int weighted, int tier, void* stream) {
   if (H <= 0) return 0;
+  if (Nv <= 0 || Ns <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (static_cast<long long>(H) * ((Nv + 63) / 64) > 0x3fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define LCP_LAUNCH(T, W) \
-  return launch<T, W>(hyp_block, tr, model_pts, model_nrm, seg, out, H, Nv, Ns, delta2, cos_gate, st)
+  const float4* seg4 = reinterpret_cast<const float4*>(seg);
+#define LCP_LAUNCH(T, W)                                                                       \
+  return unit < 0 ? launch_hb<T, W>(tr, model_pts, model_nrm, seg4, out, H, Nv, Ns, delta2,   \
+                                    cos_gate, st)                                              \
+                  : launch<T, W>(unit, tr, model_pts, model_nrm, seg4, partial, out, H, Nv,   \
+                                 Ns, delta2, cos_gate, st)
   if (tier == kFp32) {
     if (weighted) LCP_LAUNCH(kFp32, true);
     LCP_LAUNCH(kFp32, false);
@@ -417,20 +1099,48 @@ int dispatch(bool hyp_block, const float* tr, const float* model_pts, const floa
 
 }  // namespace
 
-// Both launch on `stream` and allocate nothing; tier is 0 (fp32), 1 ("default")
-// or 2 ("high3", lcp_segside_launch only). They return cudaGetLastError().
+// All launch on `stream` and allocate nothing; tier is 0 (fp32), 1 ("default")
+// or 2 ("high3", lcp_segside only). They return cudaGetLastError().
+// lcp_segside_launch takes the caller's workspace `partial` of
+// H * lcp_segside_workspace_tiles(Nv) floats: room for one partial sum per
+// (hypothesis, model tile) at the smallest tile any of its kernels uses.
+extern "C" int lcp_segside_workspace_tiles(int Nv) { return Nv > 0 ? (Nv + 63) / 64 : 1; }
+
 extern "C" int lcp_segside_launch(const float* tr, const float* model_pts,
-                                  const float* model_nrm, const float* seg, float* out,
-                                  int H, int Nv, int Ns, float delta2, float cos_gate,
-                                  int weighted, int tier, void* stream) {
-  return dispatch(false, tr, model_pts, model_nrm, seg, out, H, Nv, Ns, delta2, cos_gate,
-                  weighted, tier, stream);
+                                  const float* model_nrm, const float* seg, float* partial,
+                                  float* out, int H, int Nv, int Ns, float delta2,
+                                  float cos_gate, int weighted, int tier, void* stream) {
+  return dispatch(kUnitRule, tr, model_pts, model_nrm, seg, partial, out, H, Nv, Ns, delta2,
+                  cos_gate, weighted, tier, stream);
+}
+
+// The same call on a named unit, for measurements: 1 the CUDA cores, 2 the
+// tensor-core filter (an error for the fp32 tier and for a weighted call). The
+// scores are the same.
+extern "C" int lcp_segside_launch_on(int unit, const float* tr, const float* model_pts,
+                                     const float* model_nrm, const float* seg, float* partial,
+                                     float* out, int H, int Nv, int Ns, float delta2,
+                                     float cos_gate, int weighted, int tier, void* stream) {
+  if (unit != kUnitCores && unit != kUnitTensor) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(unit, tr, model_pts, model_nrm, seg, partial, out, H, Nv, Ns, delta2,
+                  cos_gate, weighted, tier, stream);
+}
+
+// The unit lcp_segside_launch takes for such a call: 1 the CUDA cores, 2 the
+// tensor-core filter.
+extern "C" int lcp_segside_unit_for(int H, int Nv, int Ns, int weighted, int tier) {
+  return rule_takes_tensor(tier, weighted != 0, H, Nv, Ns) ? kUnitTensor : kUnitCores;
 }
 
 extern "C" int lcp_segside_hb_launch(const float* tr, const float* model_pts,
                                      const float* model_nrm, const float* seg, float* out,
                                      int H, int Nv, int Ns, float delta2, float cos_gate,
                                      int weighted, int tier, void* stream) {
-  return dispatch(true, tr, model_pts, model_nrm, seg, out, H, Nv, Ns, delta2, cos_gate,
+  return dispatch(-1, tr, model_pts, model_nrm, seg, nullptr, out, H, Nv, Ns, delta2, cos_gate,
                   weighted, tier, stream);
+}
+
+extern "C" int lcp_empty_launch(void* stream) {
+  lcp_empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
 }

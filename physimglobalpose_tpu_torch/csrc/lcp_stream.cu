@@ -26,10 +26,13 @@
 // tile exact ties of the nearest distance take the max prob and the max
 // |ndot|; across tiles a later tile replaces the running nearest only when it
 // is strictly nearer. One running state per model point does it: "<" replaces
-// and marks the state as set in this tile, "==" takes the max only while that
-// mark is up, and the marks drop at every tile edge. The running minimum starts
-// at 1e9, so a masked point (d2 = 1e9 in float32) never replaces it. The tile
-// is independent of how many points the kernel stages at a time.
+// and marks the state as set in this tile, "==" joins only while that mark is
+// up, and the marks drop at every tile edge (lcp_stream_wide_kernel carries
+// prob and |ndot| in that state; lcp_stream_kernel only which chunks of the
+// tile reached the minimum, and looks the attributes up after the scan). The
+// running minimum starts at 1e9, so a masked point (d2 = 1e9 in float32) never
+// replaces it. The tile is independent of how many points a kernel stages at a
+// time.
 //
 // Tiers (the rounding places of the TPU kernels' matmul_precision):
 //   fp32      every operand and product in float32 (FMA chain);
@@ -41,11 +44,12 @@
 // fixed order (no FMA contraction), so the plain PyTorch version sees the same
 // float32 values before they round to bf16; the two products are explicit fmaf
 // chains in a fixed order, which the plain version reproduces through float64
-// (ops/lcp.py::fma). Both therefore find the same nearest points in each tier. There is no "high3" tier: the wrapper runs it in float32, as the TPU
-// wrapper does.
+// (ops/lcp.py::fma). Both therefore find the same nearest points in each tier.
+// There is no "high3" tier: the wrapper runs it in float32, as the TPU wrapper
+// does.
 //
-// What bounds them: fp32 arithmetic on the CUDA cores, 3 FMA + 1 add + the
-// running min per (hypothesis, model point, segment point), about 8 FLOP,
+// What bounds them: fp32 arithmetic on the CUDA cores, 1 add + 3 FMA + the
+// running min per (hypothesis, model point, segment point), counted as 8 FLOP,
 // against 67 TFLOP/s; the inputs are a few hundred KB. What the design does:
 //  - a staged segment point is transformed once per (hypothesis, point), about
 //    40 FLOP shared by all model points of the block, not once per pair;
@@ -53,14 +57,26 @@
 //    call with few hypotheses (H = 32 in the exact tier) still makes
 //    32 * Nv / 1024 blocks; each broadcast shared-memory read feeds kSlots
 //    independent FMA chains;
+//  - its weighted variant runs the unweighted inner loop: only the running
+//    minimum, over chunks of 32 staged points (a chunk never straddles a tile
+//    edge). After a chunk two compares per slot keep the tile that set the
+//    nearest and a bit mask of its chunks that reached it ("<" replaces, in
+//    any tile; "==" joins only while that tile lasts; in the "default" tier
+//    equal d2 are common). Neither normals nor probabilities are staged.
+//    After the scan a slot within delta^2 transforms the points of those
+//    chunks again, with the staging's instructions, hence the same bits, and
+//    takes prob and |ndot| of every point whose d2 equals the minimum: the tie
+//    rule above. That is about 32 of Ns points a second time, in place of a
+//    branch, a second shared-memory read and three state words on every pair
+//    (ptxas: 63 registers weighted, 80 / 74 before; 39 unweighted, 48 before);
 //  - lcp_stream_wide_kernel: on this card the TPU's "one wide product for 8
 //    hypotheses" is slot filling, as lcp_segside_hb is to lcp_segside: a thread
 //    holds kWidePts model points under 8 hypotheses, so a small model (Nv = 512)
 //    fills every slot where lcp_stream_kernel would leave half on padding. It
 //    stages 8 transformed copies of the segment chunk (one warp per hypothesis)
 //    rather than transforming the raw point per pair in registers: the
-//    transform is 40 FLOP against 8 for the pair itself;
-//  - the normal dot is evaluated only on a new nearest or a tie;
+//    transform is 40 FLOP against 8 for the pair itself. It evaluates the
+//    normal dot in the inner loop, on a new nearest or a tie;
 //  - a block writes one partial sum per (hypothesis, model tile) through a
 //    warp-shuffle tree and a fixed-order sum over warps; a second kernel adds
 //    the tiles per hypothesis in index order. No atomics: scores are
@@ -80,6 +96,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSlots = 4;      // lcp_stream_kernel: model points per thread
 constexpr int kStage = 512;    // lcp_stream_kernel: segment points staged at a time
+constexpr int kChunk = 32;     // lcp_stream_kernel: staged points per chunk of the weighted scan
 constexpr int kHypGroup = 8;   // lcp_stream_wide_kernel: hypotheses per block (one warp each)
 constexpr int kWidePts = 2;    // lcp_stream_wide_kernel: model points per thread
 constexpr int kWideStage = 128;  // lcp_stream_wide_kernel: segment points staged at a time
@@ -89,6 +106,7 @@ constexpr int kFp32 = 0;
 constexpr int kBf16 = 1;
 
 static_assert(kHypGroup == kWarps, "one warp stages the segment chunk of one hypothesis");
+static_assert(kStage % kChunk == 0, "a stage is a whole number of chunks");
 
 __device__ __forceinline__ float bf(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -101,9 +119,9 @@ __device__ __forceinline__ float dot3_rn(float a, float x, float b, float y, flo
 
 // Segment point j carried into the model frame of hypothesis r (row-major
 // R | t): a = (-2q, c), n = (bn, prob).
-template <int kTier, bool kWeighted>
-__device__ __forceinline__ void stage_point(const float* r, const float4* __restrict__ seg,
-                                            int j, float4& a, float4& n) {
+template <int kTier>
+__device__ __forceinline__ float4 stage_position(const float* r, const float4* __restrict__ seg,
+                                                 int j) {
   const float4 p = seg[2 * j];  // x, y, z, mask
   const float dx = __fsub_rn(p.x, r[3]), dy = __fsub_rn(p.y, r[7]), dz = __fsub_rn(p.z, r[11]);
   float ax = -2.f * dot3_rn(r[0], dx, r[4], dy, r[8], dz);
@@ -113,17 +131,27 @@ __device__ __forceinline__ void stage_point(const float* r, const float4* __rest
   if constexpr (kTier == kBf16) {
     ax = bf(ax); ay = bf(ay); az = bf(az); c = bf(c);
   }
-  a = make_float4(ax, ay, az, c);
-  if constexpr (kWeighted) {
-    const float4 q = seg[2 * j + 1];  // nx, ny, nz, prob
-    float bx = dot3_rn(r[0], q.x, r[4], q.y, r[8], q.z);
-    float by = dot3_rn(r[1], q.x, r[5], q.y, r[9], q.z);
-    float bz = dot3_rn(r[2], q.x, r[6], q.y, r[10], q.z);
-    if constexpr (kTier == kBf16) {
-      bx = bf(bx); by = bf(by); bz = bf(bz);
-    }
-    n = make_float4(bx, by, bz, q.w);
+  return make_float4(ax, ay, az, c);
+}
+
+template <int kTier>
+__device__ __forceinline__ float4 stage_normal(const float* r, const float4* __restrict__ seg,
+                                               int j) {
+  const float4 q = seg[2 * j + 1];  // nx, ny, nz, prob
+  float bx = dot3_rn(r[0], q.x, r[4], q.y, r[8], q.z);
+  float by = dot3_rn(r[1], q.x, r[5], q.y, r[9], q.z);
+  float bz = dot3_rn(r[2], q.x, r[6], q.y, r[10], q.z);
+  if constexpr (kTier == kBf16) {
+    bx = bf(bx); by = bf(by); bz = bf(bz);
   }
+  return make_float4(bx, by, bz, q.w);
+}
+
+template <int kTier, bool kWeighted>
+__device__ __forceinline__ void stage_point(const float* r, const float4* __restrict__ seg,
+                                            int j, float4& a, float4& n) {
+  a = stage_position<kTier>(r, seg, j);
+  if constexpr (kWeighted) n = stage_normal<kTier>(r, seg, j);
 }
 
 // A model point as the d2 and normal products take it.
@@ -155,19 +183,30 @@ struct Nearest {
   float best, pb, ab;
 };
 
-// One pair: d2 of model point m against the staged point (a, n), folded into
-// the running state. `fresh` holds one bit per slot: the state was set in the
-// current tile, so an equal distance may still raise its prob and |ndot|.
+// d2 of model point m against the staged point a, and |ndot| against the staged
+// normal n: the two products, each summed in this fixed order.
+__device__ __forceinline__ float pair_d2(const ModelPoint& m, const float4& a) {
+  return fmaf(m.x, a.x, fmaf(m.y, a.y, fmaf(m.z, a.z, __fadd_rn(a.w, m.sq))));
+}
+
+__device__ __forceinline__ float pair_ndot(const ModelPoint& m, const float4& n) {
+  return fabsf(fmaf(m.nz, n.z, fmaf(m.ny, n.y, __fmul_rn(m.nx, n.x))));
+}
+
+// lcp_stream_wide_kernel's pair: d2 of model point m against the staged point
+// (a, n), folded per pair into the running state. `fresh` holds one bit per
+// slot: the state was set in the current tile, so an equal distance may still
+// raise its prob and |ndot|.
 template <bool kWeighted>
 __device__ __forceinline__ void visit(const ModelPoint& m, const float4& a, const float4* s_n,
                                       int j, Nearest& q, unsigned& fresh, unsigned bit) {
-  const float d = fmaf(m.x, a.x, fmaf(m.y, a.y, fmaf(m.z, a.z, __fadd_rn(a.w, m.sq))));
+  const float d = pair_d2(m, a);
   if constexpr (kWeighted) {
     if (d <= q.best) {
       const bool nearer = d < q.best;
       if (nearer || (fresh & bit)) {
         const float4 n = s_n[j];
-        const float nd = fabsf(fmaf(m.nz, n.z, fmaf(m.ny, n.y, __fmul_rn(m.nx, n.x))));
+        const float nd = pair_ndot(m, n);
         if (nearer) {
           q.best = d;
           q.pb = n.w;
@@ -208,11 +247,36 @@ __device__ __forceinline__ float warp_sum(float v) {
   float* __restrict__ partial,           /* [H, n_mtiles] sums over one model tile */       \
   int H, int Nv, int Ns, int ns_tile, int n_mtiles, float delta2, float cos_gate
 
+// What a slot within delta^2 contributes when weighted. The nearest points lie
+// in the tile that starts at tile0, in the chunks named in `hit` (chunk q of
+// the tile sets bit q mod 32). Those points are transformed again and every one
+// whose d2 equals `best` gives its prob and |ndot| (max over ties).
+template <int kTier>
+__device__ __forceinline__ float nearest_attributes(const ModelPoint& m, float best, int tile0,
+                                                    unsigned hit, const float* r,
+                                                    const float4* __restrict__ seg, int Ns,
+                                                    int ns_tile, float cos_gate) {
+  const int tile_end = min(Ns, tile0 + ns_tile);
+  float pb = -INFINITY, ab = -1.f;
+  for (; hit != 0u; hit &= hit - 1u) {
+    for (int c = tile0 + (__ffs(hit) - 1) * kChunk; c < tile_end; c += 32 * kChunk) {
+      const int c_end = min(c + kChunk, tile_end);
+      for (int j = c; j < c_end; ++j) {
+        if (pair_d2(m, stage_position<kTier>(r, seg, j)) == best) {
+          const float4 n = stage_normal<kTier>(r, seg, j);
+          pb = fmaxf(pb, n.w);
+          ab = fmaxf(ab, pair_ndot(m, n));
+        }
+      }
+    }
+  }
+  return (ab >= cos_gate) ? pb : 0.f;
+}
+
 // One hypothesis, one tile of kThreads * kSlots model points.
 template <int kTier, bool kWeighted>
 __global__ void __launch_bounds__(kThreads) lcp_stream_kernel(LCP_STREAM_ARGS) {
   __shared__ float4 s_a[kStage];
-  __shared__ float4 s_n[kWeighted ? kStage : 1];
   __shared__ float s_warp[kWarps];
 
   const int tid = threadIdx.x;
@@ -223,33 +287,55 @@ __global__ void __launch_bounds__(kThreads) lcp_stream_kernel(LCP_STREAM_ARGS) {
 #pragma unroll
   for (int c = 0; c < 12; ++c) r[c] = tr[12 * h + c];
 
+  // The model normals are read after the scan, by the slots that need them.
   ModelPoint m[kSlots];
-  Nearest q[kSlots];
+  float best[kSlots];
+  int tile_of[kSlots];   // weighted: first point of the tile that set best[k]
+  unsigned hit[kSlots];  // weighted: the chunks of that tile that reached best[k]
 #pragma unroll
   for (int k = 0; k < kSlots; ++k) {
-    m[k] = load_model<kTier, kWeighted>(model_pts, model_nrm,
-                                        (mt * kSlots + k) * kThreads + tid, Nv);
-    q[k] = {kBig, 0.f, 0.f};
+    m[k] = load_model<kTier, false>(model_pts, model_nrm, (mt * kSlots + k) * kThreads + tid, Nv);
+    best[k] = kBig;
+    tile_of[k] = -1;
+    hit[k] = 0u;
   }
 
   for (int tile0 = 0; tile0 < Ns; tile0 += ns_tile) {
     const int tile_end = min(Ns, tile0 + ns_tile);
-    unsigned fresh = 0u;
     for (int c0 = tile0; c0 < tile_end; c0 += kStage) {
       const int n = min(kStage, tile_end - c0);
-      __syncthreads();  // the previous chunk has been scanned
-      for (int j = tid; j < n; j += kThreads) {
-        float4 a, nn = make_float4(0.f, 0.f, 0.f, 0.f);
-        stage_point<kTier, kWeighted>(r, seg, c0 + j, a, nn);
-        s_a[j] = a;
-        if constexpr (kWeighted) s_n[j] = nn;
+      // Padded to whole chunks by points at infinity: never nearest, never tied.
+      const int n_pad = (n + kChunk - 1) / kChunk * kChunk;
+      __syncthreads();  // the previous stage has been scanned
+      for (int j = tid; j < n_pad; j += kThreads) {
+        s_a[j] = j < n ? stage_position<kTier>(r, seg, c0 + j)
+                       : make_float4(0.f, 0.f, 0.f, INFINITY);
       }
       __syncthreads();
-      for (int j = 0; j < n; ++j) {
-        const float4 a = s_a[j];
+      for (int cc = 0; cc < n_pad; cc += kChunk) {
+        // The chunk's minimum; unweighted, the running minimum itself.
+        float cm[kSlots];
+#pragma unroll
+        for (int k = 0; k < kSlots; ++k) cm[k] = kWeighted ? INFINITY : best[k];
+#pragma unroll 8
+        for (int jj = 0; jj < kChunk; ++jj) {
+          const float4 a = s_a[cc + jj];
+#pragma unroll
+          for (int k = 0; k < kSlots; ++k) cm[k] = fminf(cm[k], pair_d2(m[k], a));
+        }
+        const unsigned bit = 1u << (((c0 + cc - tile0) / kChunk) & 31);
 #pragma unroll
         for (int k = 0; k < kSlots; ++k) {
-          visit<kWeighted>(m[k], a, s_n, j, q[k], fresh, 1u << k);
+          if constexpr (kWeighted) {
+            // "<" replaces in any tile; "==" joins only in the tile that set the nearest.
+            const bool nearer = cm[k] < best[k];
+            const bool joins = cm[k] == best[k] && tile_of[k] == tile0;
+            hit[k] = nearer ? bit : (joins ? (hit[k] | bit) : hit[k]);
+            tile_of[k] = nearer ? tile0 : tile_of[k];
+            best[k] = fminf(best[k], cm[k]);
+          } else {
+            best[k] = cm[k];
+          }
         }
       }
     }
@@ -258,8 +344,18 @@ __global__ void __launch_bounds__(kThreads) lcp_stream_kernel(LCP_STREAM_ARGS) {
   float acc = 0.f;
 #pragma unroll
   for (int k = 0; k < kSlots; ++k) {
-    if ((mt * kSlots + k) * kThreads + tid < Nv) {
-      acc += contribution<kWeighted>(q[k], delta2, cos_gate);
+    const int i = (mt * kSlots + k) * kThreads + tid;
+    if (i < Nv && best[k] <= delta2) {
+      if constexpr (kWeighted) {
+        m[k].nx = model_nrm[3 * i]; m[k].ny = model_nrm[3 * i + 1]; m[k].nz = model_nrm[3 * i + 2];
+        if constexpr (kTier == kBf16) {
+          m[k].nx = bf(m[k].nx); m[k].ny = bf(m[k].ny); m[k].nz = bf(m[k].nz);
+        }
+        acc += nearest_attributes<kTier>(m[k], best[k], tile_of[k], hit[k], r, seg, Ns, ns_tile,
+                                         cos_gate);
+      } else {
+        acc += 1.f;
+      }
     }
   }
   // Fixed-order block sum: warp shuffle tree, then warp partials in order.

@@ -15,10 +15,12 @@ chip_smoke.py hold the kernels against. lcp_scores routes by segment size.
 
 Segment-stationary, for segments of up to MAX_SEGMENT_POINTS points, in
 coordinates centred at the segment:
-- two CUDA kernels in csrc/lcp_segside.cu: lcp_segside (one hypothesis at a
-  time per block) and lcp_segside_hb (a group of hypotheses per block, for
-  small models such as the coarse ranking pass); uses_hypothesis_block picks
-  between them;
+- two CUDA kernels in csrc/lcp_segside.cu: lcp_segside (one hypothesis and
+  one tile of model points per warp; its launcher takes the CUDA cores or,
+  for the unweighted lowered tiers of large calls, finds the candidates on
+  the tensor cores: the scores are the same bits) and lcp_segside_hb (a
+  group of hypotheses per block, for small models such as the coarse ranking
+  pass); uses_hypothesis_block picks between them;
 - lcp_scores_plain, their plain version.
 Exactly tied nearest distances take the max probability and the max |ndot|
 over all ties (the TPU kernel's tie rule).
@@ -223,10 +225,12 @@ def uses_hypothesis_block(nv: int, ns: int, hb_lane_pack: bool | None = None) ->
     return bool(hb_lane_pack) and (budget_lanes // 8) // 128 * 128 >= 128
 
 
-def _launcher(symbol: str):
+def _launcher(symbol: str, head: list):
+    """The C launcher `symbol` of csrc/lcp_segside.cu: arguments of the ctypes
+    `head`, then H, Nv, Ns, delta^2, cos gate, weighted, tier, stream."""
     fn = getattr(_build.load("lcp_segside"), symbol)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+        fn.argtypes = head + [ctypes.c_int] * 3 + [
             ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
@@ -257,7 +261,11 @@ def _count_launch(wrapper, rc, tier):
 
 
 def _launch(wrapper, symbol, tr12, model_pts, model_nrm, segcat, delta2, cos_gate,
-            weighted, tier):
+            weighted, tier, tiled_sums=False, unit=None):
+    """Check the arguments, launch `symbol` on the current stream and count
+    it. tiled_sums: the kernel writes one partial sum per (hypothesis, model
+    tile) into a workspace handed in before `out` (lcp_segside). unit: the
+    launcher's leading argument, where it has one."""
     name = wrapper.__name__
     h, nv, ns = _check_launch_args(name, tr12, model_pts, model_nrm, segcat)
     if ns > MAX_SEGMENT_POINTS:
@@ -267,9 +275,17 @@ def _launch(wrapper, symbol, tr12, model_pts, model_nrm, segcat, delta2, cos_gat
         )
     dev = tr12.device
     out = torch.empty(h, dtype=torch.float32, device=dev)
-    rc = _launcher(symbol)(
-        tr12.data_ptr(), model_pts.data_ptr(), model_nrm.data_ptr(), segcat.data_ptr(),
-        out.data_ptr(), h, nv, ns, delta2, cos_gate, int(weighted), tier,
+    head = [tr12.data_ptr(), model_pts.data_ptr(), model_nrm.data_ptr(), segcat.data_ptr()]
+    if tiled_sums:
+        n_tiles = _build.load("lcp_segside").lcp_segside_workspace_tiles(nv)
+        partial = torch.empty((h, n_tiles), dtype=torch.float32, device=dev)
+        head.append(partial.data_ptr())
+    head.append(out.data_ptr())
+    types = [ctypes.c_void_p] * len(head)
+    if unit is not None:
+        head, types = [unit] + head, [ctypes.c_int] + types
+    rc = _launcher(symbol, types)(
+        *head, h, nv, ns, delta2, cos_gate, int(weighted), tier,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _count_launch(wrapper, rc, tier)
@@ -298,11 +314,35 @@ def lcp_segside(
     and, per tier (fp32, "default", "high3"), in lcp_segside.tier_launches.
     """
     return _launch(lcp_segside, "lcp_segside_launch", tr12, model_pts, model_nrm, segcat,
-                   delta2, cos_gate, weighted, TIERS[matmul_precision])
+                   delta2, cos_gate, weighted, TIERS[matmul_precision], tiled_sums=True)
 
 
 lcp_segside.launches = 0
 lcp_segside.tier_launches = [0, 0, 0]
+
+# The units lcp_segside's launcher chooses between (csrc/lcp_segside.cu). The
+# two functions below serve measurements and checks only; no caller in the
+# package uses them.
+_UNIT_CUDA_CORES, _UNIT_TENSOR_CORES = 1, 2
+
+
+def _lcp_segside_on_unit(unit, tr12, model_pts, model_nrm, segcat, delta2, cos_gate, weighted,
+                         matmul_precision=None) -> torch.Tensor:
+    """lcp_segside with the launcher's choice of kernel taken away:
+    _UNIT_CUDA_CORES, or _UNIT_TENSOR_CORES (the unweighted lowered tiers'
+    filter on the tensor cores; the launcher refuses it for float32 and for a
+    weighted call). Same arguments, same scores; counted as a launch of
+    lcp_segside."""
+    return _launch(lcp_segside, "lcp_segside_launch_on", tr12, model_pts, model_nrm, segcat,
+                   delta2, cos_gate, weighted, TIERS[matmul_precision], tiled_sums=True,
+                   unit=int(unit))
+
+
+def _lcp_segside_unit_for(h: int, nv: int, ns: int, weighted: bool,
+                          matmul_precision: str | None = None) -> int:
+    """The unit lcp_segside's launcher takes for a call of this shape."""
+    return _build.load("lcp_segside").lcp_segside_unit_for(
+        h, nv, ns, int(weighted), TIERS[matmul_precision])
 
 
 def lcp_segside_hb(

@@ -18,7 +18,7 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "physimglobalpose_tpu", 
 
 def _sources():
     files = sorted((ROOT / "physimglobalpose_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
 
 
 def _forbidden_imports(path):

@@ -230,3 +230,103 @@ def test_hb_wrapper_takes_only_cuda_tensors_and_no_high3():
     with pytest.raises(ValueError, match="matmul_precision"):
         lcp.lcp_scores(torch.zeros(1, 4, 4), *[torch.zeros(4, 3)] * 4, torch.zeros(4),
                        torch.ones(4, dtype=torch.bool), matmul_precision="bf16")
+
+
+# ------------------------------------------- ragged shapes and constructed ties
+# The cases chip_smoke.py holds kernel-against-plain on the card, held here
+# plain-against-JAX: shapes that the CUDA kernel's tiling makes ragged, and
+# exact ties of the nearest distance inside one chunk of 32 segment points, in
+# two and in three chunks.
+
+
+def twisted_case(rng, n_model, n_seg, n_hyp, n_masked, twist):
+    """make_case with a twist: "all_masked", "masked_first" (the first third
+    of the segment masked), or a tuple of row offsets at which the first 8
+    segment points are placed again, with their own normals and
+    probabilities."""
+    case = make_case(rng, n_model, n_seg, n_hyp, n_masked)
+    seg_pts, mask = case[3], case[6]
+    if twist == "all_masked":
+        mask[:] = False
+    elif twist == "masked_first":
+        mask[:] = True
+        mask[: n_seg // 3] = False
+    elif twist is not None:
+        mask[:8] = True
+        for offset in twist:
+            seg_pts[offset:offset + 8] = seg_pts[:8]
+            mask[offset:offset + 8] = True
+    return case
+
+
+# (Nv, Ns, H, masked, twist)
+RAGGED = {
+    "nv_off_tile_h1": (300, 200, 1, 12, None),
+    "h33_nv77": (77, 90, 33, 9, None),
+    "ns1": (128, 1, 5, 0, None),
+    "ns1023": (900, 1023, 2, 30, None),
+    "all_masked": (128, 100, 4, 0, "all_masked"),
+    "masked_first": (200, 150, 6, 0, "masked_first"),
+    "tie_one_chunk": (256, 128, 6, 5, (16,)),
+    "tie_two_chunks": (256, 128, 6, 5, (40,)),
+    "tie_three_chunks": (256, 128, 6, 5, (40, 70)),
+}
+
+
+@pytest.mark.parametrize("weighted", [True, False], ids=["weighted", "unweighted"])
+@pytest.mark.parametrize("precision", [None, "default", "high3"])
+@pytest.mark.parametrize("name", list(RAGGED))
+def test_plain_matches_tpu_kernel_interpret_on_ragged_and_tied_cases(rng, name, precision,
+                                                                     weighted):
+    # Per-hypothesis kernel, tolerance 2/Nv as above. The tie cases move the
+    # weighted score by more than that when the tie rule is not applied
+    # (checked below), so agreement holds the rule too.
+    nv, ns, h, masked, twist = RAGGED[name]
+    case = twisted_case(rng, nv, ns, h, masked, twist)
+    jargs, targs = _both(case)
+    want = _interpret_segside(jargs, weighted=weighted, matmul_precision=precision,
+                              hb_lane_pack=False)
+    got = n(lcp.lcp_scores_plain(*targs, weighted=weighted, matmul_precision=precision))
+    assert got.shape == (h,) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=2.0 / nv)
+    if twist == "all_masked":
+        assert np.abs(got).max() == 0.0 and np.abs(want).max() == 0.0
+
+
+@pytest.mark.parametrize("precision", [None, "default", "high3"])
+@pytest.mark.parametrize("offsets", [(16,), (40,), (40, 70)],
+                         ids=["one_chunk", "two_chunks", "three_chunks"])
+def test_constructed_ties_take_max_prob_and_max_normal(offsets, precision):
+    # One model point at the origin, identity pose. The nearest segment point
+    # stands at row 0 and again at the offsets; the copies differ in
+    # probability and normal. Every copy ties exactly in every tier (the same
+    # operands), so the score is the largest probability among them, gated by
+    # the best normal among them: both packages. The other points lie 9 cm or
+    # more away.
+    rng = np.random.default_rng(7)
+    ns = 96
+    seg = rng.uniform(0.05, 0.2, size=(ns, 3)).astype(np.float32)
+    nrm = np.tile(np.array([[1.0, 0, 0]], np.float32), (ns, 1))
+    prob = np.full(ns, 0.5, np.float32)
+    rows = (0, *offsets)
+    for r, p in zip(rows, (0.3, 0.9, 0.6)):
+        seg[r] = [0.001, 0.002, 0.001]
+        prob[r] = p
+    nrm[rows[-1]] = [0, 0, 1]  # only the last copy's normal agrees with the model's
+    tf = np.eye(4, dtype=np.float32)[None]
+    model, mn = np.zeros((1, 3), np.float32), np.array([[0, 0, 1]], np.float32)
+    case = (tf, model, mn, seg, nrm, prob, np.ones(ns, bool))
+    jargs, targs = _both(case)
+    # delta = 5 cm: the copies stay the nearest by far, and the bf16 operands
+    # of "default" (about 1e-4 on d^2 at these coordinates) cannot push them
+    # out of range.
+    kw = dict(delta=0.05, matmul_precision=precision)
+    want = _interpret_segside(jargs, hb_lane_pack=False, **kw)
+    got = n(lcp.lcp_scores_plain(*targs, **kw))
+    np.testing.assert_allclose(want, [0.9], atol=1e-6)
+    np.testing.assert_allclose(got, [0.9], atol=1e-6)
+    # Without the agreeing copy the gate closes: the tie rule decided the score.
+    keep = np.ones(ns, bool)
+    keep[rows[-1]] = False
+    got = n(lcp.lcp_scores_plain(*targs[:-1], tb(keep), **kw))
+    np.testing.assert_allclose(got, [0.0], atol=1e-6)

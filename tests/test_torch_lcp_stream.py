@@ -27,7 +27,7 @@ import torch
 from _torch_common import n, t, tb
 from physimglobalpose_tpu.ops import lcp as jlcp
 from physimglobalpose_tpu_torch.ops import lcp
-from test_torch_lcp import _both, make_case
+from test_torch_lcp import RAGGED, _both, make_case, twisted_case
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -294,3 +294,47 @@ def test_fma_is_a_single_rounding():
     fused = float(lcp.fma(x, y, z))
     assert fused == 2.0 ** -11 + 2.0 ** -24
     assert float(x * y + z) == 2.0 ** -11
+
+
+# ------------------------------------------- ragged shapes and constructed ties
+# The cases chip_smoke.py holds kernel-against-plain on the card, held here
+# plain-against-JAX (test_torch_lcp.RAGGED, at a tile of 64 segment points).
+
+
+@pytest.mark.parametrize("weighted", [True, False], ids=["weighted", "unweighted"])
+@pytest.mark.parametrize("precision", [None, "default"])
+@pytest.mark.parametrize("name", list(RAGGED))
+def test_stream_plain_matches_tpu_kernel_interpret_on_ragged_and_tied_cases(rng, name, precision,
+                                                                            weighted):
+    # Tolerance 1.5 / Nv as above. At a tile of 64 the copies of
+    # "tie_one_chunk" (16 rows on) tie inside a tile, those of the other tie
+    # cases (40 and 70 rows on) fall into later tiles and are ignored.
+    nv, ns, h, masked, twist = RAGGED[name]
+    case = twisted_case(rng, nv, ns, h, masked, twist)
+    jargs, targs = _both(case)
+    kw = dict(weighted=weighted, ns_tile=64, matmul_precision=precision)
+    want = interpret(jlcp.lcp_scores_pallas, jargs, **kw)
+    got = n(lcp.lcp_scores_stream_plain(*targs, **kw))
+    assert got.shape == (h,) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=1.5 / nv)
+    if twist == "all_masked":
+        assert np.abs(got).max() == 0.0 and np.abs(want).max() == 0.0
+
+
+@pytest.mark.parametrize("other,ns_tile,want", [(5, 128, 0.9), (40, 128, 0.9), (40, 32, 0.3)],
+                         ids=["one_chunk", "two_chunks_one_tile", "two_tiles"])
+def test_ties_join_inside_a_tile_only(other, ns_tile, want):
+    # tie_case with the second copy of the nearest point `other` rows on: 5
+    # rows on it shares a chunk of 32 staged points with the first, 40 rows on
+    # it lies in the next chunk; both join while one tile holds them (max
+    # probability 0.9, max |ndot| 1), and not across a tile edge (the first
+    # copy's 0.3 stays). Both packages.
+    tf, model, mn, seg, nrm, prob, mask = tie_case()
+    seg[64], nrm[64], prob[64] = seg[65], nrm[65], prob[65]  # undo tie_case's copy at row 64
+    seg[other], nrm[other], prob[other] = seg[0], [1.0, 0, 0], 0.9
+    jargs, targs = _both((tf, model, mn, seg, nrm, prob, mask))
+    for precision in (None, "default"):
+        kw = dict(ns_tile=ns_tile, matmul_precision=precision)
+        pallas = interpret(jlcp.lcp_scores_pallas, jargs, **kw)
+        np.testing.assert_allclose(pallas, [want], atol=1e-6)
+        np.testing.assert_allclose(n(lcp.lcp_scores_stream_plain(*targs, **kw)), [want], atol=1e-6)

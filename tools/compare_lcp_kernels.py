@@ -1,0 +1,209 @@
+"""Time the LCP kernels of this tree against another revision's on one card.
+
+    git archive <revision> physimglobalpose_tpu_torch/csrc | tar -x -C build/other
+    python3 tools/compare_lcp_kernels.py \
+        --other-csrc build/other/physimglobalpose_tpu_torch/csrc [--out FILE.json]
+
+Builds lcp_segside.cu and lcp_stream.cu of both trees with the package's
+nvcc flags and calls their C launchers on the same tensors, at the shapes of
+PERF.md's kernel table: lcp_segside and lcp_stream are timed in turns (other,
+this, this, other; CUDA events, median) and their scores compared;
+lcp_segside_hb and lcp_stream_wide must give the same bits in both trees.
+Then this tree's unweighted lcp_segside is timed on its two units, the CUDA
+cores and the tensor-core filter, over a grid of lowered-tier shapes: what the
+launcher's routing rule rests on. The inputs and the timer are chip_smoke.py's. Prints one line per case and a JSON summary; exits
+non-zero when a score differs by more than 2 / Nv, a bit of the two unchanged
+kernels differs, or the two units disagree by more than 1e-6.
+Two revisions are compared inside one run only: two runs may land on cards
+with other power limits.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import hashlib
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))  # the repository root
+
+import chip_smoke  # noqa: E402  (inputs and the timer)
+from physimglobalpose_tpu_torch import _build  # noqa: E402
+from physimglobalpose_tpu_torch.ops import lcp  # noqa: E402
+
+_COMMON = [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_void_p]
+_STREAM_COMMON = [ctypes.c_int] * 4 + _COMMON[3:]
+
+
+def build_other(csrc: Path, name: str) -> ctypes.CDLL:
+    src = csrc / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    lib = _build.BUILD_DIR / f"libother_{name}_{digest}.so"
+    if not lib.exists():
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
+                       check=True, capture_output=True, text=True)
+    return ctypes.CDLL(str(lib))
+
+
+class Kernels:
+    """The four LCP launchers of one tree behind one calling convention."""
+
+    def __init__(self, segside: ctypes.CDLL, stream: ctypes.CDLL):
+        self.segside, self.stream = segside, stream
+        # A tree whose lcp_segside sums model tiles takes a workspace before `out`.
+        self.tiled = hasattr(segside, "lcp_segside_workspace_tiles")
+        segside.lcp_segside_launch.argtypes = [ctypes.c_void_p] * (6 if self.tiled else 5) + _COMMON
+        segside.lcp_segside_hb_launch.argtypes = [ctypes.c_void_p] * 5 + _COMMON
+        for fn in (stream.lcp_stream_launch, stream.lcp_stream_wide_launch):
+            fn.argtypes = [ctypes.c_void_p] * 6 + _STREAM_COMMON
+
+    def run(self, kernel: str, packed, weighted: bool, tier: int, ns_tile: int = 0):
+        tr12, mpts, mnrm, segcat, delta2, cos_gate = packed
+        h, nv, ns = tr12.shape[0], mpts.shape[0], segcat.shape[0]
+        out = torch.empty(h, dtype=torch.float32, device=tr12.device)
+        ptrs = [t.data_ptr() for t in (tr12, mpts, mnrm, segcat)]
+        stream = torch.cuda.current_stream().cuda_stream
+        tail = (delta2, cos_gate, int(weighted), tier, stream)
+        if kernel in ("lcp_stream", "lcp_stream_wide"):
+            tile = 1024 if kernel == "lcp_stream" else 512
+            partial = torch.empty((h, -(-nv // tile)), dtype=torch.float32, device=out.device)
+            rc = getattr(self.stream, kernel + "_launch")(
+                *ptrs, partial.data_ptr(), out.data_ptr(), h, nv, ns, ns_tile, *tail)
+        elif kernel == "lcp_segside" and self.tiled:
+            tiles = self.segside.lcp_segside_workspace_tiles(nv)
+            partial = torch.empty((h, tiles), dtype=torch.float32, device=out.device)
+            rc = self.segside.lcp_segside_launch(
+                *ptrs, partial.data_ptr(), out.data_ptr(), h, nv, ns, *tail)
+        else:
+            rc = getattr(self.segside, kernel + "_launch")(*ptrs, out.data_ptr(), h, nv, ns, *tail)
+        if rc != 0:
+            raise RuntimeError(f"{kernel} launch failed with CUDA error {rc}")
+        return out
+
+
+# (kernel, label, H, Nv, Ns, weighted, tier, ns_tile, repetitions)
+TIMED = (
+    ("lcp_segside", "scene", 10_000, 4096, 1024, True, None, 0, 5),
+    ("lcp_segside", "scene", 10_000, 4096, 1024, False, None, 0, 5),
+    ("lcp_segside", "bulk_fine", 256, 4096, 256, True, "default", 0, 20),
+    ("lcp_segside", "bulk_fine", 256, 4096, 256, True, None, 0, 20),
+    ("lcp_segside", "bulk_fine", 256, 4096, 256, True, "high3", 0, 20),
+    ("lcp_segside", "exact", 32, 4096, 1024, True, "high3", 0, 20),
+    ("lcp_segside", "exact", 32, 4096, 1024, True, None, 0, 20),
+    ("lcp_segside", "exact", 32, 4096, 1024, True, "default", 0, 20),
+    ("lcp_segside", "coarse_ns1024", 16_384, 256, 1024, False, "default", 0, 5),
+    ("lcp_segside", "coarse_ns256", 16_384, 256, 256, False, "default", 0, 10),
+    ("lcp_segside", "bulk_fine_ns1024", 256, 4096, 1024, True, "default", 0, 10),
+    ("lcp_stream", "exact", 32, 4096, 4096, True, None, 1024, 20),
+    ("lcp_stream", "exact", 32, 4096, 4096, True, "default", 1024, 20),
+    ("lcp_stream", "exact", 32, 4096, 4096, False, None, 1024, 20),
+    ("lcp_stream", "scene", 10_000, 4096, 4096, True, None, 1024, 3),
+    ("lcp_stream", "scene", 10_000, 4096, 4096, True, "default", 1024, 3),
+    ("lcp_stream", "scene", 10_000, 4096, 4096, False, None, 1024, 3),
+    ("lcp_stream", "yardstick_coarse", 16_384, 512, 4096, True, None, 128, 3),
+)
+# (kernel, H, Nv, Ns, ns_tile): both trees must give the same bits, every tier, both variants.
+UNCHANGED = (
+    ("lcp_segside_hb", 16_384, 256, 256, 0),
+    ("lcp_segside_hb", 1003, 300, 200, 0),
+    ("lcp_segside_hb", 67, 4096, 256, 0),
+    ("lcp_stream_wide", 16_384, 512, 4096, 128),
+    ("lcp_stream_wide", 37, 700, 333, 128),
+    ("lcp_stream_wide", 5, 77, 2100, 128),
+)
+# (H, Nv, Ns) of the unit grid: the coarse shape at four segment sizes and three
+# H, a small and a large model, the bulk-fine and exact shapes of a scoring call.
+UNIT_GRID = (
+    (16_384, 256, 256), (16_384, 256, 512), (16_384, 256, 1024), (16_384, 256, 2048),
+    (4096, 256, 1024), (1024, 256, 1024), (256, 256, 1024), (16_384, 128, 1024),
+    (256, 4096, 1024), (2048, 4096, 1024), (256, 4096, 256), (32, 4096, 1024),
+)
+
+
+def time_units(device) -> tuple[bool, list]:
+    ok, rows = True, []
+    for h, nv, ns in UNIT_GRID:
+        packed = chip_smoke.packed_lcp_args(chip_smoke.lcp_inputs(92, h, nv, ns, 24, device))
+        for tier in ("default", "high3"):
+            run = lambda unit: lcp._lcp_segside_on_unit(unit, *packed, False, tier)
+            units = (lcp._UNIT_CUDA_CORES, lcp._UNIT_TENSOR_CORES)
+            diff = float((run(units[0]) - run(units[1])).abs().max())
+            ms = [chip_smoke.cuda_time_ms(lambda: run(unit), reps=3, inner=5) for unit in units]
+            rule = lcp._lcp_segside_unit_for(h, nv, ns, False, tier)
+            ok &= diff <= 1e-6
+            rows.append(dict(shape=[h, nv, ns], tier=tier, weighted=False, cuda_cores_ms=ms[0],
+                             tensor_cores_ms=ms[1], max_abs_diff=diff, rule_takes=rule))
+            print(f"[units] lcp_segside H={h} Nv={nv} Ns={ns} tier={tier} unweighted: "
+                  f"CUDA cores {ms[0]:.4f} ms, tensor-core filter {ms[1]:.4f} ms "
+                  f"({ms[0] / ms[1]:.2f}x; the rule takes unit {rule}), max_abs_diff={diff:.3e}")
+    return ok, rows
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--other-csrc", required=True, type=Path)
+    ap.add_argument("--out", type=Path)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("compare_lcp_kernels: no CUDA device", file=sys.stderr)
+        return 1
+    device = torch.device("cuda")
+    smi = chip_smoke.phase_device()
+    this = Kernels(_build.load("lcp_segside"), _build.load("lcp_stream"))
+    other = Kernels(build_other(args.other_csrc, "lcp_segside"),
+                    build_other(args.other_csrc, "lcp_stream"))
+    ok, rows = True, []
+
+    for kernel, h, nv, ns, tile in UNCHANGED:
+        inputs = chip_smoke.lcp_inputs(90, h, nv, ns, 20, device)
+        stream = kernel == "lcp_stream_wide"
+        pack = chip_smoke.stream_lcp_args if stream else chip_smoke.packed_lcp_args
+        packed = pack(inputs)
+        for tier in (0, 1):
+            for weighted in (True, False):
+                a = this.run(kernel, packed, weighted, tier, tile)
+                b = other.run(kernel, packed, weighted, tier, tile)
+                torch.cuda.synchronize()
+                same = bool(torch.equal(a, b))
+                ok &= same
+                print(f"[unchanged] {kernel} H={h} Nv={nv} Ns={ns} tier={tier} "
+                      f"weighted={weighted}: bit-identical={same} mean={float(a.mean()):.4f}")
+
+    for kernel, label, h, nv, ns, weighted, tier, tile, reps in TIMED:
+        inputs = chip_smoke.lcp_inputs(91, h, nv, ns, 24, device)
+        stream = kernel == "lcp_stream"
+        pack = chip_smoke.stream_lcp_args if stream else chip_smoke.packed_lcp_args
+        packed = pack(inputs)
+        t = lcp.TIERS[tier]
+        diff = float((this.run(kernel, packed, weighted, t, tile)
+                      - other.run(kernel, packed, weighted, t, tile)).abs().max())
+        inner = 1 if h >= 10_000 else 10
+        time = lambda k: chip_smoke.cuda_time_ms(
+            lambda: k.run(kernel, packed, weighted, t, tile), reps=reps, warmup=1, inner=inner)
+        o1, n1, n2, o2 = time(other), time(this), time(this), time(other)
+        row = dict(kernel=kernel, label=label, shape=[h, nv, ns], weighted=weighted, tier=tier,
+                   other_ms=[o1, o2], this_ms=[n1, n2], max_abs_diff=diff)
+        rows.append(row)
+        ok &= diff <= 2.0 / nv
+        print(f"[timed] {kernel} {label} H={h} Nv={nv} Ns={ns} weighted={weighted} tier={tier}: "
+              f"other {o1:.4f} / {o2:.4f} ms, this {n1:.4f} / {n2:.4f} ms "
+              f"({min(o1, o2) / max(n1, n2):.2f}x), max_abs_diff={diff:.3e}")
+    units_ok, unit_rows = time_units(device)
+    ok &= units_ok
+    summary = dict(card=smi, ok=ok, timed=rows, units=unit_rows)
+    print(json.dumps(summary))
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps(summary, indent=1))
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
