@@ -12,9 +12,12 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    alone, weighted and unweighted:
    [lcp] the per-hypothesis LCP kernel, fp32 tier; [lcp-tiers] its "default"
    and "high3" tiers; [lcp-hb] the hypothesis-block LCP kernel, also against
-   the per-hypothesis kernel, and both on the coarse shape of a scoring call
-   on 4,096-point segments; [icp] the segment-stationary ICP kernel, one
-   pass and four iterations; [lcp-stream] the streaming LCP kernel for
+   the per-hypothesis kernel, on constructed cases (model points at delta,
+   far hypotheses, a 1 m box, ties), and both on the coarse shape of a
+   scoring call on 4,096-point segments; [icp] the segment-stationary ICP kernel, one pass at the ICP
+   shapes of both scoring calls (512 and 2,048 segment points), ragged models
+   and segments, model points tied across the kernel's slices, and four
+   iterations; [lcp-stream] the streaming LCP kernel for
    segments of any size, both tiers, also against the per-hypothesis kernel
    on a segment both take; [lcp-wide] its hypothesis-group variant, also
    against the streaming kernel; [icp-stream] the model-streaming ICP kernel,
@@ -52,6 +55,15 @@ import time
 
 import numpy as np
 import torch
+
+from physimglobalpose_tpu_torch import kernel_inputs
+from physimglobalpose_tpu_torch.kernel_inputs import (
+    icp_inputs,
+    icp_pass_args,
+    lcp_inputs,
+    packed_lcp_args,
+    stream_lcp_args,
+)
 
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores (data sheet)
 PEAK_BF16_TENSOR_FLOPS = 989e12  # H100 SXM, dense bf16 on the tensor cores (data sheet)
@@ -185,53 +197,6 @@ def write_box_ply(path: str, size):
 # ----------------------------------------------------------------- LCP inputs
 
 
-def _box_surface(rng, n, size):
-    half = np.asarray(size) / 2.0
-    areas = np.array([size[1] * size[2], size[0] * size[2], size[0] * size[1]]).repeat(2)
-    face = rng.choice(6, size=n, p=areas / areas.sum())
-    axis, sign = face // 2, np.where(face % 2 == 0, 1.0, -1.0)
-    pts = rng.uniform(-1, 1, size=(n, 3)) * half
-    nrm = np.zeros((n, 3))
-    pts[np.arange(n), axis] = sign * half[axis]
-    nrm[np.arange(n), axis] = sign
-    return pts.astype(np.float32), nrm.astype(np.float32)
-
-
-def lcp_inputs(seed: int, h: int, nv: int, ns: int, n_masked: int, device, scale: float = 1.0):
-    """A box model seen in a scene segment (noise + clutter + masked rows)
-    and h hypotheses scattered a few mm / degrees around the truth. scale
-    enlarges the box and the clutter's spread and narrows the hypotheses'
-    rotations alike; the noise of a few mm stays."""
-    rng = np.random.default_rng(seed)
-    mpts, mnrm = _box_surface(rng, nv, (0.12 * scale, 0.08 * scale, 0.06 * scale))
-    true_rot = _rot_z(30.0) @ np.array([[1, 0, 0], [0, 0.8, -0.6], [0, 0.6, 0.8]])
-    true_t = np.array([0.05, -0.02, 0.7])
-    n_obj = ns - ns // 8
-    idx = rng.choice(nv, size=n_obj, replace=n_obj > nv)
-    spts = mpts[idx] @ true_rot.T + true_t + rng.normal(scale=0.001, size=(n_obj, 3))
-    snrm = mnrm[idx] @ true_rot.T
-    clutter = true_t + rng.uniform(-0.15, 0.15, size=(ns - n_obj, 3)) * scale
-    cnrm = rng.normal(size=(ns - n_obj, 3))
-    cnrm /= np.linalg.norm(cnrm, axis=1, keepdims=True)
-    spts = np.concatenate([spts, clutter]).astype(np.float32)
-    snrm = np.concatenate([snrm, cnrm]).astype(np.float32)
-    sprob = rng.uniform(0.3, 1.0, size=ns).astype(np.float32)
-    smask = np.ones(ns, bool)
-    smask[rng.choice(ns, size=n_masked, replace=False)] = False
-    tfs = np.tile(np.eye(4), (h, 1, 1))
-    for k in range(h):
-        axis = rng.normal(size=3)
-        axis /= np.linalg.norm(axis)
-        ang = rng.uniform(0, math.radians(8.0)) / scale
-        kx = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
-        dr = np.eye(3) + math.sin(ang) * kx + (1 - math.cos(ang)) * kx @ kx
-        tfs[k, :3, :3] = dr @ true_rot
-        tfs[k, :3, 3] = true_t + rng.normal(scale=0.004, size=3)
-    as_t = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt, device=device)
-    return (as_t(tfs), as_t(mpts), as_t(mnrm), as_t(spts), as_t(snrm), as_t(sprob),
-            as_t(smask, torch.bool))
-
-
 # Shapes and inputs that the kernels' tiling makes ragged: a model that is no
 # multiple of a warp's tile, one hypothesis, a segment of one point and of one
 # short of 1,024, no unmasked point, the masked points first, and exact ties of
@@ -298,18 +263,6 @@ def cuda_time_ms(fn, reps: int, warmup: int = 2, inner: int = 1) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
-
-
-def packed_lcp_args(args, delta: float = 0.005, gate_deg: float = 30.0):
-    """What lcp_scores hands the LCP kernels' wrappers for these inputs:
-    (tr12, model_pts, model_nrm, segcat, delta^2, cos gate)."""
-    from physimglobalpose_tpu_torch.ops import lcp
-
-    tfs, mpts, mnrm, spts, snrm, sprob, smask = args
-    seg_c, tr = lcp.center_at_segment(tfs, spts, smask)
-    return (tr[:, :3, :].reshape(-1, 12).contiguous(), mpts.contiguous(), mnrm.contiguous(),
-            lcp.pack_segment(seg_c, snrm, sprob, smask), delta * delta,
-            math.cos(math.radians(gate_deg)))
 
 
 # ----------------------------------------------------------------- phases
@@ -477,7 +430,7 @@ def phase_lcp(device) -> dict:
     bound_ms = max(flops / PEAK_FP32_FLOPS, bytes_moved / PEAK_HBM_BYTES) * 1e3
     flop16_ms = 16.0 * pairs / PEAK_FP32_FLOPS * 1e3
     log(f"[lcp] timed H={h} Nv={nv} Ns={ns}: kernel_ms={kernel_ms:.3f} (weighted) "
-        f"{kernel_u_ms:.3f} (unweighted: the earlier block kernel; the warp-item kernel "
+        f"{kernel_u_ms:.3f} (unweighted, the launcher's choice; on the CUDA cores named "
         f"{cores_u_ms:.3f}) lcp_scores_ms={scores_ms:.3f} (weighted, with centring and packing) "
         f"plain_ms={plain_ms:.3f} cdist_yardstick_ms={cdist_ms:.3f}")
     log(f"[lcp] bound: {flops:.3e} FLOP (8/pair) -> {bound_ms:.3f} ms, share {bound_ms / kernel_ms:.3f}; "
@@ -649,10 +602,48 @@ def check_large_model(tag, device) -> None:
             fail(f"{tag} large_model: the case has no mix of inliers and outliers")
 
 
+def check_hb_cases(device) -> None:
+    """lcp_segside_hb on constructed inputs (model points at delta, far
+    hypotheses, a 1 m box, and the ragged and tie rows of RAGGED_LCP), within
+    TOL_LCP / Nv of plain and of lcp_segside (TOL_LCP_SAME_D2 on the tie rows
+    of the "default" tier, where both compute d2 with the same bits)."""
+    from physimglobalpose_tpu_torch.ops import lcp
+
+    cases = {
+        "at_delta": lambda: kernel_inputs.at_delta_inputs(device),
+        "clutter_far_hypotheses": lambda: kernel_inputs.far_hypotheses(
+            lcp_inputs(37, 2048, 256, 256, 6, device)),
+        "box_1m": lambda: lcp_inputs(38, 512, 256, 256, 6, device, scale=8.0),
+    }
+    for label, make in cases.items():
+        args = make()
+        packed = packed_lcp_args(args)
+        h, nv = args[0].shape[0], args[1].shape[0]
+        for tier in (None, "default"):
+            for weighted in (False, True):
+                got = lcp.lcp_segside_hb(*packed, weighted, tier)
+                want = lcp.lcp_scores_plain(*args, weighted=weighted, matmul_precision=tier)
+                k1 = lcp.lcp_segside(*packed, weighted, tier)
+                err = _check_scores("[lcp-hb]", f"{label} {tier} weighted={weighted}", got, want,
+                                    h, TOL_LCP / nv)
+                err_k1 = _check_scores("[lcp-hb]", f"{label} {tier} vs lcp_segside", got, k1, h,
+                                       TOL_LCP / nv)
+                log(f"[lcp-hb] {label} H={h} Nv={nv} Ns={args[3].shape[0]} tier={tier} "
+                    f"weighted={weighted}: vs_plain={err:.3e} vs_lcp_segside={err_k1:.3e} "
+                    f"(tol {TOL_LCP / nv:.3e}) mean_score={float(want.mean()):.4f}")
+    rows = tuple(r for r in RAGGED_LCP if r[0] in (
+        "ns1", "all_masked", "tie_one_chunk", "tie_two_chunks", "tie_three_chunks", "tie_shared_bit"))
+    check_ragged("[lcp-hb]", rows, (None, "default"), {
+        "lcp_segside_hb": lambda args, weighted, matmul_precision: lcp.lcp_segside_hb(
+            *packed_lcp_args(args), weighted, matmul_precision),
+    }, lcp.lcp_scores_plain, lambda tier: tier is not None, device)
+
+
 def phase_lcp_hb(device) -> dict:
     """lcp_segside_hb against lcp_scores_plain and against lcp_segside: at the
-    coarse shape of the scoring path, at ragged H and Nv, and once with a
-    model that needs the tile loop; then timed beside lcp_segside."""
+    coarse shape of the scoring path, at ragged H and Nv, once with a model
+    that needs the tile loop, and on the constructed cases of check_hb_cases;
+    then timed beside lcp_segside."""
     from physimglobalpose_tpu_torch.ops import lcp
 
     cases = (
@@ -702,15 +693,18 @@ def phase_lcp_hb(device) -> dict:
             plain_ms = cuda_time_ms(lambda: lcp.lcp_scores_plain(*args, **kw), reps=2, warmup=1)
             library_ms = _cdist_scores_ms(args)
             bound, core_bound = _lcp_bound_ms(h, nv, ns, "default")
+            run = lambda: lcp.lcp_segside_hb(*packed, False, "default")
+            dev_ms = device_ms(run, "lcp_segside_hb_kernel")
             log(f"[lcp-hb] timed coarse H={h} Nv={nv} Ns={ns} unweighted default: "
-                f"lcp_segside_hb={ms:.4f} ms (weighted {w_ms:.4f} ms) lcp_segside={k1_ms:.4f} ms "
-                f"plain={plain_ms:.3f} ms cdist_library={library_ms:.3f} ms; "
-                f"bound={bound:.5f} ms share {bound / ms:.4f} "
+                f"lcp_segside_hb={ms:.4f} ms (weighted {w_ms:.4f} ms; device {dev_ms} ms) "
+                f"lcp_segside={k1_ms:.4f} ms plain={plain_ms:.3f} ms "
+                f"cdist_library={library_ms:.3f} ms; bound={bound:.5f} ms share {bound / ms:.4f} "
                 f"(CUDA cores alone {core_bound:.5f} ms share {core_bound / ms:.3f})")
-            stats = dict(ms=ms, weighted_ms=w_ms, lcp_segside_ms=k1_ms, plain_ms=plain_ms,
-                         library_ms=library_ms, bound_ms=bound, cuda_core_bound_ms=core_bound,
-                         shape=[h, nv, ns])
+            stats = dict(ms=ms, weighted_ms=w_ms, device_ms=dev_ms, lcp_segside_ms=k1_ms,
+                         plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
+                         cuda_core_bound_ms=core_bound, shape=[h, nv, ns])
     stats["max_abs_err"] = worst
+    check_hb_cases(device)
 
     # The coarse call of the scoring path on 4,096-point segments (every 4th
     # point: Ns 1,024), which the routing rule hands to lcp_segside and its
@@ -764,104 +758,189 @@ def phase_lcp_hb(device) -> dict:
     return stats
 
 
-def icp_inputs(seed: int, h: int, nm: int, ns: int, n_masked: int, n_garbage: int, device):
-    """The box of lcp_inputs as the ICP model; the last n_garbage hypotheses
-    sit 0.5 m away, where no segment point is in range."""
-    tfs, mpts, mnrm, spts, _snrm, _sprob, smask = lcp_inputs(seed, h, nm, ns, n_masked, device)
-    tfs[h - n_garbage:, :3, 3] += torch.tensor([0.5, 0.5, 0.0], device=device)
-    return tfs, mpts, mnrm, spts, smask
+def device_ms(fn, kernel: str, launches: int = 1, reps: int = 20) -> float | None:
+    """Device time of one fn() call from torch.profiler: the spans of the
+    kernels whose name holds `kernel`, summed over reps calls (no host time
+    between launches) and divided by reps. None unless the profiler kept
+    exactly reps * launches such spans: it may drop events, and a sum over
+    some of them reads low. Where it is None the CUDA-event time stands alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+    if len(spans) != reps * launches:
+        log(f"[profile] {kernel}: {len(spans)} device spans kept of {reps * launches}; "
+            "no device time")
+        return None
+    return sum(e.time_range.end - e.time_range.start for e in spans) / 1e3 / reps
+
+
+# Model points tied on purpose, (copy, original): the copy takes the
+# original's coordinates and keeps its own normal. At Nm = 512 the kernel's
+# four model slices start at 0, 128, 256 and 384, so every pair straddles
+# slices, among them the first and the last point of a slice.
+ICP_TIED_MODEL = ((128, 0), (255, 127), (511, 128), (384, 383), (300, 10))
+# Ragged and constructed ICP cases: (label, seed, H, Nm, Ns, masked, garbage, twist).
+RAGGED_ICP = (
+    ("ties_across_slices", 41, 64, 512, 512, 10, 4, "ties"),
+    ("nm1", 42, 16, 1, 300, 5, 2, None),
+    ("nm33", 43, 16, 33, 300, 5, 2, None),
+    ("nm511", 44, 16, 511, 700, 5, 2, None),
+    ("nm513", 45, 16, 513, 700, 5, 2, None),
+    ("ns1", 46, 16, 512, 1, 0, 2, None),
+    ("all_masked", 47, 16, 512, 300, 0, 2, "all_masked"),
+    # The largest model the kernel takes: above 4,096 points it rebuilds the
+    # Jacobian rows from the model in device memory.
+    ("nm8192", 48, 16, 8192, 120, 4, 2, None),
+)
+
+
+def _check_icp_pass(what, got, want) -> float:
+    """Fail unless (A, b) is finite, of the right shape and within
+    TOL_ICP_PASS of the plain version's, relative to the largest entry (both
+    exactly 0 where the plain version has no correspondence at all)."""
+    (a, b), (pa, pb) = got, want
+    torch.cuda.synchronize()
+    if a.shape != pa.shape or b.shape != pb.shape or not bool(torch.isfinite(a).all()) \
+            or not bool(torch.isfinite(b).all()):
+        fail(f"[icp] {what}: non-finite or misshapen output")
+    if float(pa.abs().max()) == 0.0:
+        if float(a.abs().max()) != 0.0 or float(b.abs().max()) != 0.0:
+            fail(f"[icp] {what}: A, b != 0 where no segment point is in range")
+        return 0.0
+    err = max(float((a - pa).abs().max() / pa.abs().max()),
+              float((b - pb).abs().max() / pb.abs().max()))
+    if err > TOL_ICP_PASS:
+        fail(f"[icp] {what}: relative error {err:.3e} above {TOL_ICP_PASS:.0e}")
+    return err
+
+
+def _icp_bound_ms(h: int, nm: int, ns: int) -> tuple[float, float]:
+    """(bound, CUDA cores alone) of one "default" pass: the pair work of the
+    d2 search plus 60 FLOP a (hypothesis, point) for the transform and the
+    normal equations, against the bytes."""
+    per_point_s = 60.0 * h * (nm + ns) / PEAK_FP32_FLOPS
+    bytes_s = 4.0 * (12 * h + 4 * ns + 6 * nm + 42 * h) / PEAK_HBM_BYTES
+    ops_s, core_s = _pair_ops_s(float(h) * nm * ns, "default")
+    return max(ops_s + per_point_s, bytes_s) * 1e3, max(core_s + per_point_s, bytes_s) * 1e3
+
+
+def check_ragged_icp(device) -> None:
+    """icp_corr_segside against icp_segside_pass_plain on RAGGED_ICP, both tiers."""
+    from physimglobalpose_tpu_torch.ops import icp
+
+    for label, seed, h, nm, ns, masked, garbage, twist in RAGGED_ICP:
+        tfs, mpts, mnrm, spts, smask = icp_inputs(seed, h, nm, ns, masked, garbage, device)
+        if twist == "all_masked":
+            smask[:] = False
+        if twist == "ties":
+            for copy, orig in ICP_TIED_MODEL:
+                mpts[copy] = mpts[orig]
+        tr12, seg4, _ = icp_pass_args(tfs, mpts, mnrm, spts, smask)
+        for tier in (None, "default"):
+            want = icp.icp_segside_pass_plain(tr12, seg4, mpts, mnrm, 0.02, tier)
+            err = _check_icp_pass(f"{label} tier={tier}",
+                                  icp.icp_corr_segside(tr12, seg4, mpts, mnrm, 0.02, tier), want)
+            note = ""
+            if twist == "ties":
+                # The copies' normals, made the originals': A moves unless no
+                # correspondence found a tie.
+                same = mnrm.clone()
+                for copy, orig in ICP_TIED_MODEL:
+                    same[copy] = mnrm[orig]
+                effect = float((icp.icp_segside_pass_plain(tr12, seg4, mpts, same, 0.02, tier)[0]
+                                - want[0]).abs().max() / want[0].abs().max())
+                note = f" tie_effect={effect:.3e}"
+                if effect == 0.0:
+                    fail(f"[icp] {label}: no correspondence found a tie")
+            log(f"[icp] {label} H={h} Nm={nm} Ns={ns} tier={tier}: rel_err={err:.3e} "
+                f"(tol {TOL_ICP_PASS:.0e}){note}")
 
 
 def phase_icp(device) -> dict:
     """icp_corr_segside against icp_segside_pass_plain: (A, b) of one pass at
-    the scoring path's ICP shape with masked points and garbage hypotheses,
-    both tiers; four iterations of refine_icp_segside over the kernel against
-    the same loop over the plain pass; then the pass timed alone."""
+    the scoring path's two ICP shapes (segments of 512 and 2,048 points) with
+    masked points and garbage hypotheses, both tiers, and on RAGGED_ICP; four
+    iterations of refine_icp_segside over the kernel against the same loop
+    over the plain pass; then the pass timed alone at both shapes."""
     from physimglobalpose_tpu_torch.ops import icp, lcp
 
-    h, nm, ns, n_garbage = 256, 512, 512, 8
-    tfs, mpts, mnrm, spts, smask = icp_inputs(40, h, nm, ns, 20, n_garbage, device)
-    seg_c, tr_c = lcp.center_at_segment(tfs, spts, smask)
-    seg4 = icp.pack_icp_segment(seg_c, smask)
-    tr12 = tr_c[:, :3, :].reshape(-1, 12).contiguous()
-    stats = {}
-    for tier in (None, "default"):
-        a, b = icp.icp_segside_pass(tr12, seg4, mpts, mnrm, 0.02, tier)
-        pa, pb = icp.icp_segside_pass_plain(tr12, seg4, mpts, mnrm, 0.02, tier)
-        torch.cuda.synchronize()
-        if a.shape != (h, 6, 6) or b.shape != (h, 6) or not bool(torch.isfinite(a).all()):
-            fail(f"icp_corr_segside[{tier}]: non-finite or misshapen output")
-        err_a = float((a - pa).abs().max() / pa.abs().max())
-        err_b = float((b - pb).abs().max() / pb.abs().max())
-        log(f"[icp] pass H={h} Nm={nm} Ns={ns} tier={tier}: rel_err_A={err_a:.3e} "
-            f"rel_err_b={err_b:.3e} (tol {TOL_ICP_PASS:.0e} of the largest entry) "
-            f"max|A|={float(pa.abs().max()):.3f} max|b|={float(pb.abs().max()):.3e}")
-        if err_a > TOL_ICP_PASS or err_b > TOL_ICP_PASS:
-            fail(f"icp_corr_segside[{tier}] disagrees with its plain version")
-        if float(a[h - n_garbage:].abs().max()) != 0.0 or float(b[h - n_garbage:].abs().max()) != 0.0:
-            fail(f"icp_corr_segside[{tier}]: a hypothesis without correspondences has A, b != 0")
-        if float(a[: h - n_garbage].abs().amax(dim=(1, 2)).min()) <= 0.0:
-            fail(f"icp_corr_segside[{tier}]: a near-truth hypothesis found no correspondence")
+    check_ragged_icp(device)
+    h, nm, n_garbage = 256, 512, 8
+    shapes = {}
+    for ns in (512, 2048):
+        tfs, mpts, mnrm, spts, smask = icp_inputs(40, h, nm, ns, 20, n_garbage, device)
+        tr12, seg4, tr_c = icp_pass_args(tfs, mpts, mnrm, spts, smask)
+        stats = {}
+        for tier in (None, "default"):
+            a, b = icp.icp_segside_pass(tr12, seg4, mpts, mnrm, 0.02, tier)
+            pa, pb = icp.icp_segside_pass_plain(tr12, seg4, mpts, mnrm, 0.02, tier)
+            err = _check_icp_pass(f"pass Ns={ns} tier={tier}", (a, b), (pa, pb))
+            log(f"[icp] pass H={h} Nm={nm} Ns={ns} tier={tier}: rel_err={err:.3e} "
+                f"(tol {TOL_ICP_PASS:.0e} of the largest entry) "
+                f"max|A|={float(pa.abs().max()):.3f} max|b|={float(pb.abs().max()):.3e}")
+            if float(a[h - n_garbage:].abs().max()) != 0.0 or float(b[h - n_garbage:].abs().max()) != 0.0:
+                fail(f"icp_corr_segside[{tier}]: a hypothesis without correspondences has A, b != 0")
+            if float(a[: h - n_garbage].abs().amax(dim=(1, 2)).min()) <= 0.0:
+                fail(f"icp_corr_segside[{tier}]: a near-truth hypothesis found no correspondence")
 
-        got = icp.refine_icp_segside(tfs, mpts, mnrm, spts, smask, iters=4, matmul_precision=tier)
-        want = tr_c.to(torch.float32)  # the same loop over the plain pass
-        for _ in range(4):
-            pa, pb = icp.icp_segside_pass_plain(
-                want[:, :3, :].reshape(-1, 12).contiguous(), seg4, mpts, mnrm, 0.02, tier)
-            want = icp.segside_update(want, pa, pb)
-        want = want.clone()
-        want[:, :3, 3] += lcp.segment_centroid(spts, smask)
-        torch.cuda.synchronize()
-        place = lambda tf: torch.einsum("hij,nj->hni", tf[:, :3, :3], mpts) + tf[:, None, :3, 3]
-        disp = (place(got) - place(want)).norm(dim=-1).mean(dim=-1)
-        moved = (place(got) - place(tfs)).norm(dim=-1).mean(dim=-1)
-        log(f"[icp] 4 iterations tier={tier}: mean point displacement kernel vs plain loop "
-            f"max={float(disp.max()):.3e} m (bound {TOL_ICP_REFINE:.0e} m); poses moved by "
-            f"{float(moved[: h - n_garbage].mean()) * 1e3:.3f} mm on average")
-        if not bool(torch.isfinite(got).all()) or float(disp.max()) > TOL_ICP_REFINE:
-            fail(f"refine_icp_segside[{tier}] over the kernel parts from the plain loop")
-        if float((got[h - n_garbage:] - tfs[h - n_garbage:]).abs().max()) > 1e-6:
-            fail(f"refine_icp_segside[{tier}] moved a hypothesis without correspondences")
-        ms = cuda_time_ms(lambda: icp.icp_corr_segside(tr12, seg4, mpts, mnrm, 0.02, tier),
-                          reps=5, inner=20)
-        plain_ms = cuda_time_ms(
-            lambda: icp.icp_segside_pass_plain(tr12, seg4, mpts, mnrm, 0.02, tier), reps=3, warmup=1)
-        stats[tier] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=max(err_a, err_b))
+            if ns == 512:
+                got = icp.refine_icp_segside(tfs, mpts, mnrm, spts, smask, iters=4,
+                                             matmul_precision=tier)
+                want = tr_c.to(torch.float32)  # the same loop over the plain pass
+                for _ in range(4):
+                    pa, pb = icp.icp_segside_pass_plain(
+                        want[:, :3, :].reshape(-1, 12).contiguous(), seg4, mpts, mnrm, 0.02, tier)
+                    want = icp.segside_update(want, pa, pb)
+                want = want.clone()
+                want[:, :3, 3] += lcp.segment_centroid(spts, smask)
+                torch.cuda.synchronize()
+                place = lambda tf: torch.einsum("hij,nj->hni", tf[:, :3, :3], mpts) + tf[:, None, :3, 3]
+                disp = (place(got) - place(want)).norm(dim=-1).mean(dim=-1)
+                moved = (place(got) - place(tfs)).norm(dim=-1).mean(dim=-1)
+                log(f"[icp] 4 iterations tier={tier}: mean point displacement kernel vs plain "
+                    f"loop max={float(disp.max()):.3e} m (bound {TOL_ICP_REFINE:.0e} m); poses "
+                    f"moved by {float(moved[: h - n_garbage].mean()) * 1e3:.3f} mm on average")
+                if not bool(torch.isfinite(got).all()) or float(disp.max()) > TOL_ICP_REFINE:
+                    fail(f"refine_icp_segside[{tier}] over the kernel parts from the plain loop")
+                if float((got[h - n_garbage:] - tfs[h - n_garbage:]).abs().max()) > 1e-6:
+                    fail(f"refine_icp_segside[{tier}] moved a hypothesis without correspondences")
+            run = lambda: icp.icp_corr_segside(tr12, seg4, mpts, mnrm, 0.02, tier)
+            stats[tier] = dict(
+                ms=cuda_time_ms(run, reps=5, inner=20),
+                device_ms=device_ms(run, "icp_corr_segside_kernel"),
+                plain_ms=cuda_time_ms(lambda: icp.icp_segside_pass_plain(
+                    tr12, seg4, mpts, mnrm, 0.02, tier), reps=3, warmup=1),
+                max_abs_err=err)
 
-    def cdist_nearest():
-        # Yardstick only: the nearest model point per segment point by one
-        # library call (no PyTorch call computes the normal equations).
-        u = torch.einsum("hij,nj->hni", tr_c[:, :3, :3], mpts) + tr_c[:, None, :3, 3]
-        torch.cdist(seg_c.expand(h, -1, -1), u).min(-1)
+        def cdist_nearest():
+            # Yardstick only: the nearest model point per segment point by one
+            # library call (no PyTorch call computes the normal equations).
+            u = torch.einsum("hij,nj->hni", tr_c[:, :3, :3], mpts) + tr_c[:, None, :3, 3]
+            torch.cdist(seg4[:, :3].expand(h, -1, -1), u).min(-1)
 
-    cdist_ms = cuda_time_ms(cdist_nearest, reps=5)
-    # The pair work of the "default" tier's d2 search plus 60 FLOP a
-    # (hypothesis, point) for the transform and the normal equations.
-    per_point_s = 60.0 * h * (nm + ns) / PEAK_FP32_FLOPS
-    bytes_s = 4.0 * (12 * h + 4 * ns + 6 * nm + 42 * h) / PEAK_HBM_BYTES
-    ops_s, core_s = _pair_ops_s(float(h) * nm * ns, "default")
-    bound = max(ops_s + per_point_s, bytes_s) * 1e3
-    core_bound = max(core_s + per_point_s, bytes_s) * 1e3
-    log(f"[icp] timed pass H={h} Nm={nm} Ns={ns}: fp32={stats[None]['ms']:.4f} ms "
-        f"default={stats['default']['ms']:.4f} ms plain[default]={stats['default']['plain_ms']:.3f} ms "
-        f"cdist_nearest_yardstick={cdist_ms:.3f} ms; bound={bound:.5f} ms "
-        f"share {bound / stats['default']['ms']:.4f} (CUDA cores alone {core_bound:.5f} ms "
-        f"share {core_bound / stats['default']['ms']:.3f})")
-    out = dict(stats["default"], fp32_ms=stats[None]["ms"], bound_ms=bound,
-               cuda_core_bound_ms=core_bound, cdist_yardstick_ms=cdist_ms, shape=[h, nm, ns])
-    out["max_abs_err"] = max(stats[None]["max_abs_err"], stats["default"]["max_abs_err"])
+        cdist_ms = cuda_time_ms(cdist_nearest, reps=5)
+        bound, core_bound = _icp_bound_ms(h, nm, ns)
+        st = stats["default"]
+        log(f"[icp] timed pass H={h} Nm={nm} Ns={ns}: default={st['ms']:.4f} ms (device "
+            f"{st['device_ms']} ms) fp32={stats[None]['ms']:.4f} ms (device "
+            f"{stats[None]['device_ms']} ms) plain[default]={st['plain_ms']:.3f} ms "
+            f"cdist_nearest_yardstick={cdist_ms:.3f} ms; bound={bound:.5f} ms "
+            f"share {bound / st['ms']:.4f} (CUDA cores alone {core_bound:.5f} ms "
+            f"share {core_bound / st['ms']:.3f})")
+        shapes[ns] = dict(st, fp32_ms=stats[None]["ms"], fp32_device_ms=stats[None]["device_ms"],
+                          bound_ms=bound, cuda_core_bound_ms=core_bound, cdist_yardstick_ms=cdist_ms,
+                          shape=[h, nm, ns],
+                          max_abs_err=max(stats[None]["max_abs_err"], st["max_abs_err"]))
+    out = dict(shapes[512])
+    out["ns2048"] = shapes[2048]
     return out
-
-
-def stream_lcp_args(args, delta: float = 0.005, gate_deg: float = 30.0):
-    """What lcp_scores_stream hands the streaming kernels' wrappers for these
-    inputs: (tr12, model_pts, model_nrm, segcat, delta^2, cos gate)."""
-    from physimglobalpose_tpu_torch.ops import lcp
-
-    tfs, mpts, mnrm, spts, snrm, sprob, smask = args
-    return (tfs[:, :3, :].reshape(-1, 12).contiguous(), mpts.contiguous(), mnrm.contiguous(),
-            lcp.pack_stream_segment(spts, snrm, sprob, smask), delta * delta,
-            math.cos(math.radians(gate_deg)))
 
 
 def _check_scores(tag, what, got, want, h, tol):
@@ -1412,10 +1491,17 @@ def main() -> int:
               unweighted_ms=tier_stats["high3"]["unweighted_ms"]),
         entry("lcp_segside_hb", lcp_src, "physimglobalpose_tpu/ops/lcp.py:543",
               "ops/lcp.py::_lcp_kernel_segside_hb", scoring_launches["lcp_segside_hb"], hb_stats,
-              library_ms=hb_stats["library_ms"]),
+              library_ms=hb_stats["library_ms"],
+              **{k: hb_stats[k] for k in ("shape", "weighted_ms", "device_ms")}),
+        # ms: H 256 x Nm 512 x Ns 512 ([scoring]); ns2048: the pass [scoring-large]
+        # launches icp_iters times a call.
         entry("icp_corr_segside", "physimglobalpose_tpu_torch/csrc/icp_corr_segside.cu",
               "physimglobalpose_tpu/ops/icp.py:273", "ops/icp.py::_icp_corr_kernel_segside",
-              scoring_launches["icp_corr_segside"], icp_stats),
+              scoring_launches["icp_corr_segside"], icp_stats,
+              shape=icp_stats["shape"], device_ms=icp_stats["device_ms"],
+              fp32_ms=icp_stats["fp32_ms"],
+              ns2048={**icp_stats["ns2048"],
+                      "launches": scoring_large_launches["icp_corr_segside"]}),
         # Launches: one call of the scoring path on 4,096-point segments (its
         # exact tier); the large-segment scene adds one per object.
         entry("lcp_stream", stream_src, "physimglobalpose_tpu/ops/lcp.py:99",

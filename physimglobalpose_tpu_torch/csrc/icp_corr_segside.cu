@@ -17,9 +17,9 @@
 //   A = sum_j sum_{i in ties(j)} (w_j / ties_j) col_i col_i^T
 //   b = -sum_j sum_{i in ties(j)} (w_j / ties_j) col_i r_ji.
 // The TPU kernel reaches the same sums through per-model-point accumulators
-// (S_i, W_i) built by a one-hot matrix product; here each thread sums over its
-// own segment points, so nothing is scattered and no atomics are needed. Only
-// the order of the sums differs.
+// (S_i, W_i) built by a one-hot matrix product; here each segment point adds
+// its own terms, so nothing is scattered and no atomics are needed. Only the
+// order of the sums differs.
 //
 // Tiers. fp32: everything in float32. "default": the operands of the d2 product
 // (s, |s|^2, -2u, |u|^2) are rounded to bf16 exactly where the TPU kernel rounds
@@ -34,23 +34,43 @@
 // multiply-add would round differently from an elementwise product and sum), so
 // the plain version finds bit-identical distances, ties and weights.
 //
-// What bounds it: fp32 arithmetic on the CUDA cores, Ns * Nm pairs per
+// What bounds it: the instruction rate of the CUDA cores, Ns * Nm pairs per
 // hypothesis at 4 (fused) or 7 (unfused) operations plus the running min; the
 // inputs are tens of KB and the output 42 floats per hypothesis. At the ICP
-// tier's shape (H = 256, Ns = Nm = 512) that is 6.7e7 pairs, microseconds of
-// arithmetic, so a pass is bound by its launch and by how many blocks fill the
-// card (H blocks on 132 SMs).
+// tier's shapes (H = 256, Nm = 512, Ns = 512 or 2,048) that is 6.7e7 or 2.7e8
+// pairs: a few microseconds of arithmetic, so a pass is bound by how much of
+// the card its warps fill and by how long each warp's dependent chain is.
 // What the design does about it:
-//  - one block per hypothesis; the transformed model's d2 operands sit in
-//    shared memory once (16 bytes per model point, 128 KB at the largest model
-//    the wrapper takes), read as broadcasts;
-//  - every thread keeps kSegPerThread segment points in registers, so each
-//    shared-memory read feeds that many independent chains;
-//  - the running min carries the first nearest index and a tie count; the
-//    Jacobian row is rebuilt from the model point only once per segment point,
-//    and a second scan runs only for a segment point whose minimum is tied;
-//  - 21 + 6 per-thread sums, then a warp-shuffle tree and a fixed-order sum
-//    over warps: deterministic.
+//  - one block of kWarps = 16 warps per hypothesis, so that a pass is one
+//    launch and H = 256 puts 4,096 warps on the card. The warps split the
+//    work two ways: kSlices slices of the model (contiguous index ranges) by
+//    kGroups groups of the segment tile. A lane holds kSeg segment points in
+//    registers and scans its warp's slice: each broadcast read of a model
+//    point from shared memory feeds kSeg independent chains;
+//  - the scan keeps only the running minimum, taken over chunks of kChunk
+//    model points; after a chunk two selects per segment point keep a bit
+//    mask of the chunks that reached the minimum (a nearer chunk resets it, an
+//    equal one joins), so the loop has no per-pair branch;
+//  - per segment point the slices' (minimum, chunk mask) meet in shared
+//    memory. One thread per point of the tile takes the minimum over the
+//    slices and, only for a point within max_corr (the others weigh 0), walks
+//    the chunks of the slices that reached it with the scan's instructions,
+//    hence the same bits: the exact tie count and the first index, the triple
+//    one scan of the whole model gives. It then adds the Jacobian rows of its
+//    matched model points, reading u and R n from shared memory, staged once
+//    per hypothesis. (The walk once sat in the scan, per slice and for every
+//    point: 43 % of the pass on an H100 80GB HBM3 at 700 W, PERF.md.);
+//  - per tile each warp reduces its 27 sums by a shuffle tree into its own
+//    row of shared memory; at the end the rows are added in warp order, so
+//    the result is deterministic.
+// Measured on an H100 80GB HBM3 at 700 W (PERF.md): the block shapes of 256,
+// 512 and 1,024 threads and chunks of 4, 8 and 16 points came within 10 %
+// of each other; this one was the fastest at both ICP shapes. 64 registers.
+// Shared memory: 16 bytes per model point for the d2 operands, 24 more for
+// u and R n while the model has at most kAccSmemPoints points (above that the
+// rows are rebuilt from the model in device memory), and 16 KB for the slices'
+// results: 36 KB at Nm = 512, 144 KB at the largest model the wrapper takes
+// (8,192 points).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,11 +78,16 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kSegPerThread = 4;
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kSums = 27;  // upper triangle of A (21), then b (6)
-constexpr int kOut = 42;   // A row-major (36), then b (6)
+constexpr int kSlices = 4;                   // model slices
+constexpr int kGroups = kWarps / kSlices;    // segment groups
+constexpr int kSeg = 4;                      // segment points a lane holds
+constexpr int kTile = kGroups * 32 * kSeg;   // segment points a tile
+constexpr int kChunk = 8;                    // model points a chunk of the scan's mask
+constexpr int kSums = 27;                    // upper triangle of A (21), then b (6)
+constexpr int kOut = 42;                     // A row-major (36), then b (6)
+constexpr int kAccSmemPoints = 4096;         // largest model whose u, R n are staged
 
 __device__ __forceinline__ float bf(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -77,6 +102,13 @@ __device__ __forceinline__ void transform_rn(const float* r, float x, float y, f
   ux = __fadd_rn(dot3_rn(r[0], x, r[1], y, r[2], z), r[3]);
   uy = __fadd_rn(dot3_rn(r[4], x, r[5], y, r[6], z), r[7]);
   uz = __fadd_rn(dot3_rn(r[8], x, r[9], y, r[10], z), r[11]);
+}
+
+__device__ __forceinline__ void rotate_rn(const float* r, float x, float y, float z,
+                                          float& vx, float& vy, float& vz) {
+  vx = dot3_rn(r[0], x, r[1], y, r[2], z);
+  vy = dot3_rn(r[4], x, r[5], y, r[6], z);
+  vz = dot3_rn(r[8], x, r[9], y, r[10], z);
 }
 
 // d2 of one (segment point, model point) pair; p = (-2u, |u|^2).
@@ -96,18 +128,21 @@ __device__ __forceinline__ float pair_d2(float sx, float sy, float sz, float sw,
   return d;
 }
 
-// Adds model point i's share (weight wq) of segment point (sx, sy, sz).
+// Segment point j as the d2 chain takes it: (x, y, z, |s|^2), rounded per tier.
 template <bool kBf16>
-__device__ __forceinline__ void accumulate(float (&acc)[kSums], const float* r,
-                                           const float* __restrict__ model_pts,
-                                           const float* __restrict__ model_nrm, int i,
-                                           float wq, float sx, float sy, float sz) {
-  float ux, uy, uz;
-  transform_rn(r, model_pts[3 * i], model_pts[3 * i + 1], model_pts[3 * i + 2], ux, uy, uz);
-  const float nx = model_nrm[3 * i], ny = model_nrm[3 * i + 1], nz = model_nrm[3 * i + 2];
-  const float unx = dot3_rn(r[0], nx, r[1], ny, r[2], nz);
-  const float uny = dot3_rn(r[4], nx, r[5], ny, r[6], nz);
-  const float unz = dot3_rn(r[8], nx, r[9], ny, r[10], nz);
+__device__ __forceinline__ float4 load_segment(const float4* __restrict__ seg, int j, int Ns) {
+  float4 s = make_float4(0.f, 0.f, 0.f, 1e9f);
+  if (j < Ns) s = seg[j];
+  if constexpr (kBf16) s = make_float4(bf(s.x), bf(s.y), bf(s.z), bf(s.w));
+  return s;
+}
+
+// Adds model point i's share (weight wq) of segment point (sx, sy, sz); u and
+// un as staged (or rebuilt the same way from the model).
+template <bool kBf16>
+__device__ __forceinline__ void accumulate(float (&acc)[kSums], float ux, float uy, float uz,
+                                           float unx, float uny, float unz, float wq, float sx,
+                                           float sy, float sz) {
   float col[6];
   col[0] = __fsub_rn(__fmul_rn(uy, unz), __fmul_rn(uz, uny));
   col[1] = __fsub_rn(__fmul_rn(uz, unx), __fmul_rn(ux, unz));
@@ -131,130 +166,211 @@ __device__ __forceinline__ void accumulate(float (&acc)[kSums], const float* r,
   }
 }
 
-template <bool kBf16>
-__global__ void __launch_bounds__(kThreads)
+// The per-slice result of one tile point, as the scan leaves it.
+struct SliceResult {
+  float best;    // min d2 over the slice (+inf for an empty slice)
+  unsigned hit;  // chunks of the slice that reached it (bit c mod 32)
+};
+
+template <bool kBf16, bool kAccSmem>
+__global__ void __launch_bounds__(kThreads, 2)
 icp_corr_segside_kernel(const float* __restrict__ tr,         // [H, 12] row-major (R | t)
                         const float4* __restrict__ seg,       // [Ns]: (x, y, z, |s|^2)
                         const float* __restrict__ model_pts,  // [Nm, 3]
                         const float* __restrict__ model_nrm,  // [Nm, 3]
                         float* __restrict__ out,              // [H, 42]
-                        int Ns, int Nm, float max_corr2, float two_sigma2) {
-  extern __shared__ float4 s_model[];  // [Nm]: (-2u, |u|^2), rounded per tier
-  __shared__ float s_red[kWarps][kSums];
-  __shared__ float s_tot[kSums];
+                        int Ns, int Nm, int slice_len, float max_corr2, float two_sigma2) {
+  extern __shared__ float4 smem[];
+  const int Nmp = kSlices * slice_len;  // the model padded to whole chunks per slice
+  float4* s_model = smem;               // [Nmp]: (-2u, |u|^2), rounded per tier
+  SliceResult* s_res = reinterpret_cast<SliceResult*>(smem + Nmp);  // [kSlices][kTile]
+  float4* s_u = reinterpret_cast<float4*>(s_res + kSlices * kTile);  // [Nm]: (u, unx)
+  float2* s_un = reinterpret_cast<float2*>(s_u + (kAccSmem ? Nm : 0));  // [Nm]: (uny, unz)
+  __shared__ float s_wsum[kWarps][kSums];
 
   const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
   const int h = static_cast<int>(blockIdx.x);
   float r[12];
 #pragma unroll
   for (int c = 0; c < 12; ++c) r[c] = tr[12 * h + c];
 
-  for (int i = tid; i < Nm; i += kThreads) {
-    float ux, uy, uz;
-    transform_rn(r, model_pts[3 * i], model_pts[3 * i + 1], model_pts[3 * i + 2], ux, uy, uz);
-    float4 p = make_float4(-2.f * ux, -2.f * uy, -2.f * uz, dot3_rn(ux, ux, uy, uy, uz, uz));
-    if constexpr (kBf16) p = make_float4(bf(p.x), bf(p.y), bf(p.z), bf(p.w));
+  for (int i = tid; i < Nmp; i += kThreads) {
+    float4 p = make_float4(0.f, 0.f, 0.f, INFINITY);  // padding: never the nearest
+    if (i < Nm) {
+      float ux, uy, uz;
+      transform_rn(r, model_pts[3 * i], model_pts[3 * i + 1], model_pts[3 * i + 2], ux, uy, uz);
+      p = make_float4(-2.f * ux, -2.f * uy, -2.f * uz, dot3_rn(ux, ux, uy, uy, uz, uz));
+      if constexpr (kBf16) p = make_float4(bf(p.x), bf(p.y), bf(p.z), bf(p.w));
+      if constexpr (kAccSmem) {
+        float unx, uny, unz;
+        rotate_rn(r, model_nrm[3 * i], model_nrm[3 * i + 1], model_nrm[3 * i + 2], unx, uny, unz);
+        s_u[i] = make_float4(ux, uy, uz, unx);
+        s_un[i] = make_float2(uny, unz);
+      }
+    }
     s_model[i] = p;
   }
+  if (tid < kSums * kWarps) (&s_wsum[0][0])[tid] = 0.f;
   __syncthreads();
 
-  float acc[kSums];
-#pragma unroll
-  for (int v = 0; v < kSums; ++v) acc[v] = 0.f;
+  const int slice = warp % kSlices, group = warp / kSlices;
+  const int m0 = slice * slice_len;
 
-  for (int base = 0; base < Ns; base += kThreads * kSegPerThread) {
-    float sx[kSegPerThread], sy[kSegPerThread], sz[kSegPerThread], sw[kSegPerThread];
-    float best[kSegPerThread];
-    int first[kSegPerThread], ties[kSegPerThread];
+  for (int base = 0; base < Ns; base += kTile) {
+    // ---- The scan: this warp's slice against this lane's kSeg points.
+    {
+      float sx[kSeg], sy[kSeg], sz[kSeg], sw[kSeg], best[kSeg];
+      unsigned hit[kSeg];
 #pragma unroll
-    for (int k = 0; k < kSegPerThread; ++k) {
-      const int j = base + k * kThreads + tid;
-      float4 s = make_float4(0.f, 0.f, 0.f, 1e9f);
-      if (j < Ns) s = seg[j];
-      if constexpr (kBf16) s = make_float4(bf(s.x), bf(s.y), bf(s.z), bf(s.w));
-      sx[k] = s.x; sy[k] = s.y; sz[k] = s.z; sw[k] = s.w;
-      best[k] = INFINITY;
-      first[k] = 0;
-      ties[k] = 0;
-    }
-
-    for (int i = 0; i < Nm; ++i) {
-      const float4 p = s_model[i];
+      for (int k = 0; k < kSeg; ++k) {
+        const float4 s = load_segment<kBf16>(seg, base + group * 32 * kSeg + k * 32 + lane, Ns);
+        sx[k] = s.x; sy[k] = s.y; sz[k] = s.z; sw[k] = s.w;
+        best[k] = INFINITY;
+        hit[k] = 0u;
+      }
+      for (int c = 0; c < slice_len; c += kChunk) {
+        float cm[kSeg];
 #pragma unroll
-      for (int k = 0; k < kSegPerThread; ++k) {
-        const float d = pair_d2<kBf16>(sx[k], sy[k], sz[k], sw[k], p);
-        if (d < best[k]) {
-          best[k] = d;
-          first[k] = i;
-          ties[k] = 1;
-        } else if (d == best[k]) {
-          ++ties[k];
+        for (int k = 0; k < kSeg; ++k) cm[k] = INFINITY;
+#pragma unroll
+        for (int jj = 0; jj < kChunk; ++jj) {
+          const float4 p = s_model[m0 + c + jj];
+#pragma unroll
+          for (int k = 0; k < kSeg; ++k) cm[k] = fminf(cm[k], pair_d2<kBf16>(sx[k], sy[k], sz[k], sw[k], p));
+        }
+        const unsigned bit = 1u << ((c / kChunk) & 31);
+#pragma unroll
+        for (int k = 0; k < kSeg; ++k) {
+          const unsigned joined = (cm[k] == best[k]) ? (hit[k] | bit) : hit[k];
+          hit[k] = (cm[k] < best[k]) ? bit : joined;
+          best[k] = fminf(best[k], cm[k]);
         }
       }
-    }
-
 #pragma unroll
-    for (int k = 0; k < kSegPerThread; ++k) {
-      const int j = base + k * kThreads + tid;
-      if (j >= Ns || !(best[k] <= max_corr2)) continue;
-      float wq = expf(-best[k] / two_sigma2) / static_cast<float>(ties[k]);
-      if constexpr (kBf16) wq = bf(wq);
-      if (ties[k] == 1) {
-        accumulate<kBf16>(acc, r, model_pts, model_nrm, first[k], wq, sx[k], sy[k], sz[k]);
-      } else {
-        for (int i = first[k]; i < Nm; ++i) {
-          if (pair_d2<kBf16>(sx[k], sy[k], sz[k], sw[k], s_model[i]) == best[k]) {
-            accumulate<kBf16>(acc, r, model_pts, model_nrm, i, wq, sx[k], sy[k], sz[k]);
+      for (int k = 0; k < kSeg; ++k) {
+        s_res[slice * kTile + group * 32 * kSeg + k * 32 + lane] = SliceResult{best[k], hit[k]};
+      }
+    }
+    __syncthreads();
+
+    // ---- Per tile point: the minimum over the slices; within max_corr, the
+    // exact ties and the first index among them from the chunks of the slices
+    // that reached it (the scan's instructions again, hence the same bits);
+    // then the Jacobian rows of the matched model points.
+    float acc[kSums];
+#pragma unroll
+    for (int v = 0; v < kSums; ++v) acc[v] = 0.f;
+    for (int t = tid; t < kTile; t += kThreads) {
+      const int j = base + t;
+      float best = INFINITY;
+#pragma unroll
+      for (int sl = 0; sl < kSlices; ++sl) best = fminf(best, s_res[sl * kTile + t].best);
+      if (j >= Ns || !(best <= max_corr2)) continue;
+      const float4 s = load_segment<kBf16>(seg, j, Ns);
+      // Visits every model point of the chunks that reached the minimum, in
+      // slice order; f(i) for each that equals it.
+      auto for_each_tie = [&](auto&& f) {
+        for (int sl = 0; sl < kSlices; ++sl) {
+          const SliceResult q = s_res[sl * kTile + t];
+          if (q.best != best) continue;
+          const int lo = sl * slice_len, hi = min(lo + slice_len, Nm);
+          for (unsigned hm = q.hit; hm != 0u; hm &= hm - 1u) {
+            for (int c = lo + (__ffs(hm) - 1) * kChunk; c < hi; c += 32 * kChunk) {
+              for (int i = c; i < min(c + kChunk, hi); ++i) {
+                if (pair_d2<kBf16>(s.x, s.y, s.z, s.w, s_model[i]) == best) f(i);
+              }
+            }
           }
         }
+      };
+      int first = Nm, ties = 0;
+      for_each_tie([&](int i) {
+        first = min(first, i);
+        ++ties;
+      });
+      float wq = expf(-best / two_sigma2) / static_cast<float>(ties);
+      if constexpr (kBf16) wq = bf(wq);
+      auto add = [&](int i) {
+        float ux, uy, uz, unx, uny, unz;
+        if constexpr (kAccSmem) {
+          const float4 u4 = s_u[i];
+          const float2 n2 = s_un[i];
+          ux = u4.x; uy = u4.y; uz = u4.z; unx = u4.w; uny = n2.x; unz = n2.y;
+        } else {
+          transform_rn(r, model_pts[3 * i], model_pts[3 * i + 1], model_pts[3 * i + 2], ux, uy, uz);
+          rotate_rn(r, model_nrm[3 * i], model_nrm[3 * i + 1], model_nrm[3 * i + 2], unx, uny, unz);
+        }
+        accumulate<kBf16>(acc, ux, uy, uz, unx, uny, unz, wq, s.x, s.y, s.z);
+      };
+      if (ties == 1) {
+        add(first);
+      } else {
+        for_each_tie(add);
       }
     }
+    // Fixed-order sums of the tile: a shuffle tree per warp into its own row.
+#pragma unroll
+    for (int v = 0; v < kSums; ++v) {
+      float x = acc[v];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) x += __shfl_down_sync(0xffffffffu, x, off);
+      if (lane == 0) s_wsum[warp][v] += x;
+    }
+    __syncthreads();  // s_res is rewritten by the next tile's scan
   }
 
-  // Fixed-order block sums: warp shuffle tree, then warp partials in order.
-#pragma unroll
-  for (int v = 0; v < kSums; ++v) {
-    float x = acc[v];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) x += __shfl_down_sync(0xffffffffu, x, off);
-    if ((tid & 31) == 0) s_red[tid >> 5][v] = x;
-  }
-  __syncthreads();
-  if (tid < kSums) {
-    float total = 0.f;
-    for (int w = 0; w < kWarps; ++w) total += s_red[w][tid];
-    s_tot[tid] = total;
-  }
-  __syncthreads();
+  // The warps' rows in warp order.
   if (tid < kOut) {
-    float v;
+    int v = 21 + tid - 36;  // b
     if (tid < 36) {
       const int a = tid / 6, b = tid % 6;
       const int lo = min(a, b), hi = max(a, b);
-      v = s_tot[lo * 6 - lo * (lo - 1) / 2 + hi - lo];
-    } else {
-      v = s_tot[21 + tid - 36];
+      v = lo * 6 - lo * (lo - 1) / 2 + hi - lo;
     }
-    out[kOut * h + tid] = v;
+    float total = 0.f;
+    for (int w = 0; w < kWarps; ++w) total += s_wsum[w][v];
+    out[kOut * h + tid] = total;
   }
+}
+
+template <bool kBf16, bool kAccSmem>
+int launch(const float* tr, const float4* seg, const float* model_pts, const float* model_nrm,
+           float* out, int H, int Ns, int Nm, float max_corr2, float two_sigma2,
+           cudaStream_t st) {
+  const int per_slice = (Nm + kSlices - 1) / kSlices;
+  const int slice_len = (per_slice + kChunk - 1) / kChunk * kChunk;
+  const int smem = kSlices * slice_len * static_cast<int>(sizeof(float4)) +
+                   kSlices * kTile * static_cast<int>(sizeof(SliceResult)) +
+                   (kAccSmem ? Nm * static_cast<int>(sizeof(float4) + sizeof(float2)) : 0);
+  auto kern = icp_corr_segside_kernel<kBf16, kAccSmem>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  kern<<<H, kThreads, smem, st>>>(tr, seg, model_pts, model_nrm, out, Ns, Nm, slice_len,
+                                  max_corr2, two_sigma2);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Launches on `stream`; allocates nothing. tier is 0 (fp32) or 1 ("default").
-// Returns cudaGetLastError().
+// Nm at most 8,192. Returns cudaGetLastError().
 extern "C" int icp_corr_segside_launch(const float* tr, const float* seg,
                                        const float* model_pts, const float* model_nrm,
                                        float* out, int H, int Ns, int Nm, float max_corr2,
                                        float two_sigma2, int tier, void* stream) {
   if (H <= 0) return 0;
-  if (tier != 0 && tier != 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = Nm * static_cast<int>(sizeof(float4));
+  if ((tier != 0 && tier != 1) || Nm < 1 || Nm > 8192 || Ns < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float4* seg4 = reinterpret_cast<const float4*>(seg);
-  auto kern = tier == 1 ? icp_corr_segside_kernel<true> : icp_corr_segside_kernel<false>;
-  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  kern<<<H, kThreads, smem, st>>>(tr, seg4, model_pts, model_nrm, out, Ns, Nm, max_corr2,
-                                  two_sigma2);
-  return static_cast<int>(cudaGetLastError());
+#define ICP_LAUNCH(B, S) \
+  return launch<B, S>(tr, seg4, model_pts, model_nrm, out, H, Ns, Nm, max_corr2, two_sigma2, st)
+  if (Nm <= kAccSmemPoints) {
+    if (tier == 1) ICP_LAUNCH(true, true);
+    ICP_LAUNCH(false, true);
+  }
+  if (tier == 1) ICP_LAUNCH(true, false);
+  ICP_LAUNCH(false, false);
+#undef ICP_LAUNCH
 }

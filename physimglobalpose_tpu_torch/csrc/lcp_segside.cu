@@ -4,14 +4,14 @@
 //   lcp_segside_launch     replaces the TPU kernel
 //       physimglobalpose_tpu/ops/lcp.py::_lcp_kernel_segside
 //     (tiers fp32 / "default" / "high3") with lcp_segside_kernel, one hypothesis
-//     and one model tile per warp on the CUDA cores; for the unweighted lowered
-//     tiers of large calls with lcp_segside_mma_kernel, which finds the
-//     candidates on the tensor cores; for unweighted fp32 calls of many
-//     hypotheses with lcp_segside_block_kernel, the earlier design;
-//   lcp_segside_hb_kernel  replaces
+//     and one model tile per warp on the CUDA cores, or, for the unweighted
+//     lowered tiers of large calls, with lcp_segside_mma_kernel, which finds the
+//     candidates on the tensor cores;
+//   lcp_segside_hb_launch  replaces
 //       physimglobalpose_tpu/ops/lcp.py::_lcp_kernel_segside_hb
 //     (a group of hypotheses per block, tiers fp32 / "default"; whole-model and
-//     model-tiled modes of the TPU kernel are one loop over model tiles here).
+//     model-tiled modes of the TPU kernel are one loop over model tiles here)
+//     with lcp_segside_hb_kernel.
 //
 // For each hypothesis (R, t) and each model point m_i, u_i = R m_i + t; the
 // nearest segment point j* minimises
@@ -85,8 +85,7 @@
 //    unit. A weighted variant of it measured slower than the chunk scan at
 //    every shape (PERF.md) and is not built;
 //  - lcp_segside_hb_kernel gives a thread one model point under kSlots
-//    hypotheses and evaluates the normal dot in the inner loop, on a new
-//    nearest or a tie; the model point is loaded once for the group;
+//    hypotheses, which it scans against the whole staged segment;
 //  - per-hypothesis sums are a warp-shuffle tree and a fixed-order sum: no
 //    atomics, so scores are deterministic.
 // TMA and wgmma are not used here: K is 8 or 16, one mma.sync deep.
@@ -98,9 +97,8 @@
 namespace {
 
 constexpr int kThreads = 256;     // lcp_segside_hb_kernel; the most lcp_segside_kernel takes
-constexpr int kSlots = 8;         // lcp_segside_hb_kernel, lcp_segside_block_kernel: pairs a thread
+constexpr int kSlots = 8;         // lcp_segside_hb_kernel: hypotheses a thread holds its point under
 constexpr int kHypGroup = kSlots; // lcp_segside_hb_kernel: hypotheses a block takes together
-constexpr int kHypsPerBlock = 4;  // lcp_segside_block_kernel: hypotheses a block takes in turn
 constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 32;        // lcp_segside_kernel: segment points a chunk of the weighted scan
 constexpr int kItemsPerWarp = 4;  // the warp-item kernels: items a warp takes in a large call
@@ -191,14 +189,6 @@ __device__ __forceinline__ void stage_segment_point(const float4* __restrict__ s
   }
 }
 
-template <int kTier, bool kWeighted>
-__device__ __forceinline__ void stage_segment(const float4* __restrict__ seg, float4* s_pos,
-                                              float4* s_lo, float4* s_nrm, int Ns) {
-  for (int j = threadIdx.x; j < Ns; j += kThreads) {
-    stage_segment_point<kTier, kWeighted>(seg, s_pos, s_lo, s_nrm, j);
-  }
-}
-
 // The same for a block of any size, with the positions padded to a whole
 // number of chunks by points at infinity: their d2 is +inf against every
 // model point, so they are never the nearest and never tie.
@@ -266,15 +256,13 @@ __device__ __forceinline__ float pair_d2(const float4& s, const float4& l, const
 // (max over exact ties), updated per pair.
 template <int kTier, bool kWeighted>
 __device__ __forceinline__ void scan_segment(Slot (&slot)[kSlots], const float4* s_pos,
-                                             const float4* s_lo, const float4* s_nrm, int Ns) {
+                                             const float4* s_nrm, int Ns) {
   for (int j = 0; j < Ns; ++j) {
     const float4 s = s_pos[j];
-    float4 l = make_float4(0.f, 0.f, 0.f, 0.f);
-    if constexpr (kTier == kHigh3) l = s_lo[j];
 #pragma unroll
     for (int k = 0; k < kSlots; ++k) {
       Slot& q = slot[k];
-      const float d = pair_d2<kTier>(s, l, q);
+      const float d = pair_d2<kTier>(s, make_float4(0.f, 0.f, 0.f, 0.f), q);
       if constexpr (kWeighted) {
         if (d <= q.best) {
           const float4 n = s_nrm[j];
@@ -802,58 +790,6 @@ lcp_segside_mma_kernel(LCP_KERNEL_ARGS, float* __restrict__ partial /* [H, n_mti
   }
 }
 
-// The earlier design, kept for the unweighted float32 variant of large calls,
-// where it measures 2-3 % faster than the warp items (PERF.md): a block takes
-// kHypsPerBlock hypotheses in turn, a thread holds kSlots model points of one,
-// strided by the block, and the block meets once per hypothesis for its sum.
-template <int kTier>
-__global__ void __launch_bounds__(kThreads) lcp_segside_block_kernel(LCP_KERNEL_ARGS) {
-  extern __shared__ float4 smem[];
-  float4* s_pos = smem;
-  float4* s_lo = smem + Ns;
-  __shared__ float s_warp[kWarps];
-
-  const int tid = threadIdx.x;
-  stage_segment<kTier, false>(seg, s_pos, s_lo, nullptr, Ns);
-  __syncthreads();
-
-  const int block = static_cast<int>(blockIdx.x);
-  const int h_end = min(H, (block + 1) * kHypsPerBlock);
-  for (int h = block * kHypsPerBlock; h < h_end; ++h) {
-    float r[12];
-    load_pose(tr, h, r);
-
-    float acc = 0.f;
-    for (int base = 0; base < Nv; base += kThreads * kSlots) {
-      Slot slot[kSlots];
-#pragma unroll
-      for (int k = 0; k < kSlots; ++k) {
-        float mx, my, mz;
-        load_point(model_pts, base + k * kThreads + tid, Nv, mx, my, mz);
-        make_slot<kTier, false>(slot[k], r, mx, my, mz, 0.f, 0.f, 0.f);
-      }
-      scan_segment<kTier, false>(slot, s_pos, s_lo, nullptr, Ns);
-#pragma unroll
-      for (int k = 0; k < kSlots; ++k) {
-        if (base + k * kThreads + tid < Nv) {
-          acc += contribution<false>(slot[k], delta2, cos_gate);
-        }
-      }
-    }
-
-    // Fixed-order block sum: warp shuffle tree, then warp partials in order.
-    acc = warp_sum(acc);
-    if ((tid & 31) == 0) s_warp[tid >> 5] = acc;
-    __syncthreads();
-    if (tid == 0) {
-      float total = 0.f;
-      for (int w = 0; w < kWarps; ++w) total += s_warp[w];
-      out[h] = total / static_cast<float>(Nv);
-    }
-    __syncthreads();
-  }
-}
-
 // out[h] = (sum of the model tiles' partial sums, in tile order) / Nv.
 __global__ void lcp_segside_finish_kernel(const float* __restrict__ partial,
                                           float* __restrict__ out, int H, int n_mtiles, int Nv) {
@@ -867,21 +803,24 @@ __global__ void lcp_segside_finish_kernel(const float* __restrict__ partial,
 // Does nothing: what a launch costs on this card (timed beside the kernels).
 __global__ void lcp_empty_kernel() {}
 
-// kHypGroup hypotheses together; a thread holds one model point under each of
-// them and walks the model in tiles of kThreads points.
+// ---- lcp_segside_hb_kernel: kHypGroup hypotheses a block; a thread holds one
+// model point under each of them and scans the whole staged segment, walking
+// the model in tiles of kThreads points (the TPU kernel's whole-model and
+// model-tiled modes are this one loop).
 template <int kTier, bool kWeighted>
 __global__ void __launch_bounds__(kThreads) lcp_segside_hb_kernel(LCP_KERNEL_ARGS) {
   static_assert(kTier != kHigh3, "the hypothesis-block kernel has no high3 tier");
   extern __shared__ float4 smem[];
-  float4* s_pos = smem;
-  float4* s_lo = smem + Ns;  // unused: no high3 tier
-  float4* s_nrm = smem + Ns;
+  float4* s_pos = smem;      // [Ns]
+  float4* s_nrm = smem + Ns; // [Ns] normal + prob (weighted)
   __shared__ float s_tr[kHypGroup * 12];
   __shared__ float s_warp[kHypGroup][kWarps];
 
   const int tid = threadIdx.x;
   const int h0 = static_cast<int>(blockIdx.x) * kHypGroup;
-  stage_segment<kTier, kWeighted>(seg, s_pos, s_lo, s_nrm, Ns);
+  for (int j = tid; j < Ns; j += kThreads) {
+    stage_segment_point<kTier, kWeighted>(seg, s_pos, nullptr, s_nrm, j);
+  }
   if (tid < kHypGroup * 12) {
     // A ragged last group scores the last hypothesis again in its idle slots.
     const int h = min(h0 + tid / 12, H - 1);
@@ -903,7 +842,7 @@ __global__ void __launch_bounds__(kThreads) lcp_segside_hb_kernel(LCP_KERNEL_ARG
     for (int k = 0; k < kSlots; ++k) {
       make_slot<kTier, kWeighted>(slot[k], s_tr + 12 * k, mx, my, mz, mnx, mny, mnz);
     }
-    scan_segment<kTier, kWeighted>(slot, s_pos, s_lo, s_nrm, Ns);
+    scan_segment<kTier, kWeighted>(slot, s_pos, s_nrm, Ns);
     if (i < Nv) {
 #pragma unroll
       for (int k = 0; k < kSlots; ++k) acc[k] += contribution<kWeighted>(slot[k], delta2, cos_gate);
@@ -940,8 +879,8 @@ int slots_for(int H, int Nv) {
 }
 
 template <int kTier, bool kWeighted>
-int segment_smem(int Ns, bool padded) {
-  const int n = padded ? (Ns + kChunk - 1) / kChunk * kChunk : Ns;
+int segment_smem(int Ns) {
+  const int n = (Ns + kChunk - 1) / kChunk * kChunk;
   const int arrays = 1 + (kTier == kHigh3 ? 1 : 0) + (kWeighted ? 1 : 0);
   return n * arrays * static_cast<int>(sizeof(float4));
 }
@@ -979,7 +918,7 @@ template <int kTier, bool kWeighted, int kS>
 int launch_warp_items(LCP_LAUNCH_ARGS) {
   const int n_mtiles = (Nv + 32 * kS - 1) / (32 * kS);
   const ItemGrid g = item_grid(static_cast<long long>(H) * n_mtiles);
-  const int smem = segment_smem<kTier, kWeighted>(Ns, true);
+  const int smem = segment_smem<kTier, kWeighted>(Ns);
   auto kern = lcp_segside_kernel<kTier, kWeighted, kS>;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   kern<<<g.blocks, g.block_threads, smem, st>>>(tr, model_pts, model_nrm, seg4, out, H, Nv, Ns,
@@ -1027,18 +966,6 @@ int launch(int unit, LCP_LAUNCH_ARGS) {
     }
   }
   if (unit == kUnitTensor) return static_cast<int>(cudaErrorInvalidValue);
-  if constexpr (!kWeighted && kTier == kFp32) {
-    // Unweighted float32, many hypotheses, a model of whole 2,048-point
-    // passes: the earlier kernel (measured at H 10,000 x Nv 4,096 only).
-    if (unit == kUnitRule && H >= 4 * kHypsPerBlock * kSMs && Nv % (kThreads * kSlots) == 0) {
-      const int smem = segment_smem<kTier, false>(Ns, false);
-      auto kern = lcp_segside_block_kernel<kTier>;
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      kern<<<(H + kHypsPerBlock - 1) / kHypsPerBlock, kThreads, smem, st>>>(
-          tr, model_pts, model_nrm, seg4, out, H, Nv, Ns, delta2, cos_gate);
-      return static_cast<int>(cudaGetLastError());
-    }
-  }
 #define LCP_ITEMS(S)                                                                          \
   return launch_warp_items<kTier, kWeighted, S>(tr, model_pts, model_nrm, seg4, partial, out, \
                                                 H, Nv, Ns, delta2, cos_gate, st)
@@ -1056,7 +983,7 @@ int launch_hb(const float* tr, const float* model_pts, const float* model_nrm, c
   if constexpr (kTier == kHigh3) {
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
-    const int smem = segment_smem<kTier, kWeighted>(Ns, false);
+    const int smem = Ns * static_cast<int>(sizeof(float4)) * (kWeighted ? 2 : 1);
     auto kern = lcp_segside_hb_kernel<kTier, kWeighted>;
     cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     kern<<<(H + kHypGroup - 1) / kHypGroup, kThreads, smem, st>>>(

@@ -1,0 +1,136 @@
+"""Seeded synthetic inputs of the kernels' checks and timings.
+
+A box model seen in a scene segment, hypotheses around its true pose, and the
+packed arguments the LCP and ICP kernels' wrappers take. chip_smoke.py holds
+the kernels against their plain versions on these inputs on the card,
+tools/compare_lcp_kernels.py times two revisions on them, and the CPU tests
+hold the plain versions against the JAX package on small ones.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from physimglobalpose_tpu_torch.ops import icp, lcp
+
+
+def _rot_z(deg: float) -> np.ndarray:
+    a = math.radians(deg)
+    return np.array([[math.cos(a), -math.sin(a), 0.0], [math.sin(a), math.cos(a), 0.0],
+                     [0.0, 0.0, 1.0]])
+
+
+def _box_surface(rng, n, size):
+    half = np.asarray(size) / 2.0
+    areas = np.array([size[1] * size[2], size[0] * size[2], size[0] * size[1]]).repeat(2)
+    face = rng.choice(6, size=n, p=areas / areas.sum())
+    axis, sign = face // 2, np.where(face % 2 == 0, 1.0, -1.0)
+    pts = rng.uniform(-1, 1, size=(n, 3)) * half
+    nrm = np.zeros((n, 3))
+    pts[np.arange(n), axis] = sign * half[axis]
+    nrm[np.arange(n), axis] = sign
+    return pts.astype(np.float32), nrm.astype(np.float32)
+
+
+def lcp_inputs(seed: int, h: int, nv: int, ns: int, n_masked: int, device, scale: float = 1.0):
+    """A box model seen in a scene segment (noise + clutter + masked rows)
+    and h hypotheses scattered a few mm / degrees around the truth. scale
+    enlarges the box and the clutter's spread and narrows the hypotheses'
+    rotations alike; the noise of a few mm stays."""
+    rng = np.random.default_rng(seed)
+    mpts, mnrm = _box_surface(rng, nv, (0.12 * scale, 0.08 * scale, 0.06 * scale))
+    true_rot = _rot_z(30.0) @ np.array([[1, 0, 0], [0, 0.8, -0.6], [0, 0.6, 0.8]])
+    true_t = np.array([0.05, -0.02, 0.7])
+    n_obj = ns - ns // 8
+    idx = rng.choice(nv, size=n_obj, replace=n_obj > nv)
+    spts = mpts[idx] @ true_rot.T + true_t + rng.normal(scale=0.001, size=(n_obj, 3))
+    snrm = mnrm[idx] @ true_rot.T
+    clutter = true_t + rng.uniform(-0.15, 0.15, size=(ns - n_obj, 3)) * scale
+    cnrm = rng.normal(size=(ns - n_obj, 3))
+    cnrm /= np.linalg.norm(cnrm, axis=1, keepdims=True)
+    spts = np.concatenate([spts, clutter]).astype(np.float32)
+    snrm = np.concatenate([snrm, cnrm]).astype(np.float32)
+    sprob = rng.uniform(0.3, 1.0, size=ns).astype(np.float32)
+    smask = np.ones(ns, bool)
+    smask[rng.choice(ns, size=n_masked, replace=False)] = False
+    tfs = np.tile(np.eye(4), (h, 1, 1))
+    for k in range(h):
+        axis = rng.normal(size=3)
+        axis /= np.linalg.norm(axis)
+        ang = rng.uniform(0, math.radians(8.0)) / scale
+        kx = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
+        dr = np.eye(3) + math.sin(ang) * kx + (1 - math.cos(ang)) * kx @ kx
+        tfs[k, :3, :3] = dr @ true_rot
+        tfs[k, :3, 3] = true_t + rng.normal(scale=0.004, size=3)
+    as_t = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt, device=device)
+    return (as_t(tfs), as_t(mpts), as_t(mnrm), as_t(spts), as_t(snrm), as_t(sprob),
+            as_t(smask, torch.bool))
+
+
+def at_delta_inputs(device, h: int = 256, n: int = 256, delta: float = 0.005):
+    """lcp_inputs-style arguments with identity hypotheses (half of them
+    shifted by at most 0.2 mm) and a model whose points sit 0.5 or 1.5 delta
+    from a segment point, and one in 128 exactly delta: there a nearest
+    distance is on the edge of delta. (Only those few, so that the float32
+    plain version, whose d2 rounds otherwise than the kernels', stays within
+    2 / Nv of them.)"""
+    rng = np.random.default_rng(36)
+    seg = rng.uniform(-0.06, 0.06, size=(n, 3))
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    dist = np.where(np.arange(n) % 2 == 0, 0.5, 1.5) * delta
+    dist[::128] = delta
+    nrm = rng.normal(size=(n, 3))
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    tfs = np.tile(np.eye(4), (h, 1, 1))
+    tfs[1::2, :3, 3] = rng.uniform(-2e-4, 2e-4, size=(h // 2, 3))
+    as_t = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt, device=device)
+    return (as_t(tfs), as_t(seg + dist[:, None] * d), as_t(nrm), as_t(seg), as_t(nrm),
+            as_t(rng.uniform(0.3, 1.0, size=n)), as_t(np.ones(n, bool), torch.bool))
+
+
+def far_hypotheses(args, seed: int = 37):
+    """lcp_inputs with every other hypothesis moved 0.1-0.3 m in x and y (the
+    clutter inputs' garbage half), in place."""
+    rng = np.random.default_rng(seed)
+    tfs = args[0]
+    h = tfs.shape[0]
+    off = rng.uniform(0.1, 0.3, size=(h // 2, 2)) * rng.choice((-1.0, 1.0), size=(h // 2, 2))
+    tfs[1::2, :2, 3] += torch.as_tensor(off, dtype=torch.float32, device=tfs.device)
+    return args
+
+
+def packed_lcp_args(args, delta: float = 0.005, gate_deg: float = 30.0):
+    """What lcp_scores hands the LCP kernels' wrappers for these inputs:
+    (tr12, model_pts, model_nrm, segcat, delta^2, cos gate)."""
+    tfs, mpts, mnrm, spts, snrm, sprob, smask = args
+    seg_c, tr = lcp.center_at_segment(tfs, spts, smask)
+    return (tr[:, :3, :].reshape(-1, 12).contiguous(), mpts.contiguous(), mnrm.contiguous(),
+            lcp.pack_segment(seg_c, snrm, sprob, smask), delta * delta,
+            math.cos(math.radians(gate_deg)))
+
+
+def stream_lcp_args(args, delta: float = 0.005, gate_deg: float = 30.0):
+    """What lcp_scores_stream hands the streaming kernels' wrappers for these
+    inputs: (tr12, model_pts, model_nrm, segcat, delta^2, cos gate)."""
+    tfs, mpts, mnrm, spts, snrm, sprob, smask = args
+    return (tfs[:, :3, :].reshape(-1, 12).contiguous(), mpts.contiguous(), mnrm.contiguous(),
+            lcp.pack_stream_segment(spts, snrm, sprob, smask), delta * delta,
+            math.cos(math.radians(gate_deg)))
+
+
+def icp_inputs(seed: int, h: int, nm: int, ns: int, n_masked: int, n_garbage: int, device):
+    """The box of lcp_inputs as the ICP model; the last n_garbage hypotheses
+    sit 0.5 m away, where no segment point is in range."""
+    tfs, mpts, mnrm, spts, _snrm, _sprob, smask = lcp_inputs(seed, h, nm, ns, n_masked, device)
+    tfs[h - n_garbage:, :3, 3] += torch.tensor([0.5, 0.5, 0.0], device=device)
+    return tfs, mpts, mnrm, spts, smask
+
+
+def icp_pass_args(tfs, mpts, mnrm, spts, smask):
+    """(tr12, seg4, centred poses) of one correspondence pass."""
+    seg_c, tr_c = lcp.center_at_segment(tfs, spts, smask)
+    return tr_c[:, :3, :].reshape(-1, 12).contiguous(), icp.pack_icp_segment(seg_c, smask), tr_c

@@ -189,7 +189,8 @@ def refine_icp(
 
 # ------------------------------------------------- segment-stationary pass
 
-# Largest model the kernel holds in shared memory (16 bytes a point, 128 KB).
+# Largest model the kernel takes: it holds the d2 operands in shared memory (16
+# bytes a point; 144 KB with its other arrays at 8,192 points).
 MAX_SEGSIDE_MODEL_POINTS = 8192
 # matmul_precision -> the kernel's tier argument (no "high3" tier here).
 ICP_TIERS = {None: 0, "highest": 0, "default": 1}

@@ -192,3 +192,70 @@ def test_kernel_wrapper_takes_only_cuda_tensors():
     with pytest.raises(ValueError, match="matmul_precision"):
         icp.refine_icp_segside(torch.eye(4)[None], *args[2:], torch.zeros(5, 3),
                                torch.ones(5, dtype=torch.bool), matmul_precision="high3")
+
+
+# ------------------------------------------- ragged shapes and constructed ties
+# The cases chip_smoke.py ([icp]) holds the CUDA kernel to on the card, held
+# here plain-against-TPU: models and segments that the kernel's tiling (four
+# model slices, tiles of 512 segment points) makes ragged, a wholly masked
+# segment, and model points that tie exactly across the slices.
+
+# Ties at Nm = 256, where the kernel's slices start at 0, 64, 128 and 192:
+# (copy, original), the copy at the original's coordinates with its own normal.
+TIED_MODEL = ((64, 0), (127, 63), (255, 64), (192, 191), (150, 10))
+
+
+def ragged_case(rng, n_model, n_seg, twist):
+    model, mnrm, seg, true_pose, init = make_case(rng, n_model=max(n_model, n_seg), n_seg=n_seg)
+    model, mnrm = model[:n_model].copy(), mnrm[:n_model].copy()
+    mask = np.ones(n_seg, bool)
+    if twist == "all_masked":
+        mask[:] = False
+    elif twist == "ties":
+        for copy, orig in TIED_MODEL:
+            model[copy] = model[orig]
+    return model, mnrm, seg, two_inits(init), mask
+
+
+# (n_model, n_seg, twist)
+RAGGED = {
+    "nm1": (1, 40, None),
+    "nm33": (33, 60, None),
+    "nm130": (130, 97, None),
+    "ns1": (128, 1, None),
+    "ns200": (256, 200, None),
+    "all_masked": (128, 96, "all_masked"),
+    "ties_across_slices": (256, 160, "ties"),
+}
+
+
+@pytest.mark.parametrize("precision", [None, "default"])
+@pytest.mark.parametrize("name", list(RAGGED))
+def test_pass_plain_matches_tpu_kernel_interpret_on_ragged_and_tied_cases(rng, name, precision):
+    # The tolerances of test_pass_plain_matches_tpu_kernel_interpret.
+    n_model, n_seg, twist = RAGGED[name]
+    model, mnrm, seg, inits, mask = ragged_case(rng, n_model, n_seg, twist)
+    c = seg[mask].mean(0) if mask.any() else np.zeros(3, np.float32)
+    seg_c = (seg - c).astype(np.float32)
+    inits_c = inits.copy()
+    inits_c[:, :3, 3] -= c
+    want_a, want_b = jax_pass(inits_c, seg_c, mask, model, mnrm, 0.02, precision)
+    tr12 = t(inits_c[:, :3, :].reshape(-1, 12))
+    seg4 = icp.pack_icp_segment(t(seg_c), tb(mask))
+    got_a, got_b = icp.icp_segside_pass_plain(tr12, seg4, t(model), t(mnrm), 0.02, precision)
+    rel = 1e-5 if precision is None else 5e-3
+    if twist == "all_masked":
+        assert np.abs(want_a).max() == 0.0 and float(got_a.abs().max()) == 0.0
+        assert np.abs(want_b).max() == 0.0 and float(got_b.abs().max()) == 0.0
+        return
+    assert np.abs(want_a).max() > 0.0  # real correspondences
+    np.testing.assert_allclose(n(got_a), want_a, atol=rel * np.abs(want_a).max())
+    np.testing.assert_allclose(n(got_b), want_b, atol=rel * np.abs(want_b).max())
+    if twist == "ties":
+        # The copies' normals made the originals': A moves, so correspondences
+        # really found the ties and shared their weight.
+        same = mnrm.copy()
+        for copy, orig in TIED_MODEL:
+            same[copy] = mnrm[orig]
+        moved = icp.icp_segside_pass_plain(tr12, seg4, t(model), t(same), 0.02, precision)[0]
+        assert float((moved - got_a).abs().max()) > 1e-3 * float(got_a.abs().max())

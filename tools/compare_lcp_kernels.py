@@ -1,21 +1,31 @@
-"""Time the LCP kernels of this tree against another revision's on one card.
+"""Time the LCP and segment-stationary ICP kernels of this tree against
+another revision's on one card.
 
     git archive <revision> physimglobalpose_tpu_torch/csrc | tar -x -C build/other
     python3 tools/compare_lcp_kernels.py \
-        --other-csrc build/other/physimglobalpose_tpu_torch/csrc [--out FILE.json]
+        --other-csrc build/other/physimglobalpose_tpu_torch/csrc [--out FILE.json] \
+        [--sections lcp hb icp units]
 
-Builds lcp_segside.cu and lcp_stream.cu of both trees with the package's
-nvcc flags and calls their C launchers on the same tensors, at the shapes of
-PERF.md's kernel table: lcp_segside and lcp_stream are timed in turns (other,
-this, this, other; CUDA events, median) and their scores compared;
-lcp_segside_hb and lcp_stream_wide must give the same bits in both trees.
-Then this tree's unweighted lcp_segside is timed on its two units, the CUDA
-cores and the tensor-core filter, over a grid of lowered-tier shapes: what the
-launcher's routing rule rests on. The inputs and the timer are chip_smoke.py's. Prints one line per case and a JSON summary; exits
-non-zero when a score differs by more than 2 / Nv, a bit of the two unchanged
-kernels differs, or the two units disagree by more than 1e-6.
-Two revisions are compared inside one run only: two runs may land on cards
-with other power limits.
+Builds lcp_segside.cu, lcp_stream.cu and icp_corr_segside.cu of both trees
+with the package's nvcc flags and calls their C launchers on the same
+tensors, at the shapes of PERF.md's kernel table, timing each pair in turns
+(other, this, this, other; CUDA events, median; the kernels' device time from
+torch.profiler beside it). Sections:
+  lcp    lcp_segside and lcp_stream, scores within 2 / Nv of the other tree's;
+         lcp_stream_wide must give the same bits in both trees;
+  hb     lcp_segside_hb at the coarse shape of a scoring call and others,
+         weighted and unweighted, both tiers: scores within 2e-7 of the other
+         tree's (the sum order may differ);
+  icp    icp_corr_segside at the ICP shapes of both scoring calls, both tiers:
+         (A, b) within 1e-6 of the other tree's, relative to the largest entry;
+  units  this tree's unweighted lcp_segside on its two units, the CUDA cores
+         and the tensor-core filter, over a grid of lowered-tier shapes: what
+         the launcher's routing rule rests on.
+The inputs are physimglobalpose_tpu_torch/kernel_inputs.py's, the timers
+chip_smoke.py's; a device time is null where the profiler dropped spans.
+Prints one line per case and a JSON summary; exits non-zero when a check
+above fails. Two revisions are compared inside one run only: two runs may
+land on cards with other power limits.
 """
 
 from __future__ import annotations
@@ -32,8 +42,8 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))  # the repository root
 
-import chip_smoke  # noqa: E402  (inputs and the timer)
-from physimglobalpose_tpu_torch import _build  # noqa: E402
+import chip_smoke  # noqa: E402  (the timers)
+from physimglobalpose_tpu_torch import _build, kernel_inputs  # noqa: E402
 from physimglobalpose_tpu_torch.ops import lcp  # noqa: E402
 
 _COMMON = [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
@@ -53,16 +63,30 @@ def build_other(csrc: Path, name: str) -> ctypes.CDLL:
 
 
 class Kernels:
-    """The four LCP launchers of one tree behind one calling convention."""
+    """The LCP and segment-stationary ICP launchers of one tree behind one
+    calling convention."""
 
-    def __init__(self, segside: ctypes.CDLL, stream: ctypes.CDLL):
-        self.segside, self.stream = segside, stream
+    def __init__(self, segside: ctypes.CDLL, stream: ctypes.CDLL, icp_lib: ctypes.CDLL):
+        self.segside, self.stream, self.icp = segside, stream, icp_lib
         # A tree whose lcp_segside sums model tiles takes a workspace before `out`.
         self.tiled = hasattr(segside, "lcp_segside_workspace_tiles")
         segside.lcp_segside_launch.argtypes = [ctypes.c_void_p] * (6 if self.tiled else 5) + _COMMON
         segside.lcp_segside_hb_launch.argtypes = [ctypes.c_void_p] * 5 + _COMMON
         for fn in (stream.lcp_stream_launch, stream.lcp_stream_wide_launch):
             fn.argtypes = [ctypes.c_void_p] * 6 + _STREAM_COMMON
+        icp_lib.icp_corr_segside_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+            ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+
+    def run_icp(self, tr12, seg4, mpts, mnrm, tier: int, max_corr: float = 0.02):
+        h, ns, nm = tr12.shape[0], seg4.shape[0], mpts.shape[0]
+        out = torch.empty((h, 42), dtype=torch.float32, device=tr12.device)
+        rc = self.icp.icp_corr_segside_launch(
+            tr12.data_ptr(), seg4.data_ptr(), mpts.data_ptr(), mnrm.data_ptr(), out.data_ptr(),
+            h, ns, nm, max_corr * max_corr, 2.0 * (max_corr * 0.5) ** 2, tier,
+            torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"icp_corr_segside launch failed with CUDA error {rc}")
+        return out
 
     def run(self, kernel: str, packed, weighted: bool, tier: int, ns_tile: int = 0):
         tr12, mpts, mnrm, segcat, delta2, cos_gate = packed
@@ -111,9 +135,6 @@ TIMED = (
 )
 # (kernel, H, Nv, Ns, ns_tile): both trees must give the same bits, every tier, both variants.
 UNCHANGED = (
-    ("lcp_segside_hb", 16_384, 256, 256, 0),
-    ("lcp_segside_hb", 1003, 300, 200, 0),
-    ("lcp_segside_hb", 67, 4096, 256, 0),
     ("lcp_stream_wide", 16_384, 512, 4096, 128),
     ("lcp_stream_wide", 37, 700, 333, 128),
     ("lcp_stream_wide", 5, 77, 2100, 128),
@@ -130,7 +151,7 @@ UNIT_GRID = (
 def time_units(device) -> tuple[bool, list]:
     ok, rows = True, []
     for h, nv, ns in UNIT_GRID:
-        packed = chip_smoke.packed_lcp_args(chip_smoke.lcp_inputs(92, h, nv, ns, 24, device))
+        packed = kernel_inputs.packed_lcp_args(kernel_inputs.lcp_inputs(92, h, nv, ns, 24, device))
         for tier in ("default", "high3"):
             run = lambda unit: lcp._lcp_segside_on_unit(unit, *packed, False, tier)
             units = (lcp._UNIT_CUDA_CORES, lcp._UNIT_TENSOR_CORES)
@@ -146,58 +167,129 @@ def time_units(device) -> tuple[bool, list]:
     return ok, rows
 
 
+# (H, Nv, Ns) of lcp_segside_hb: the coarse shape of a scoring call first.
+HB_SHAPES = ((16_384, 256, 256), (16_384, 256, 1024), (16_384, 256, 512), (16_384, 128, 256),
+             (16_384, 512, 256), (4096, 256, 256), (1024, 256, 256), (1003, 300, 200),
+             (67, 4096, 256), (4096, 256, 64))
+# (H, Nm, Ns) of icp_corr_segside: the ICP tier of the scoring calls at Ns 1,024 and 4,096.
+ICP_SHAPES = ((256, 512, 512), (256, 512, 2048))
+
+
+def timed_pair(run_other, run_this, reps: int, inner: int, kernel: str):
+    """(other, this) CUDA-event times in turns (other, this, this, other) and
+    the device times of one call of each (one launch of `kernel`)."""
+    t = lambda f: chip_smoke.cuda_time_ms(f, reps=reps, warmup=1, inner=inner)
+    o1, n1, n2, o2 = t(run_other), t(run_this), t(run_this), t(run_other)
+    dev = lambda f: chip_smoke.device_ms(f, kernel)
+    return [o1, o2], [n1, n2], dev(run_other), dev(run_this)
+
+
+def compare_hb(this, other, device) -> tuple[bool, list]:
+    ok, rows = True, []
+    for h, nv, ns in HB_SHAPES:
+        packed = kernel_inputs.packed_lcp_args(kernel_inputs.lcp_inputs(93, h, nv, ns, 20, device))
+        for tier in (1, 0):
+            for weighted in (False, True):
+                run = lambda k: k.run("lcp_segside_hb", packed, weighted, tier)
+                a, b = run(this), run(other)
+                diff = float((a - b).abs().max())
+                ok &= diff <= 2e-7
+                o, n, od, nd = timed_pair(lambda: run(other), lambda: run(this), 5, 10,
+                                          "lcp_segside_hb_kernel")
+                row = dict(kernel="lcp_segside_hb", shape=[h, nv, ns], weighted=weighted,
+                           tier=tier, other_ms=o, this_ms=n, other_device_ms=od,
+                           this_device_ms=nd, max_abs_diff=diff, bit_identical=bool(torch.equal(a, b)))
+                rows.append(row)
+                print(f"[hb] H={h} Nv={nv} Ns={ns} tier={tier} weighted={weighted}: other "
+                      f"{o[0]:.4f} / {o[1]:.4f} ms, this {n[0]:.4f} / {n[1]:.4f} ms (device {od} -> "
+                      f"{nd}), max_abs_diff={diff:.3e}, bit-identical={row['bit_identical']}")
+    return ok, rows
+
+
+def compare_icp(this, other, device) -> tuple[bool, list]:
+    ok, rows = True, []
+    for h, nm, ns in ICP_SHAPES:
+        tfs, mpts, mnrm, spts, smask = kernel_inputs.icp_inputs(94, h, nm, ns, 20, 8, device)
+        tr12, seg4, _ = kernel_inputs.icp_pass_args(tfs, mpts, mnrm, spts, smask)
+        for tier in (1, 0):
+            run = lambda k: k.run_icp(tr12, seg4, mpts, mnrm, tier)
+            a, b = run(this), run(other)
+            rel = float((a - b).abs().max() / b.abs().max())
+            ok &= rel <= 1e-6
+            o, n, od, nd = timed_pair(lambda: run(other), lambda: run(this), 5, 20,
+                                      "icp_corr_segside_kernel")
+            rows.append(dict(kernel="icp_corr_segside", shape=[h, nm, ns], tier=tier, other_ms=o,
+                             this_ms=n, other_device_ms=od, this_device_ms=nd, rel_diff=rel))
+            print(f"[icp] H={h} Nm={nm} Ns={ns} tier={tier}: other {o[0]:.4f} / {o[1]:.4f} ms, "
+                  f"this {n[0]:.4f} / {n[1]:.4f} ms (device {od} -> {nd}; "
+                  f"{min(o) / max(n):.2f}x), (A, b) relative difference {rel:.3e} (tol 1e-6)")
+    return ok, rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other-csrc", required=True, type=Path)
     ap.add_argument("--out", type=Path)
+    ap.add_argument("--sections", nargs="+", default=["lcp", "hb", "icp", "units"],
+                    choices=["lcp", "hb", "icp", "units"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("compare_lcp_kernels: no CUDA device", file=sys.stderr)
         return 1
     device = torch.device("cuda")
     smi = chip_smoke.phase_device()
-    this = Kernels(_build.load("lcp_segside"), _build.load("lcp_stream"))
-    other = Kernels(build_other(args.other_csrc, "lcp_segside"),
-                    build_other(args.other_csrc, "lcp_stream"))
-    ok, rows = True, []
+    this = Kernels(_build.load("lcp_segside"), _build.load("lcp_stream"),
+                   _build.load("icp_corr_segside"))
+    other = Kernels(*(build_other(args.other_csrc, name)
+                      for name in ("lcp_segside", "lcp_stream", "icp_corr_segside")))
+    ok, rows, summary = True, [], dict(card=smi)
 
-    for kernel, h, nv, ns, tile in UNCHANGED:
-        inputs = chip_smoke.lcp_inputs(90, h, nv, ns, 20, device)
-        stream = kernel == "lcp_stream_wide"
-        pack = chip_smoke.stream_lcp_args if stream else chip_smoke.packed_lcp_args
-        packed = pack(inputs)
-        for tier in (0, 1):
-            for weighted in (True, False):
-                a = this.run(kernel, packed, weighted, tier, tile)
-                b = other.run(kernel, packed, weighted, tier, tile)
-                torch.cuda.synchronize()
-                same = bool(torch.equal(a, b))
-                ok &= same
-                print(f"[unchanged] {kernel} H={h} Nv={nv} Ns={ns} tier={tier} "
-                      f"weighted={weighted}: bit-identical={same} mean={float(a.mean()):.4f}")
+    if "lcp" in args.sections:
+        for kernel, h, nv, ns, tile in UNCHANGED:
+            inputs = kernel_inputs.lcp_inputs(90, h, nv, ns, 20, device)
+            stream = kernel == "lcp_stream_wide"
+            pack = kernel_inputs.stream_lcp_args if stream else kernel_inputs.packed_lcp_args
+            packed = pack(inputs)
+            for tier in (0, 1):
+                for weighted in (True, False):
+                    a = this.run(kernel, packed, weighted, tier, tile)
+                    b = other.run(kernel, packed, weighted, tier, tile)
+                    torch.cuda.synchronize()
+                    same = bool(torch.equal(a, b))
+                    ok &= same
+                    print(f"[unchanged] {kernel} H={h} Nv={nv} Ns={ns} tier={tier} "
+                          f"weighted={weighted}: bit-identical={same} mean={float(a.mean()):.4f}")
 
-    for kernel, label, h, nv, ns, weighted, tier, tile, reps in TIMED:
-        inputs = chip_smoke.lcp_inputs(91, h, nv, ns, 24, device)
-        stream = kernel == "lcp_stream"
-        pack = chip_smoke.stream_lcp_args if stream else chip_smoke.packed_lcp_args
-        packed = pack(inputs)
-        t = lcp.TIERS[tier]
-        diff = float((this.run(kernel, packed, weighted, t, tile)
-                      - other.run(kernel, packed, weighted, t, tile)).abs().max())
-        inner = 1 if h >= 10_000 else 10
-        time = lambda k: chip_smoke.cuda_time_ms(
-            lambda: k.run(kernel, packed, weighted, t, tile), reps=reps, warmup=1, inner=inner)
-        o1, n1, n2, o2 = time(other), time(this), time(this), time(other)
-        row = dict(kernel=kernel, label=label, shape=[h, nv, ns], weighted=weighted, tier=tier,
-                   other_ms=[o1, o2], this_ms=[n1, n2], max_abs_diff=diff)
-        rows.append(row)
-        ok &= diff <= 2.0 / nv
-        print(f"[timed] {kernel} {label} H={h} Nv={nv} Ns={ns} weighted={weighted} tier={tier}: "
-              f"other {o1:.4f} / {o2:.4f} ms, this {n1:.4f} / {n2:.4f} ms "
-              f"({min(o1, o2) / max(n1, n2):.2f}x), max_abs_diff={diff:.3e}")
-    units_ok, unit_rows = time_units(device)
-    ok &= units_ok
-    summary = dict(card=smi, ok=ok, timed=rows, units=unit_rows)
+        for kernel, label, h, nv, ns, weighted, tier, tile, reps in TIMED:
+            inputs = kernel_inputs.lcp_inputs(91, h, nv, ns, 24, device)
+            stream = kernel == "lcp_stream"
+            pack = kernel_inputs.stream_lcp_args if stream else kernel_inputs.packed_lcp_args
+            packed = pack(inputs)
+            t = lcp.TIERS[tier]
+            diff = float((this.run(kernel, packed, weighted, t, tile)
+                          - other.run(kernel, packed, weighted, t, tile)).abs().max())
+            inner = 1 if h >= 10_000 else 10
+            time = lambda k: chip_smoke.cuda_time_ms(
+                lambda: k.run(kernel, packed, weighted, t, tile), reps=reps, warmup=1, inner=inner)
+            o1, n1, n2, o2 = time(other), time(this), time(this), time(other)
+            row = dict(kernel=kernel, label=label, shape=[h, nv, ns], weighted=weighted, tier=tier,
+                       other_ms=[o1, o2], this_ms=[n1, n2], max_abs_diff=diff)
+            rows.append(row)
+            ok &= diff <= 2.0 / nv
+            print(f"[timed] {kernel} {label} H={h} Nv={nv} Ns={ns} weighted={weighted} tier={tier}: "
+                  f"other {o1:.4f} / {o2:.4f} ms, this {n1:.4f} / {n2:.4f} ms "
+                  f"({min(o1, o2) / max(n1, n2):.2f}x), max_abs_diff={diff:.3e}")
+        summary["timed"] = rows
+    if "hb" in args.sections:
+        hb_ok, summary["hb"] = compare_hb(this, other, device)
+        ok &= hb_ok
+    if "icp" in args.sections:
+        icp_ok, summary["icp"] = compare_icp(this, other, device)
+        ok &= icp_ok
+    if "units" in args.sections:
+        units_ok, summary["units"] = time_units(device)
+        ok &= units_ok
+    summary["ok"] = ok
     print(json.dumps(summary))
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
