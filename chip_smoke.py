@@ -13,14 +13,17 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    [lcp] the per-hypothesis LCP kernel, fp32 tier; [lcp-tiers] its "default"
    and "high3" tiers; [lcp-hb] the hypothesis-block LCP kernel, also against
    the per-hypothesis kernel, on constructed cases (model points at delta,
-   far hypotheses, a 1 m box, ties), and both on the coarse shape of a
-   scoring call on 4,096-point segments; [icp] the segment-stationary ICP kernel, one pass at the ICP
+   far hypotheses, a 1 m box, ties, delta^2 on a row's nearest d2 and one
+   float32 step beside it), its units side by side at the coarse call, and
+   both kernels on the coarse shape of a scoring call on 4,096-point
+   segments; [icp] the segment-stationary ICP kernel, one pass at the ICP
    shapes of both scoring calls (512 and 2,048 segment points), ragged models
    and segments, model points tied across the kernel's slices, and four
    iterations; [lcp-stream] the streaming LCP kernel for
    segments of any size, both tiers, also against the per-hypothesis kernel
    on a segment both take; [lcp-wide] its hypothesis-group variant, also
-   against the streaming kernel; [icp-stream] the model-streaming ICP kernel,
+   against the streaming kernel and on ties across its chunk and tile edges;
+   [icp-stream] the model-streaming ICP kernel,
    one pass and four iterations;
 4. [e2e] a 640x480 scene of three boxes on a table, ray-cast here in numpy,
    through the port's prepare_object and estimate_pose (GT / PCS / LCP) at the
@@ -28,8 +31,10 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    the kernel launch counts of that run must be non-zero;
 5. [scoring] score_refine_pipeline at the benchmark's full shape (16,384
    hypotheses) with the production flags, easy and clutter inputs, the launch
-   counts of one call, both fidelity gates against the exact pipeline, the
-   warm latency and the device-idle share of one call;
+   counts of one call (and, from the profiler's spans, the coarse call's
+   kernel: the hypothesis-block tensor-core filter, once), both fidelity
+   gates against the exact pipeline, the warm latency and the device-idle
+   share of one call;
 6. the large-segment path: [scoring-large] the same pipeline on 4,096-point
    segments, whose exact tier and whose yardstick pipeline take the streaming
    LCP kernel; [e2e-large] the scene again with max_segment_points = 4096,
@@ -47,6 +52,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -278,23 +284,37 @@ def phase_device() -> str:
     return smi
 
 
+# Registers a thread of each kernel the build compiled (ptxas), by its mangled
+# name; filled by phase_build.
+REGISTERS: dict[str, int] = {}
+
+
 def phase_build() -> float:
     from physimglobalpose_tpu_torch import _build
 
     secs = _build.build()
     log(f"[build] {len(_build.KERNEL_SOURCES)} kernel source(s) built in {secs:.2f} s")
     for name, text in _build.BUILD_LOG.items():
-        kernel = spills = ""
+        kernel = full = spills = ""
         for line in text.splitlines():
             if "Compiling entry function" in line:
                 # The mangled name holds the kernel and its template arguments
                 # (Li<tier>E, Lb<weighted>E, Li<model points per thread>E).
-                kernel = line.split("'")[1].split("_GLOBAL__N_", 1)[-1][-60:]
+                full = line.split("'")[1].split("_GLOBAL__N_", 1)[-1]
+                kernel = full[-60:]
             elif "spill" in line:
                 spills = line.strip()
             elif "registers" in line or "smem" in line or "error" in line.lower():
                 log(f"[build] {name}: {kernel}: {line.strip()}; {spills}")
+                used = re.search(r"Used (\d+) registers", line)
+                if used:
+                    REGISTERS[full] = int(used.group(1))
     return secs
+
+
+def registers_of(kernel: str) -> dict[str, int]:
+    """The ptxas register counts of the built kernels whose name holds `kernel`."""
+    return {k: v for k, v in REGISTERS.items() if kernel in k}
 
 
 def check_ragged(tag, rows, tiers, kernels, plain, same_d2, device) -> None:
@@ -637,6 +657,47 @@ def check_hb_cases(device) -> None:
         "lcp_segside_hb": lambda args, weighted, matmul_precision: lcp.lcp_segside_hb(
             *packed_lcp_args(args), weighted, matmul_precision),
     }, lcp.lcp_scores_plain, lambda tier: tier is not None, device)
+    check_hb_band(device)
+
+
+def check_hb_band(device) -> None:
+    """lcp_segside_hb on kernel_inputs.band_inputs, with delta^2 on a row's
+    nearest d2 and one float32 step to either side of it: against plain and
+    lcp_segside, TOL_LCP_SAME_D2 in the "default" tier (the same d2 bits), and
+    there, unweighted, every unit of lcp_segside_hb bit for bit against
+    lcp_segside. (Not against plain: on the card PyTorch divides its count by
+    Nv through a reciprocal, a last-bit difference where Nv is no power of 2.)"""
+    from physimglobalpose_tpu_torch.ops import lcp
+
+    args = kernel_inputs.band_inputs(device)
+    h, nv = args[0].shape[0], args[1].shape[0]
+    for tier in (None, "default"):
+        for side in (0, 1, -1):
+            delta = kernel_inputs.band_delta(args, tier, side)
+            packed = packed_lcp_args(args, delta=delta)
+            for weighted in (False, True):
+                want = lcp.lcp_scores_plain(*args, delta=delta, weighted=weighted,
+                                            matmul_precision=tier)
+                got = lcp.lcp_scores(*args, delta=delta, weighted=weighted, matmul_precision=tier,
+                                     hb_lane_pack=True)
+                k1 = lcp.lcp_segside(*packed, weighted, tier)
+                same = tier is not None
+                tol = TOL_LCP_SAME_D2 if same else TOL_LCP / nv
+                what = f"band side={side} {tier} weighted={weighted}"
+                err = _check_scores("[lcp-hb]", what + " vs plain", got, want, h, tol)
+                err_k1 = _check_scores("[lcp-hb]", what + " vs lcp_segside", got, k1, h, tol)
+                note = ""
+                if same and not weighted:
+                    units = {u: lcp._lcp_segside_hb_on_unit(u, *packed, False, tier) for u in (
+                        lcp._HB_UNIT_CUDA_CORES, lcp._HB_UNIT_TENSOR_CORES)}
+                    units["rule"] = got
+                    differ = [u for u, v in units.items() if not torch.equal(v, k1)]
+                    if differ:
+                        fail(f"[lcp-hb] {what}: units {differ} are not lcp_segside's bits")
+                    note = " (every unit lcp_segside's bits)"
+                log(f"[lcp-hb] {what} H={h} Nv={nv} Ns={args[3].shape[0]} delta^2={delta * delta:.9e}: "
+                    f"vs_plain={err:.3e} vs_lcp_segside={err_k1:.3e} (tol {tol:.1e}){note} "
+                    f"mean_score={float(want.mean()):.4f}")
 
 
 def phase_lcp_hb(device) -> dict:
@@ -681,28 +742,7 @@ def phase_lcp_hb(device) -> dict:
                 if label == "coarse":
                     worst = max(worst, err)
         if label == "coarse":
-            # The scoring path's coarse call: unweighted, "default".
-            kw = dict(weighted=False, matmul_precision="default")
-            packed = packed_lcp_args(args)
-            ms = cuda_time_ms(lambda: lcp.lcp_segside_hb(*packed, False, "default"),
-                              reps=5, inner=20)
-            k1_ms = cuda_time_ms(lambda: lcp.lcp_segside(*packed, False, "default"),
-                                 reps=5, inner=20)
-            w_ms = cuda_time_ms(lambda: lcp.lcp_segside_hb(*packed, True, "default"),
-                                reps=5, inner=20)
-            plain_ms = cuda_time_ms(lambda: lcp.lcp_scores_plain(*args, **kw), reps=2, warmup=1)
-            library_ms = _cdist_scores_ms(args)
-            bound, core_bound = _lcp_bound_ms(h, nv, ns, "default")
-            run = lambda: lcp.lcp_segside_hb(*packed, False, "default")
-            dev_ms = device_ms(run, "lcp_segside_hb_kernel")
-            log(f"[lcp-hb] timed coarse H={h} Nv={nv} Ns={ns} unweighted default: "
-                f"lcp_segside_hb={ms:.4f} ms (weighted {w_ms:.4f} ms; device {dev_ms} ms) "
-                f"lcp_segside={k1_ms:.4f} ms plain={plain_ms:.3f} ms "
-                f"cdist_library={library_ms:.3f} ms; bound={bound:.5f} ms share {bound / ms:.4f} "
-                f"(CUDA cores alone {core_bound:.5f} ms share {core_bound / ms:.3f})")
-            stats = dict(ms=ms, weighted_ms=w_ms, device_ms=dev_ms, lcp_segside_ms=k1_ms,
-                         plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
-                         cuda_core_bound_ms=core_bound, shape=[h, nv, ns])
+            stats = time_hb_coarse(args, h, nv, ns)
     stats["max_abs_err"] = worst
     check_hb_cases(device)
 
@@ -756,6 +796,60 @@ def phase_lcp_hb(device) -> dict:
         cuda_cores_ms=units[1, False], tensor_cores_ms=units[2, False],
         weighted_cuda_cores_ms=units[1, True])
     return stats
+
+
+def time_hb_coarse(args, h, nv, ns) -> dict:
+    """lcp_segside_hb at the scoring path's coarse call (unweighted,
+    "default"): the launcher's unit, which must be the tensor-core filter,
+    beside its CUDA-core unit and kernel 1's tensor-core filter on the same
+    call; the share of rows that walked the band; weighted and float32 calls
+    on the CUDA cores; registers."""
+    from physimglobalpose_tpu_torch.ops import lcp
+
+    if lcp._lcp_segside_hb_unit_for(False, "default") != lcp._HB_UNIT_TENSOR_CORES:
+        fail("[lcp-hb] the coarse call does not take the tensor-core filter")
+    for weighted, tier in ((True, "default"), (False, None), (True, None)):
+        if lcp._lcp_segside_hb_unit_for(weighted, tier) != lcp._HB_UNIT_CUDA_CORES:
+            fail(f"[lcp-hb] a {tier} call (weighted={weighted}) leaves the CUDA cores")
+    packed = packed_lcp_args(args)
+    time = lambda fn: cuda_time_ms(fn, reps=5, inner=20)
+    run = lambda: lcp.lcp_segside_hb(*packed, False, "default")
+    cores = lambda: lcp._lcp_segside_hb_on_unit(lcp._HB_UNIT_CUDA_CORES, *packed, False, "default")
+    ms = time(run)
+    cores_ms = time(cores)
+    k1_tensor_ms = time(
+        lambda: lcp._lcp_segside_on_unit(lcp._UNIT_TENSOR_CORES, *packed, False, "default"))
+    k1_ms = time(lambda: lcp.lcp_segside(*packed, False, "default"))
+    w_ms = time(lambda: lcp.lcp_segside_hb(*packed, True, "default"))
+    fp32_ms = time(lambda: lcp.lcp_segside_hb(*packed, False, None))
+    fp32_w_ms = time(lambda: lcp.lcp_segside_hb(*packed, True, None))
+    dev_ms = device_ms(run, "lcp_segside_hb_mma_kernel")
+    cores_dev_ms = device_ms(cores, "lcp_segside_hb_kernel")
+    band = torch.zeros(1, dtype=torch.int32, device=args[0].device)
+    lcp._lcp_segside_hb_on_unit(lcp._HB_UNIT_TENSOR_CORES, *packed, False, "default",
+                                band_rows=band)
+    band_share = int(band.item()) / (h * nv)
+    plain_ms = cuda_time_ms(lambda: lcp.lcp_scores_plain(
+        *args, weighted=False, matmul_precision="default"), reps=2, warmup=1)
+    library_ms = _cdist_scores_ms(args)
+    bound, core_bound = _lcp_bound_ms(h, nv, ns, "default")
+    regs = registers_of("lcp_segside_hb")
+    log(f"[lcp-hb] timed coarse H={h} Nv={nv} Ns={ns} unweighted default: lcp_segside_hb "
+        f"(tensor-core filter, the launcher's unit) {ms:.4f} ms, device {dev_ms} ms; rows that "
+        f"walked the band {int(band.item())} of {h * nv} ({band_share:.2e}); on the CUDA cores "
+        f"{cores_ms:.4f} ms (device {cores_dev_ms} ms); kernel 1 on this call: tensor-core "
+        f"filter {k1_tensor_ms:.4f} ms, its launcher's unit {k1_ms:.4f} ms; weighted (CUDA "
+        f"cores) {w_ms:.4f} ms; fp32 {fp32_ms:.4f} ms, weighted {fp32_w_ms:.4f} ms; "
+        f"plain={plain_ms:.3f} ms cdist_library={library_ms:.3f} ms; bound={bound:.5f} ms "
+        f"share {bound / ms:.4f} (CUDA cores alone {core_bound:.5f} ms share "
+        f"{core_bound / ms:.3f})")
+    log(f"[lcp-hb] registers (ptxas): {json.dumps(regs)}")
+    return dict(ms=ms, device_ms=dev_ms, band_rows=int(band.item()), band_share=band_share,
+                cuda_cores_ms=cores_ms, cuda_cores_device_ms=cores_dev_ms,
+                lcp_segside_tensor_cores_ms=k1_tensor_ms, lcp_segside_ms=k1_ms,
+                weighted_ms=w_ms, fp32_ms=fp32_ms,
+                fp32_weighted_ms=fp32_w_ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound, cuda_core_bound_ms=core_bound, shape=[h, nv, ns], registers=regs)
 
 
 def device_ms(fn, kernel: str, launches: int = 1, reps: int = 20) -> float | None:
@@ -1091,6 +1185,18 @@ def phase_lcp_wide(device) -> tuple[dict, int]:
                 if label == "coarse_large":
                     worst = max(worst, err)
 
+    # Exact ties that straddle the 32-point chunks inside a 128-point tile and
+    # the tile edge: the first 16 segment points again at rows 20-35, 120-135,
+    # and at 40, 100 and 250.
+    check_ragged("[lcp-wide]", (
+        ("tie_chunks", 63, 16, 512, 300, 6, (20,), dict(ns_tile=tile)),
+        ("tie_tile_edge", 64, 16, 512, 300, 6, (120,), dict(ns_tile=tile)),
+        ("tie_chunks_tiles", 65, 16, 300, 700, 6, (40, 100, 250), dict(ns_tile=tile)),
+    ), (None, "default"), {
+        "lcp_scores_stream_wide": lambda a, **kw: lcp.lcp_scores_stream_wide(*a, **kw),
+        "lcp_scores_stream": lambda a, **kw: lcp.lcp_scores_stream(*a, **kw),
+    }, lcp.lcp_scores_stream_plain, lambda tier: True, device)
+
     # Its path: one direct call at the yardstick's coarse shape (weighted, fp32).
     label, seed, h, nv, ns, masked, _ = cases[0]
     args = lcp_inputs(seed, h, nv, ns, masked, device)
@@ -1109,14 +1215,19 @@ def phase_lcp_wide(device) -> tuple[dict, int]:
     plain_ms = cuda_time_ms(lambda: lcp.lcp_scores_stream_plain(*args, ns_tile=tile),
                             reps=1, warmup=0)
     cdist_ms = _cdist_scores_ms(args)
+    dev_ms = device_ms(lambda: lcp.lcp_stream_wide(*packed, True, None), "lcp_stream_wide_kernel",
+                       reps=3)
     bound, _ = _lcp_bound_ms(h, nv, ns, None)
+    regs = registers_of("lcp_stream_wide")
     log(f"[lcp-wide] path call launches={launches}; timed H={h} Nv={nv} Ns={ns} weighted fp32: "
-        f"lcp_stream_wide={ms:.3f} ms (default {ms_default:.3f} ms, unweighted {ms_unw:.3f} ms) "
-        f"lcp_stream={k4_ms:.3f} ms (unweighted {k4_unw:.3f} ms) plain={plain_ms:.1f} ms "
-        f"cdist_yardstick={cdist_ms:.3f} ms; bound={bound:.4f} ms share {bound / ms:.3f}")
-    stats = dict(max_abs_err=worst, ms=ms, default_ms=ms_default, unweighted_ms=ms_unw,
-                 lcp_stream_ms=k4_ms, lcp_stream_unweighted_ms=k4_unw, plain_ms=plain_ms,
-                 bound_ms=bound, cdist_yardstick_ms=cdist_ms, shape=[h, nv, ns])
+        f"lcp_stream_wide={ms:.3f} ms, device {dev_ms} ms (default {ms_default:.3f} ms, "
+        f"unweighted {ms_unw:.3f} ms) lcp_stream={k4_ms:.3f} ms (unweighted {k4_unw:.3f} ms) "
+        f"plain={plain_ms:.1f} ms cdist_yardstick={cdist_ms:.3f} ms; bound={bound:.4f} ms "
+        f"share {bound / ms:.3f}; registers (ptxas) {json.dumps(regs)}")
+    stats = dict(max_abs_err=worst, ms=ms, device_ms=dev_ms, default_ms=ms_default,
+                 unweighted_ms=ms_unw, lcp_stream_ms=k4_ms, lcp_stream_unweighted_ms=k4_unw,
+                 plain_ms=plain_ms, bound_ms=bound, cdist_yardstick_ms=cdist_ms, shape=[h, nv, ns],
+                 registers=regs)
     return stats, launches
 
 
@@ -1256,6 +1367,8 @@ def phase_scoring(device, large: bool = False) -> tuple[dict, dict]:
                     "lcp_stream": 0, "lcp_stream/fp32": 0}
         if counts != want:
             fail(f"{tag} ({name}): launches {counts}, expected {want}")
+        if not large:
+            check_coarse_span(run, name)
         k = flags["top_k"]
         if (prod.top_transforms.shape != (k, 4, 4) or prod.top_scores.shape != (k,)
                 or prod.coarse_scores.shape != (inputs[0].shape[0],)
@@ -1295,6 +1408,30 @@ def phase_scoring(device, large: bool = False) -> tuple[dict, dict]:
         log(f"{tag} clutter: device busy {busy_ms:.3f} ms of the {wall_ms:.3f} ms warm call: "
             f"idle share {1.0 - busy_ms / wall_ms:.3f} without the profiler")
     return stats, launches
+
+
+def check_coarse_span(run, name: str, tries: int = 3) -> None:
+    """The coarse call of one scoring call, read from the profiler's device
+    spans: exactly one lcp_segside_hb kernel, the tensor-core filter
+    (lcp_segside_hb_mma_kernel). A run whose profile kept no such span (the
+    profiler may drop events) is tried again."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        spans = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and "lcp_segside_hb" in e.name]
+        filters = sum("lcp_segside_hb_mma_kernel" in n for n in spans)
+        if len(spans) != filters or filters > 1:
+            fail(f"[lcp-hb] [scoring] {name}: the coarse call launched {spans}")
+        if filters == 1:
+            log(f"[lcp-hb] [scoring] {name}: the coarse call's device span is the tensor-core "
+                f"filter, once: {spans[0][:80]}")
+            return
+    fail(f"[lcp-hb] [scoring] {name}: no lcp_segside_hb span in {tries} profiled calls")
 
 
 def scene_setup(device, workdir: str) -> dict:
@@ -1492,7 +1629,10 @@ def main() -> int:
         entry("lcp_segside_hb", lcp_src, "physimglobalpose_tpu/ops/lcp.py:543",
               "ops/lcp.py::_lcp_kernel_segside_hb", scoring_launches["lcp_segside_hb"], hb_stats,
               library_ms=hb_stats["library_ms"],
-              **{k: hb_stats[k] for k in ("shape", "weighted_ms", "device_ms")}),
+              **{k: hb_stats[k] for k in (
+                  "shape", "weighted_ms", "device_ms", "band_share", "cuda_cores_ms",
+                  "cuda_cores_device_ms", "lcp_segside_tensor_cores_ms", "fp32_ms",
+                  "registers")}),
         # ms: H 256 x Nm 512 x Ns 512 ([scoring]); ns2048: the pass [scoring-large]
         # launches icp_iters times a call.
         entry("icp_corr_segside", "physimglobalpose_tpu_torch/csrc/icp_corr_segside.cu",
@@ -1516,8 +1656,9 @@ def main() -> int:
               cdist_yardstick_ms=icp_stream_stats["cdist_yardstick_ms"]),
         entry("lcp_stream_wide", stream_src, "scripts/lcp_wide_kernel_experiment.py:42",
               "scripts/lcp_wide_kernel_experiment.py::_lcp_kernel_wide", wide_launches,
-              wide_stats, shape=wide_stats["shape"],
-              cdist_yardstick_ms=wide_stats["cdist_yardstick_ms"]),
+              wide_stats, **{k: wide_stats[k] for k in (
+                  "shape", "cdist_yardstick_ms", "device_ms", "default_ms", "unweighted_ms",
+                  "registers")}),
     ]
     for k in kernels:
         if k["launches"] <= 0:

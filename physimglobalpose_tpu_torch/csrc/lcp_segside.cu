@@ -11,7 +11,9 @@
 //       physimglobalpose_tpu/ops/lcp.py::_lcp_kernel_segside_hb
 //     (a group of hypotheses per block, tiers fp32 / "default"; whole-model and
 //     model-tiled modes of the TPU kernel are one loop over model tiles here)
-//     with lcp_segside_hb_kernel.
+//     with lcp_segside_hb_mma_kernel for the unweighted "default" tier (the
+//     coarse ranking call), which finds the candidates on the tensor cores,
+//     and with lcp_segside_hb_kernel on the CUDA cores for the rest.
 //
 // For each hypothesis (R, t) and each model point m_i, u_i = R m_i + t; the
 // nearest segment point j* minimises
@@ -84,11 +86,18 @@
 //    above (its own note below), so the scores are the same bits on either
 //    unit. A weighted variant of it measured slower than the chunk scan at
 //    every shape (PERF.md) and is not built;
-//  - lcp_segside_hb_kernel gives a thread one model point under kSlots
-//    hypotheses, which it scans against the whole staged segment;
+//  - lcp_segside_hb_kernel gives a thread one model point under kHbSlots = 4
+//    hypotheses of its block's group (two groups of threads a block) and runs
+//    lcp_segside_kernel's scans on them: the running minimum alone, and when
+//    weighted the chunk mask and the attributes after the scan (no per-pair
+//    branch). The scan it replaced held 8 hypotheses a thread and branched per
+//    pair: 171 registers unweighted and 224 / 228 weighted, one block an SM;
+//  - lcp_segside_hb_mma_kernel (unweighted "default"): lcp_segside_mma_kernel's
+//    filter for a hypothesis group (its own note below);
 //  - per-hypothesis sums are a warp-shuffle tree and a fixed-order sum: no
 //    atomics, so scores are deterministic.
-// TMA and wgmma are not used here: K is 8 or 16, one mma.sync deep.
+// TMA and wgmma are not used here: K is 8 or 16, one mma.sync deep, and the
+// operands of a tile are built by the block itself, not copied.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -96,9 +105,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;     // lcp_segside_hb_kernel; the most lcp_segside_kernel takes
-constexpr int kSlots = 8;         // lcp_segside_hb_kernel: hypotheses a thread holds its point under
-constexpr int kHypGroup = kSlots; // lcp_segside_hb_kernel: hypotheses a block takes together
+constexpr int kThreads = 256;     // the hypothesis-block kernels; the most lcp_segside_kernel takes
+constexpr int kHypGroup = 8;      // the hypothesis-block kernels: hypotheses a block takes together
+constexpr int kHbSlots = 4;       // lcp_segside_hb_kernel: hypotheses a thread holds its point under
 constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 32;        // lcp_segside_kernel: segment points a chunk of the weighted scan
 constexpr int kItemsPerWarp = 4;  // the warp-item kernels: items a warp takes in a large call
@@ -119,14 +128,15 @@ __device__ __forceinline__ float dot3_rn(float a, float x, float b, float y, flo
 }
 
 // One (hypothesis, model point) pair: the model-side operands of the d2
-// product per tier, the rotated normal, and the running nearest state.
+// product per tier, the rotated normal (set where a weighted score needs it),
+// and the running nearest d2.
 struct Slot {
   float ax, ay, az;  // -2u: fp32 | bf16(-2u) | hi part
   float lx, ly, lz;  // "high3" only: lo part of -2u
   float uq;          // |u|^2: fp32 | bf16 | hi + lo
   float uql;         // "high3" only: lo part of |u|^2 (the hi part is uq - uql)
   float nx, ny, nz;  // R n: fp32 | bf16 | fp32 (split where it is used)
-  float best, pb, ab;
+  float best;
 };
 
 // R n as the normal dot of the tier takes it.
@@ -141,9 +151,8 @@ __device__ __forceinline__ void rotate_normal(Slot& s, const float* r, float mnx
   }
 }
 
-template <int kTier, bool kWeighted>
-__device__ __forceinline__ void make_slot(Slot& s, const float* r, float mx, float my,
-                                          float mz, float mnx, float mny, float mnz) {
+template <int kTier>
+__device__ __forceinline__ void make_slot(Slot& s, const float* r, float mx, float my, float mz) {
   const float ux = __fadd_rn(dot3_rn(r[0], mx, r[1], my, r[2], mz), r[3]);
   const float uy = __fadd_rn(dot3_rn(r[4], mx, r[5], my, r[6], mz), r[7]);
   const float uz = __fadd_rn(dot3_rn(r[8], mx, r[9], my, r[10], mz), r[11]);
@@ -161,11 +170,6 @@ __device__ __forceinline__ void make_slot(Slot& s, const float* r, float mx, flo
     s.uq = __fadd_rn(uh, s.uql);
   }
   s.best = INFINITY;
-  if constexpr (kWeighted) {
-    rotate_normal<kTier>(s, r, mnx, mny, mnz);
-    s.pb = 0.f;
-    s.ab = 0.f;
-  }
 }
 
 // Shared memory: [Ns] positions, then [Ns] lo parts ("high3"), then [Ns]
@@ -249,48 +253,6 @@ __device__ __forceinline__ float pair_d2(const float4& s, const float4& l, const
     d = fmaf(s.x, q.ax, fmaf(s.y, q.ay, fmaf(s.z, q.az, d)));
   }
   return d;
-}
-
-// lcp_segside_hb_kernel's scan: every slot against every segment point, the
-// running nearest d2 and, when weighted, the prob and |ndot| of the nearest
-// (max over exact ties), updated per pair.
-template <int kTier, bool kWeighted>
-__device__ __forceinline__ void scan_segment(Slot (&slot)[kSlots], const float4* s_pos,
-                                             const float4* s_nrm, int Ns) {
-  for (int j = 0; j < Ns; ++j) {
-    const float4 s = s_pos[j];
-#pragma unroll
-    for (int k = 0; k < kSlots; ++k) {
-      Slot& q = slot[k];
-      const float d = pair_d2<kTier>(s, make_float4(0.f, 0.f, 0.f, 0.f), q);
-      if constexpr (kWeighted) {
-        if (d <= q.best) {
-          const float4 n = s_nrm[j];
-          const float nd = normal_dot<kTier>(n, q);
-          if (d < q.best) {
-            q.best = d;
-            q.pb = n.w;
-            q.ab = nd;
-          } else {
-            q.pb = fmaxf(q.pb, n.w);
-            q.ab = fmaxf(q.ab, nd);
-          }
-        }
-      } else {
-        q.best = fminf(q.best, d);
-      }
-    }
-  }
-}
-
-template <bool kWeighted>
-__device__ __forceinline__ float contribution(const Slot& s, float delta2, float cos_gate) {
-  if (!(s.best <= delta2)) return 0.f;
-  if constexpr (kWeighted) {
-    return (s.ab >= cos_gate) ? s.pb : 0.f;
-  } else {
-    return 1.f;
-  }
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -431,7 +393,7 @@ lcp_segside_kernel(LCP_KERNEL_ARGS, float* __restrict__ partial /* [H, n_mtiles]
       for (int k = 0; k < kS; ++k) {
         float mx, my, mz;
         load_point(model_pts, base + k * 32, Nv, mx, my, mz);
-        make_slot<kTier, false>(slot[k], rr, mx, my, mz, 0.f, 0.f, 0.f);
+        make_slot<kTier>(slot[k], rr, mx, my, mz);
       }
     }
 
@@ -599,6 +561,46 @@ __device__ __forceinline__ void mma_d2(float (&d)[4], const unsigned* a, const u
   }
 }
 
+// The filter's margin for model points with |u|^2 <= uq: more than twice the
+// most the two sums can differ for a pair whose d2 is within delta^2. There
+// |s| <= |u| + delta, and every partial sum of either order is at most the sum
+// of the terms' sizes, |s|^2 + |u|^2 + 2 |s| |u| = (|s| + |u|)^2 <=
+// (2 |u| + delta)^2 =: M. Each sum rounds (or truncates) at most K + 2 times
+// ("default", K = 5) or K + 5 times ("high3", K = 13, with the hi + lo of
+// |u|^2 and |s|^2) by one ulp <= 2^-23 M: 14 and 36 ulp for the two sums, 28
+// and 72 twice, under the 32 and 96 taken. The margin also covers the tier's
+// own rounding of the operands to bf16 (|s|^2 and |u|^2 each within 2^-8 of
+// the rounded points' own), which lets |s| pass |u| + delta by up to |u| / 11:
+// under 10 % of M, against the 14 % left. A pair further off than
+// delta^2 + eps never decides a score, whatever its error.
+template <int kTier>
+__device__ __forceinline__ float filter_eps(float uq, float delta2) {
+  const float reach = 2.f * sqrtf(uq) + sqrtf(delta2);
+  return (kTier == kHigh3 ? 96.f : 32.f) * 1.1920929e-7f * reach * reach;
+}
+
+// The filter after a chunk whose smallest d2 on this lane's columns is cm:
+// the running minimum, and a mask of the chunks whose minimum came within eps
+// of it (a chunk more than eps under it resets the mask).
+__device__ __forceinline__ void filter_chunk(float cm, float& best, unsigned& hits,
+                                             unsigned bit, float eps) {
+  const unsigned joined = (cm <= best + eps) ? (hits | bit) : hits;
+  hits = (cm < best - eps) ? bit : joined;
+  best = fminf(best, cm);
+}
+
+// The four lanes of a row (lane / 4): the smallest of their minima, and the
+// chunks of the lanes that came near it.
+__device__ __forceinline__ void filter_merge_quad(float& best, unsigned& hits, float eps) {
+  float low = fminf(best, __shfl_xor_sync(0xffffffffu, best, 1));
+  low = fminf(low, __shfl_xor_sync(0xffffffffu, low, 2));
+  unsigned mask = (best <= low + eps) ? hits : 0u;
+  mask |= __shfl_xor_sync(0xffffffffu, mask, 1);
+  mask |= __shfl_xor_sync(0xffffffffu, mask, 2);
+  best = low;
+  hits = mask;
+}
+
 // Word of lane `src`'s array chosen by this lane's t: w[t] (offset 0) or
 // w[t + 4] (offset 4); words from 3 ("default") or 7 ("high3") on are zero.
 template <int kTier>
@@ -653,7 +655,7 @@ lcp_segside_mma_kernel(LCP_KERNEL_ARGS, float* __restrict__ partial /* [H, n_mti
         Slot q;
         float mx, my, mz;
         load_point(model_pts, base + (t + 4 * (o >> 1)) * 16 + g + 8 * (o & 1), Nv, mx, my, mz);
-        make_slot<kTier, false>(q, rr, mx, my, mz, 0.f, 0.f, 0.f);
+        make_slot<kTier>(q, rr, mx, my, mz);
         model_words<kTier>(q, w[o]);
         uq_max = fmaxf(uq_max, q.uq);
       }
@@ -672,20 +674,7 @@ lcp_segside_mma_kernel(LCP_KERNEL_ARGS, float* __restrict__ partial /* [H, n_mti
     for (int off = 16; off > 0; off >>= 1) {
       uq_max = fmaxf(uq_max, __shfl_xor_sync(0xffffffffu, uq_max, off));
     }
-    // More than twice the most the two sums can differ for a pair whose d2 is
-    // within delta^2. There |s| <= |u| + delta, and every partial sum of either
-    // order is at most the sum of the terms' sizes, |s|^2 + |u|^2 + 2 |s| |u| =
-    // (|s| + |u|)^2 <= (2 |u| + delta)^2 =: M. Each sum rounds (or truncates) at
-    // most K + 2 times ("default", K = 5) or K + 5 times ("high3", K = 13, with
-    // the hi + lo of |u|^2 and |s|^2) by one ulp <= 2^-23 M: 14 and 36 ulp for
-    // the two sums, 28 and 72 twice, under the 32 and 96 taken. The margin also
-    // covers the tier's own rounding of the operands to bf16 (|s|^2 and |u|^2
-    // each within 2^-8 of the rounded points' own), which lets |s| pass
-    // |u| + delta by up to |u| / 11: under 10 % of M, against the 14 % left. A
-    // pair further off than delta^2 + eps never decides a score, whatever its
-    // error.
-    const float reach = 2.f * sqrtf(uq_max) + sqrtf(delta2);
-    const float eps = (kTier == kHigh3 ? 96.f : 32.f) * 1.1920929e-7f * reach * reach;
+    const float eps = filter_eps<kTier>(uq_max, delta2);
 
     // The filter: per row the smallest d2 this lane saw and the chunks near it.
     float best[2 * kRowTiles];
@@ -720,24 +709,10 @@ lcp_segside_mma_kernel(LCP_KERNEL_ARGS, float* __restrict__ partial /* [H, n_mti
       }
       const unsigned bit = 1u << (c / kMmaChunk);
 #pragma unroll
-      for (int k = 0; k < 2 * kRowTiles; ++k) {
-        const unsigned joined = (cm[k] <= best[k] + eps) ? (hits[k] | bit) : hits[k];
-        hits[k] = (cm[k] < best[k] - eps) ? bit : joined;
-        best[k] = fminf(best[k], cm[k]);
-      }
+      for (int k = 0; k < 2 * kRowTiles; ++k) filter_chunk(cm[k], best[k], hits[k], bit, eps);
     }
-    // The four lanes of a row: the smallest of their minima, and the chunks
-    // of the lanes that came near it.
 #pragma unroll
-    for (int k = 0; k < 2 * kRowTiles; ++k) {
-      float low = fminf(best[k], __shfl_xor_sync(0xffffffffu, best[k], 1));
-      low = fminf(low, __shfl_xor_sync(0xffffffffu, low, 2));
-      unsigned mask = (best[k] <= low + eps) ? hits[k] : 0u;
-      mask |= __shfl_xor_sync(0xffffffffu, mask, 1);
-      mask |= __shfl_xor_sync(0xffffffffu, mask, 2);
-      best[k] = low;
-      hits[k] = mask;
-    }
+    for (int k = 0; k < 2 * kRowTiles; ++k) filter_merge_quad(best[k], hits[k], eps);
 
     // The exact pass, on this lane's own four model points.
     float acc = 0.f;
@@ -763,7 +738,7 @@ lcp_segside_mma_kernel(LCP_KERNEL_ARGS, float* __restrict__ partial /* [H, n_mti
         load_pose(tr, h, rr);
         float mx, my, mz;
         load_point(model_pts, i, Nv, mx, my, mz);
-        make_slot<kTier, false>(q, rr, mx, my, mz, 0.f, 0.f, 0.f);
+        make_slot<kTier>(q, rr, mx, my, mz);
       }
       for (; mask != 0u; mask &= mask - 1u) {
         const int c = (__ffs(mask) - 1) * kMmaChunk;
@@ -803,64 +778,314 @@ __global__ void lcp_segside_finish_kernel(const float* __restrict__ partial,
 // Does nothing: what a launch costs on this card (timed beside the kernels).
 __global__ void lcp_empty_kernel() {}
 
-// ---- lcp_segside_hb_kernel: kHypGroup hypotheses a block; a thread holds one
-// model point under each of them and scans the whole staged segment, walking
-// the model in tiles of kThreads points (the TPU kernel's whole-model and
-// model-tiled modes are this one loop).
+// The hypothesis group's poses in shared memory; a ragged last group scores
+// the last hypothesis again in its idle slots and writes nothing for them.
+__device__ __forceinline__ void stage_group_poses(const float* __restrict__ tr, float* s_tr,
+                                                  int h0, int H) {
+  for (int c = threadIdx.x; c < kHypGroup * 12; c += blockDim.x) {
+    s_tr[c] = tr[12 * min(h0 + c / 12, H - 1) + c % 12];
+  }
+}
+
+// ---- lcp_segside_hb_kernel: kHypGroup hypotheses a block on the CUDA cores.
+// A thread holds one model point under kHbSlots of them (kHypGroup / kHbSlots
+// groups of threads) and scans the whole staged segment with
+// lcp_segside_kernel's scans, walking the model in tiles (the TPU kernel's
+// whole-model and model-tiled modes are this one loop).
 template <int kTier, bool kWeighted>
 __global__ void __launch_bounds__(kThreads) lcp_segside_hb_kernel(LCP_KERNEL_ARGS) {
-  static_assert(kTier != kHigh3, "the hypothesis-block kernel has no high3 tier");
+  static_assert(kTier != kHigh3, "the hypothesis-block kernels have no high3 tier");
+  constexpr int kS = kHbSlots;
+  constexpr int kGroups = kHypGroup / kS;
+  constexpr int kPts = kThreads / kGroups;  // model points of a tile
+  constexpr int kGroupWarps = kPts / 32;
   extern __shared__ float4 smem[];
-  float4* s_pos = smem;      // [Ns]
-  float4* s_nrm = smem + Ns; // [Ns] normal + prob (weighted)
+  const int Nsp = (Ns + kChunk - 1) / kChunk * kChunk;
+  float4* s_pos = smem;        // [Nsp]
+  float4* s_nrm = smem + Nsp;  // [Nsp] normal + prob (weighted)
   __shared__ float s_tr[kHypGroup * 12];
-  __shared__ float s_warp[kHypGroup][kWarps];
+  __shared__ float s_warp[kHypGroup][kGroupWarps];
 
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31;
   const int h0 = static_cast<int>(blockIdx.x) * kHypGroup;
-  for (int j = tid; j < Ns; j += kThreads) {
-    stage_segment_point<kTier, kWeighted>(seg, s_pos, nullptr, s_nrm, j);
-  }
-  if (tid < kHypGroup * 12) {
-    // A ragged last group scores the last hypothesis again in its idle slots.
-    const int h = min(h0 + tid / 12, H - 1);
-    s_tr[tid] = tr[12 * h + tid % 12];
-  }
+  stage_segment_chunks<kTier, kWeighted>(seg, s_pos, nullptr, s_nrm, Ns, Nsp);
+  stage_group_poses(tr, s_tr, h0, H);
   __syncthreads();
 
-  float acc[kSlots];
+  const int grp = tid / kPts;
+  const float* r = s_tr + 12 * kS * grp;
+  float acc[kS];
 #pragma unroll
-  for (int k = 0; k < kSlots; ++k) acc[k] = 0.f;
+  for (int k = 0; k < kS; ++k) acc[k] = 0.f;
 
-  for (int base = 0; base < Nv; base += kThreads) {
-    const int i = base + tid;
-    float mx, my, mz, mnx = 0.f, mny = 0.f, mnz = 0.f;
+  for (int base = 0; base < Nv; base += kPts) {
+    const int i = base + tid % kPts;
+    float mx, my, mz;
     load_point(model_pts, i, Nv, mx, my, mz);
-    if constexpr (kWeighted) load_point(model_nrm, i, Nv, mnx, mny, mnz);
-    Slot slot[kSlots];
+    Slot slot[kS];
 #pragma unroll
-    for (int k = 0; k < kSlots; ++k) {
-      make_slot<kTier, kWeighted>(slot[k], s_tr + 12 * k, mx, my, mz, mnx, mny, mnz);
-    }
-    scan_segment<kTier, kWeighted>(slot, s_pos, s_nrm, Ns);
-    if (i < Nv) {
+    for (int k = 0; k < kS; ++k) make_slot<kTier>(slot[k], r + 12 * k, mx, my, mz);
+    if constexpr (kWeighted) {
+      unsigned hit[kS];
 #pragma unroll
-      for (int k = 0; k < kSlots; ++k) acc[k] += contribution<kWeighted>(slot[k], delta2, cos_gate);
+      for (int k = 0; k < kS; ++k) hit[k] = 0u;
+      scan_nearest_chunks<kTier, kS>(slot, hit, s_pos, nullptr, Nsp);
+      if (i < Nv) {
+        float mnx, mny, mnz;
+        load_point(model_nrm, i, Nv, mnx, mny, mnz);
+#pragma unroll
+        for (int k = 0; k < kS; ++k) {
+          if (slot[k].best <= delta2) {
+            rotate_normal<kTier>(slot[k], r + 12 * k, mnx, mny, mnz);
+            acc[k] += nearest_attributes<kTier>(slot[k], hit[k], lane, s_pos, nullptr, s_nrm, Ns,
+                                                Nsp, cos_gate);
+          }
+        }
+      }
+    } else {
+      scan_nearest<kTier, kS>(slot, s_pos, nullptr, Nsp);
+      if (i < Nv) {
+#pragma unroll
+        for (int k = 0; k < kS; ++k) acc[k] += slot[k].best <= delta2 ? 1.f : 0.f;
+      }
     }
   }
 
-  // Per hypothesis: warp shuffle tree, then warp partials in order.
+  // Per hypothesis: warp shuffle tree, then the group's warp partials in order.
 #pragma unroll
-  for (int k = 0; k < kSlots; ++k) {
+  for (int k = 0; k < kS; ++k) {
     const float v = warp_sum(acc[k]);
-    if ((tid & 31) == 0) s_warp[k][tid >> 5] = v;
+    if (lane == 0) s_warp[kS * grp + k][(tid % kPts) >> 5] = v;
   }
   __syncthreads();
   if (tid < kHypGroup && h0 + tid < H) {
     float total = 0.f;
-    for (int w = 0; w < kWarps; ++w) total += s_warp[tid][w];
+    for (int w = 0; w < kGroupWarps; ++w) total += s_warp[tid][w];
     out[h0 + tid] = total / static_cast<float>(Nv);
   }
+}
+
+// ---- lcp_segside_hb_mma_kernel: the unweighted "default" tier of a
+// hypothesis group with d2 on the tensor cores.
+//
+// lcp_segside_mma_kernel's filter (its note above: the same K = 5 words of
+// model_words and stage_segment_mma, the same margin filter_eps, taken here
+// per model point from its own |u|^2), laid out for a group: the rows are
+// (hypothesis, model point), kHypGroup x kHbPts of them per model tile, in
+// row tiles of 16 points of one hypothesis; warp w takes the kHbPts / 16 row
+// tiles of hypothesis w, kHbStep at a time, so each B word read from shared
+// memory feeds kHbStep mma.sync. Per model tile every thread makes the slots
+// of one model point under the group's hypotheses with make_slot's
+// instructions, hence the chain's bf16 words, and stores them in A-fragment
+// order (hb_slot keeps those stores on 32 banks): a row tile is then one
+// 8-byte read a lane, with no shuffles (kernel 1 builds its fragments per
+// item with quad shuffles, the set-up that made its filter lose at small
+// segments). The segment's B fragments are staged once a block. Per column
+// tile of 8 segment points: one mma.sync.m16n8k8 a row tile and four integer
+// mins a lane on the d2 bits into the rows' running minima (two chains a row;
+// hb_min); a segment of one chunk (Ns <= 256, the coarse call) keeps no chunk
+// mask.
+// Afterwards, per row: a filtered minimum under delta^2 - eps is an inlier,
+// one over delta^2 + eps an outlier; a row in between (the band) walks the
+// chunks of kHbChunk points whose minimum came within eps of it with the
+// exact chain pair_d2, the row's four lanes a quarter of each chunk, and
+// takes the exact minimum: the scores are those of the CUDA-core kernels and
+// the plain version, bit for bit (the terms are 0 or 1, so the count is exact
+// in any order). band_rows, when given, counts the rows that walked.
+// What bounds it: one min a pair on the CUDA cores, beside the tensor cores'
+// K = 8 products (PERF.md counts both). Tuning builds that held the first
+// chunk's B fragments in 32 registers, took one or four row tiles a step, or
+// ran 1, 2 or 4 blocks an SM were no faster at the coarse call;
+// ptxas gives this one 79 registers (launch bound: 3 blocks an SM).
+
+constexpr int kHbPts = kThreads;      // model points of a tile: 16 row tiles a warp
+constexpr int kHbChunk = 256;         // segment points a chunk of the mask
+constexpr int kHbStep = 2;            // row tiles a warp takes at a time
+
+// Where lane L's A fragment lies in row tile rt: a permutation of the lanes
+// that puts the set-up's stores (a thread writes the four words of one row)
+// on 32 different banks; a lane's 8-byte read stays one of 32 distinct slots.
+__device__ __forceinline__ int hb_slot(int rt, int lane) {
+  return lane ^ (((lane >> 4) & 1) | ((rt & 1) << 1));
+}
+
+// The filter's minimum of a chunk from the integer minimum of its d2 bits:
+// max(float minimum, 0). For d2 >= 0 the signed-integer order of the bits is
+// the float order, and every negative d2 (-0 included) sorts below every
+// positive one, so clamping the integer minimum at 0 gives max(min, 0)
+// exactly. (The integer min measured faster than fminf here, PERF.md.) The
+// filter works on these clamped minima unchanged: max(x, 0) is monotone and
+// moves no value by more than it moves the smallest, so a chunk within eps of
+// the row's minimum stays within eps, and a clamped minimum under
+// delta^2 - eps or over delta^2 + eps decides the row as the unclamped one
+// would (a row whose minimum is negative is an inlier or walks the band).
+__device__ __forceinline__ float hb_min(int bits) { return __int_as_float(max(bits, 0)); }
+
+__global__ void __launch_bounds__(kThreads, 3)
+lcp_segside_hb_mma_kernel(LCP_KERNEL_ARGS, unsigned* __restrict__ band_rows) {
+  static_assert(kHbPts == kThreads && kHypGroup == kWarps, "a thread per model point, a warp per hypothesis");
+  constexpr int kTiles = kHbPts / 16;  // row tiles of one hypothesis in a model tile
+  static_assert(kTiles % kHbStep == 0, "a warp takes its row tiles kHbStep at a time");
+  extern __shared__ float4 smem[];
+  const int Nsp = (Ns + kHbChunk - 1) / kHbChunk * kHbChunk;
+  float4* s_pos = smem;                                                      // [Nsp]
+  unsigned* s_b = reinterpret_cast<unsigned*>(smem + Nsp);                   // [Nsp / 8][32]
+  uint2* s_a = reinterpret_cast<uint2*>(s_b + 4 * Nsp);                      // [kHypGroup * kTiles][32]
+  float* s_eps = reinterpret_cast<float*>(s_a + kHypGroup * kTiles * 32);    // [kHypGroup * kHbPts]
+  __shared__ float s_tr[kHypGroup * 12];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int h0 = static_cast<int>(blockIdx.x) * kHypGroup;
+  stage_segment_mma<kBf16>(seg, s_pos, nullptr, s_b, Ns, Nsp);
+  stage_group_poses(tr, s_tr, h0, H);
+  __syncthreads();
+
+  const float* r = s_tr + 12 * warp;  // this warp's hypothesis
+  const bool one_chunk = Nsp == kHbChunk;
+  float count = 0.f;
+  unsigned walked = 0u;
+  for (int base = 0; base < Nv; base += kHbPts) {
+    if (base > 0) __syncthreads();  // the previous tile's fragments are read
+    {
+      // Thread tid makes row (k, tid) of every hypothesis k: row tile
+      // k * kTiles + tid / 16, row tid % 16 = g' + 8 * half, whose word w goes
+      // to lane 4 g' + w, half `half` of the lane's pair.
+      float mx, my, mz;
+      load_point(model_pts, base + tid, Nv, mx, my, mz);
+      const int rr = tid & 15, rt0 = tid >> 4;
+#pragma unroll
+      for (int k = 0; k < kHypGroup; ++k) {
+        Slot q;
+        make_slot<kBf16>(q, s_tr + 12 * k, mx, my, mz);
+        unsigned w[7];
+        model_words<kBf16>(q, w);
+        const int rt = k * kTiles + rt0;
+        unsigned* d = reinterpret_cast<unsigned*>(s_a + rt * 32) + (rr >> 3);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) d[2 * hb_slot(rt, 4 * (rr & 7) + c)] = c < 3 ? w[c] : 0u;
+        s_eps[k * kHbPts + tid] = filter_eps<kBf16>(q.uq, delta2);
+      }
+    }
+    __syncthreads();
+
+    for (int tile = 0; tile < kTiles; tile += kHbStep) {
+      // Rows k = 2 q + h: (tile + q, g + 8 h).
+      unsigned a[kHbStep][2];
+      float eps[2 * kHbStep], best[2 * kHbStep];
+      unsigned hits[2 * kHbStep];
+#pragma unroll
+      for (int q = 0; q < kHbStep; ++q) {
+        const int rt = warp * kTiles + tile + q;
+        const uint2 av = s_a[rt * 32 + hb_slot(rt, lane)];
+        a[q][0] = av.x;
+        a[q][1] = av.y;
+        eps[2 * q] = s_eps[warp * kHbPts + (tile + q) * 16 + g];
+        eps[2 * q + 1] = s_eps[warp * kHbPts + (tile + q) * 16 + g + 8];
+      }
+#pragma unroll
+      for (int k = 0; k < 2 * kHbStep; ++k) {
+        best[k] = INFINITY;
+        hits[k] = 0u;
+      }
+      for (int c = 0; c < Nsp; c += kHbChunk) {
+        // Two running minima a row (even and odd column tiles), for
+        // independent chains, taken on the float bits as signed integers (see
+        // hb_min): +inf to start.
+        int cm[2][2 * kHbStep];
+#pragma unroll
+        for (int k = 0; k < 2 * kHbStep; ++k) cm[0][k] = cm[1][k] = 0x7f800000;
+        auto column = [&](unsigned b, int p) {
+#pragma unroll
+          for (int q = 0; q < kHbStep; ++q) {
+            float d[4];
+            mma_d2<kBf16>(d, a[q], &b);
+            cm[p][2 * q] = min(cm[p][2 * q], min(__float_as_int(d[0]), __float_as_int(d[1])));
+            cm[p][2 * q + 1] = min(cm[p][2 * q + 1], min(__float_as_int(d[2]), __float_as_int(d[3])));
+          }
+        };
+        // Column tiles past the segment hold only padding: a short segment
+        // skips them.
+        const int n_end = min(kHbChunk / 8, (Ns - c + 7) >> 3);
+        const unsigned* b_chunk = s_b + (c >> 3) * 32 + lane;
+        if (n_end == kHbChunk / 8) {
+#pragma unroll
+          for (int n = 0; n < kHbChunk / 8; ++n) column(b_chunk[n * 32], n & 1);
+        } else {
+#pragma unroll 4
+          for (int n = 0; n < n_end; ++n) column(b_chunk[n * 32], 0);
+        }
+        float chunk_min[2 * kHbStep];
+#pragma unroll
+        for (int k = 0; k < 2 * kHbStep; ++k) chunk_min[k] = hb_min(min(cm[0][k], cm[1][k]));
+        if (one_chunk) {
+#pragma unroll
+          for (int k = 0; k < 2 * kHbStep; ++k) {
+            best[k] = chunk_min[k];
+            hits[k] = 1u;
+          }
+        } else {
+          const unsigned bit = 1u << ((c / kHbChunk) & 31);
+#pragma unroll
+          for (int k = 0; k < 2 * kHbStep; ++k) filter_chunk(chunk_min[k], best[k], hits[k], bit, eps[k]);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 2 * kHbStep; ++k) {
+        if (one_chunk) {
+          best[k] = fminf(best[k], __shfl_xor_sync(0xffffffffu, best[k], 1));
+          best[k] = fminf(best[k], __shfl_xor_sync(0xffffffffu, best[k], 2));
+        } else {
+          filter_merge_quad(best[k], hits[k], eps[k]);
+        }
+      }
+
+      bool in[2 * kHbStep], band[2 * kHbStep], any_band = false;
+#pragma unroll
+      for (int k = 0; k < 2 * kHbStep; ++k) {
+        in[k] = best[k] < delta2 - eps[k];
+        band[k] = !in[k] && best[k] <= delta2 + eps[k];
+        any_band |= band[k];
+      }
+      if (__any_sync(0xffffffffu, any_band)) {
+#pragma unroll
+        for (int k = 0; k < 2 * kHbStep; ++k) {
+          float low = INFINITY;
+          if (band[k]) {
+            float mx, my, mz;
+            load_point(model_pts, base + (tile + (k >> 1)) * 16 + g + 8 * (k & 1), Nv, mx, my, mz);
+            Slot q;
+            make_slot<kBf16>(q, r, mx, my, mz);
+            for (unsigned mask = hits[k]; mask != 0u; mask &= mask - 1u) {
+              const int c = (__ffs(mask) - 1) * kHbChunk;
+              for (int jj = t; jj < kHbChunk; jj += 4) {
+                low = fminf(low, pair_d2<kBf16>(s_pos[c + jj], make_float4(0.f, 0.f, 0.f, 0.f), q));
+              }
+            }
+          }
+          low = fminf(low, __shfl_xor_sync(0xffffffffu, low, 1));
+          low = fminf(low, __shfl_xor_sync(0xffffffffu, low, 2));
+          in[k] = in[k] || (band[k] && low <= delta2);
+        }
+      }
+      // Lane t = 0 of each row counts it.
+      if (t == 0) {
+#pragma unroll
+        for (int k = 0; k < 2 * kHbStep; ++k) {
+          const bool real = base + (tile + (k >> 1)) * 16 + g + 8 * (k & 1) < Nv;
+          count += real && in[k] ? 1.f : 0.f;
+          walked += real && band[k] ? 1u : 0u;
+        }
+      }
+    }
+  }
+
+  count = warp_sum(count);
+  if (band_rows != nullptr) {
+    for (int off = 16; off > 0; off >>= 1) walked += __shfl_down_sync(0xffffffffu, walked, off);
+    if (lane == 0 && h0 + warp < H) atomicAdd(band_rows, walked);
+  }
+  if (lane == 0 && h0 + warp < H) out[h0 + warp] = count / static_cast<float>(Nv);
 }
 
 // Model points per thread of lcp_segside_kernel: the largest of 8, 4, 2 that
@@ -977,13 +1202,39 @@ int launch(int unit, LCP_LAUNCH_ARGS) {
 #undef LCP_ITEMS
 }
 
+// Which of the hypothesis-block kernels a call takes.
+constexpr int kHbUnitRule = 0;    // hb_rule_takes_tensor below
+constexpr int kHbUnitCores = 1;   // lcp_segside_hb_kernel
+constexpr int kHbUnitTensor = 2;  // lcp_segside_hb_mma_kernel (unweighted "default" only)
+
+// The tensor-core filter takes the unweighted "default" tier, the coarse
+// ranking call (PERF.md: faster than either CUDA-core variant there); weighted
+// and float32 calls stay on the CUDA cores.
+bool hb_rule_takes_tensor(int tier, bool weighted) { return tier == kBf16 && !weighted; }
+
 template <int kTier, bool kWeighted>
-int launch_hb(const float* tr, const float* model_pts, const float* model_nrm, const float4* seg4,
-              float* out, int H, int Nv, int Ns, float delta2, float cos_gate, cudaStream_t st) {
+int launch_hb(int unit, const float* tr, const float* model_pts, const float* model_nrm,
+              const float4* seg4, float* out, unsigned* band_rows, int H, int Nv, int Ns,
+              float delta2, float cos_gate, cudaStream_t st) {
   if constexpr (kTier == kHigh3) {
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
-    const int smem = Ns * static_cast<int>(sizeof(float4)) * (kWeighted ? 2 : 1);
+    if (unit == kHbUnitRule) unit = hb_rule_takes_tensor(kTier, kWeighted) ? kHbUnitTensor : kHbUnitCores;
+    if (unit == kHbUnitTensor) {
+      if constexpr (kTier == kBf16 && !kWeighted) {
+        const int Nsp = (Ns + kHbChunk - 1) / kHbChunk * kHbChunk;
+        const int smem = Nsp * 2 * static_cast<int>(sizeof(float4)) +
+                         kHypGroup * kHbPts * static_cast<int>(4 * sizeof(unsigned) + sizeof(float));
+        auto kern = lcp_segside_hb_mma_kernel;
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kern<<<(H + kHypGroup - 1) / kHypGroup, kThreads, smem, st>>>(
+            tr, model_pts, model_nrm, seg4, out, H, Nv, Ns, delta2, cos_gate, band_rows);
+        return static_cast<int>(cudaGetLastError());
+      }
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (unit != kHbUnitCores) return static_cast<int>(cudaErrorInvalidValue);
+    const int smem = segment_smem<kTier, kWeighted>(Ns);
     auto kern = lcp_segside_hb_kernel<kTier, kWeighted>;
     cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     kern<<<(H + kHypGroup - 1) / kHypGroup, kThreads, smem, st>>>(
@@ -992,10 +1243,9 @@ int launch_hb(const float* tr, const float* model_pts, const float* model_nrm, c
   }
 }
 
-// unit < 0: the hypothesis-block kernel.
-int dispatch(int unit, const float* tr, const float* model_pts, const float* model_nrm,
-             const float* seg, float* partial, float* out, int H, int Nv, int Ns, float delta2,
-             float cos_gate, int weighted, int tier, void* stream) {
+int dispatch(bool hb, int unit, const float* tr, const float* model_pts, const float* model_nrm,
+             const float* seg, float* partial, float* out, unsigned* band_rows, int H, int Nv,
+             int Ns, float delta2, float cos_gate, int weighted, int tier, void* stream) {
   if (H <= 0) return 0;
   if (Nv <= 0 || Ns <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (static_cast<long long>(H) * ((Nv + 63) / 64) > 0x3fffffffLL) {
@@ -1003,11 +1253,11 @@ int dispatch(int unit, const float* tr, const float* model_pts, const float* mod
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float4* seg4 = reinterpret_cast<const float4*>(seg);
-#define LCP_LAUNCH(T, W)                                                                       \
-  return unit < 0 ? launch_hb<T, W>(tr, model_pts, model_nrm, seg4, out, H, Nv, Ns, delta2,   \
-                                    cos_gate, st)                                              \
-                  : launch<T, W>(unit, tr, model_pts, model_nrm, seg4, partial, out, H, Nv,   \
-                                 Ns, delta2, cos_gate, st)
+#define LCP_LAUNCH(T, W)                                                                        \
+  return hb ? launch_hb<T, W>(unit, tr, model_pts, model_nrm, seg4, out, band_rows, H, Nv, Ns, \
+                              delta2, cos_gate, st)                                             \
+            : launch<T, W>(unit, tr, model_pts, model_nrm, seg4, partial, out, H, Nv, Ns,      \
+                           delta2, cos_gate, st)
   if (tier == kFp32) {
     if (weighted) LCP_LAUNCH(kFp32, true);
     LCP_LAUNCH(kFp32, false);
@@ -1037,8 +1287,8 @@ extern "C" int lcp_segside_launch(const float* tr, const float* model_pts,
                                   const float* model_nrm, const float* seg, float* partial,
                                   float* out, int H, int Nv, int Ns, float delta2,
                                   float cos_gate, int weighted, int tier, void* stream) {
-  return dispatch(kUnitRule, tr, model_pts, model_nrm, seg, partial, out, H, Nv, Ns, delta2,
-                  cos_gate, weighted, tier, stream);
+  return dispatch(false, kUnitRule, tr, model_pts, model_nrm, seg, partial, out, nullptr, H, Nv,
+                  Ns, delta2, cos_gate, weighted, tier, stream);
 }
 
 // The same call on a named unit, for measurements: 1 the CUDA cores, 2 the
@@ -1049,8 +1299,8 @@ extern "C" int lcp_segside_launch_on(int unit, const float* tr, const float* mod
                                      float* out, int H, int Nv, int Ns, float delta2,
                                      float cos_gate, int weighted, int tier, void* stream) {
   if (unit != kUnitCores && unit != kUnitTensor) return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch(unit, tr, model_pts, model_nrm, seg, partial, out, H, Nv, Ns, delta2,
-                  cos_gate, weighted, tier, stream);
+  return dispatch(false, unit, tr, model_pts, model_nrm, seg, partial, out, nullptr, H, Nv, Ns,
+                  delta2, cos_gate, weighted, tier, stream);
 }
 
 // The unit lcp_segside_launch takes for such a call: 1 the CUDA cores, 2 the
@@ -1063,8 +1313,26 @@ extern "C" int lcp_segside_hb_launch(const float* tr, const float* model_pts,
                                      const float* model_nrm, const float* seg, float* out,
                                      int H, int Nv, int Ns, float delta2, float cos_gate,
                                      int weighted, int tier, void* stream) {
-  return dispatch(-1, tr, model_pts, model_nrm, seg, nullptr, out, H, Nv, Ns, delta2, cos_gate,
-                  weighted, tier, stream);
+  return dispatch(true, kHbUnitRule, tr, model_pts, model_nrm, seg, nullptr, out, nullptr, H, Nv,
+                  Ns, delta2, cos_gate, weighted, tier, stream);
+}
+
+// The same call on a named unit, for measurements and checks: 1 the CUDA
+// cores, 2 the tensor-core filter (an error but for an unweighted "default"
+// call). The scores are the same. band_rows (or null): the tensor-core filter adds
+// the number of rows that walked the band.
+extern "C" int lcp_segside_hb_launch_on(int unit, const float* tr, const float* model_pts,
+                                        const float* model_nrm, const float* seg, float* out,
+                                        unsigned* band_rows, int H, int Nv, int Ns, float delta2,
+                                        float cos_gate, int weighted, int tier, void* stream) {
+  if (unit != kHbUnitCores && unit != kHbUnitTensor) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(true, unit, tr, model_pts, model_nrm, seg, nullptr, out, band_rows, H, Nv, Ns,
+                  delta2, cos_gate, weighted, tier, stream);
+}
+
+// The unit lcp_segside_hb_launch takes for such a call: 1 or 2, as above.
+extern "C" int lcp_segside_hb_unit_for(int weighted, int tier) {
+  return hb_rule_takes_tensor(tier, weighted != 0) ? kHbUnitTensor : kHbUnitCores;
 }
 
 extern "C" int lcp_empty_launch(void* stream) {

@@ -27,11 +27,10 @@
 // |ndot|; across tiles a later tile replaces the running nearest only when it
 // is strictly nearer. One running state per model point does it: "<" replaces
 // and marks the state as set in this tile, "==" joins only while that mark is
-// up, and the marks drop at every tile edge (lcp_stream_wide_kernel carries
-// prob and |ndot| in that state; lcp_stream_kernel only which chunks of the
-// tile reached the minimum, and looks the attributes up after the scan). The
-// running minimum starts at 1e9, so a masked point (d2 = 1e9 in float32) never
-// replaces it. The tile is independent of how many points a kernel stages at a
+// up, and the marks drop at every tile edge (both kernels carry only which
+// chunks of the tile reached the minimum, and look the attributes up after
+// the scan). The running minimum starts at 1e9, so a masked point (d2 = 1e9
+// in float32) never replaces it. The tile is independent of how many points a kernel stages at a
 // time.
 //
 // Tiers (the rounding places of the TPU kernels' matmul_precision):
@@ -70,20 +69,25 @@
 //    branch, a second shared-memory read and three state words on every pair
 //    (ptxas: 63 registers weighted, 80 / 74 before; 39 unweighted, 48 before);
 //  - lcp_stream_wide_kernel: on this card the TPU's "one wide product for 8
-//    hypotheses" is slot filling, as lcp_segside_hb is to lcp_segside: a thread
-//    holds kWidePts model points under 8 hypotheses, so a small model (Nv = 512)
-//    fills every slot where lcp_stream_kernel would leave half on padding. It
-//    stages 8 transformed copies of the segment chunk (one warp per hypothesis)
-//    rather than transforming the raw point per pair in registers: the
-//    transform is 40 FLOP against 8 for the pair itself. It evaluates the
-//    normal dot in the inner loop, on a new nearest or a tie;
-//  - a block writes one partial sum per (hypothesis, model tile) through a
-//    warp-shuffle tree and a fixed-order sum over warps; a second kernel adds
+//    hypotheses" is slot filling: a block takes 8 hypotheses, one warp each,
+//    on a model tile of 32 * kWidePts points, so a small model (Nv = 512)
+//    fills every slot where lcp_stream_kernel would leave half on padding. A
+//    warp stages its hypothesis's transformed segment, kWideStage points (8
+//    chunks) between two __syncwarp, and a lane holds kWidePts model points,
+//    so each broadcast shared-memory read feeds kWidePts pairs. It runs
+//    lcp_stream_kernel's weighted scan and looks the attributes up after it
+//    with the same nearest_attributes; its chunks never straddle a tile edge
+//    (a tile of ns_tile points takes ceil(ns_tile / kChunk) of them). The
+//    design it replaced held 2 model points under all 8 hypotheses a thread, read 2
+//    pairs per shared-memory read, synchronised the block every 128 points
+//    and branched per pair to the normal dot when weighted;
+//  - one partial sum per (hypothesis, model tile), through a warp-shuffle
+//    tree (lcp_stream_kernel then a fixed-order sum over warps); a second kernel adds
 //    the tiles per hypothesis in index order. No atomics: scores are
 //    deterministic.
 // Both kernels evaluate a pair with the same instructions on the same staged
 // values, so they agree exactly on every nearest point; only the order of the
-// sum over model points differs (tiles of 1,024 against 512).
+// sum over model points differs (tiles of 1,024 against 256).
 // Tensor cores, TMA and wgmma are not used here.
 
 #include <cuda_bf16.h>
@@ -98,15 +102,17 @@ constexpr int kSlots = 4;      // lcp_stream_kernel: model points per thread
 constexpr int kStage = 512;    // lcp_stream_kernel: segment points staged at a time
 constexpr int kChunk = 32;     // lcp_stream_kernel: staged points per chunk of the weighted scan
 constexpr int kHypGroup = 8;   // lcp_stream_wide_kernel: hypotheses per block (one warp each)
-constexpr int kWidePts = 2;    // lcp_stream_wide_kernel: model points per thread
-constexpr int kWideStage = 128;  // lcp_stream_wide_kernel: segment points staged at a time
+constexpr int kWidePts = 8;    // lcp_stream_wide_kernel: model points per thread
+constexpr int kWideStage = 256;  // lcp_stream_wide_kernel: segment points a warp stages at a time
 constexpr float kBig = 1e9f;
 
 constexpr int kFp32 = 0;
 constexpr int kBf16 = 1;
 
-static_assert(kHypGroup == kWarps, "one warp stages the segment chunk of one hypothesis");
-static_assert(kStage % kChunk == 0, "a stage is a whole number of chunks");
+static_assert(kHypGroup == kWarps, "a warp per hypothesis of the group");
+static_assert(kStage % kChunk == 0 && kWideStage % kChunk == 0,
+              "a stage is a whole number of chunks");
+static_assert(kChunk == 32, "lcp_stream_wide_kernel stages a chunk with one point a lane");
 
 __device__ __forceinline__ float bf(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -147,13 +153,6 @@ __device__ __forceinline__ float4 stage_normal(const float* r, const float4* __r
   return make_float4(bx, by, bz, q.w);
 }
 
-template <int kTier, bool kWeighted>
-__device__ __forceinline__ void stage_point(const float* r, const float4* __restrict__ seg,
-                                            int j, float4& a, float4& n) {
-  a = stage_position<kTier>(r, seg, j);
-  if constexpr (kWeighted) n = stage_normal<kTier>(r, seg, j);
-}
-
 // A model point as the d2 and normal products take it.
 struct ModelPoint {
   float x, y, z, sq;  // m, |m|^2
@@ -178,11 +177,6 @@ __device__ __forceinline__ ModelPoint load_model(const float* __restrict__ pts,
   return m;
 }
 
-// Running nearest of one (hypothesis, model point) pair.
-struct Nearest {
-  float best, pb, ab;
-};
-
 // d2 of model point m against the staged point a, and |ndot| against the staged
 // normal n: the two products, each summed in this fixed order.
 __device__ __forceinline__ float pair_d2(const ModelPoint& m, const float4& a) {
@@ -191,46 +185,6 @@ __device__ __forceinline__ float pair_d2(const ModelPoint& m, const float4& a) {
 
 __device__ __forceinline__ float pair_ndot(const ModelPoint& m, const float4& n) {
   return fabsf(fmaf(m.nz, n.z, fmaf(m.ny, n.y, __fmul_rn(m.nx, n.x))));
-}
-
-// lcp_stream_wide_kernel's pair: d2 of model point m against the staged point
-// (a, n), folded per pair into the running state. `fresh` holds one bit per
-// slot: the state was set in the current tile, so an equal distance may still
-// raise its prob and |ndot|.
-template <bool kWeighted>
-__device__ __forceinline__ void visit(const ModelPoint& m, const float4& a, const float4* s_n,
-                                      int j, Nearest& q, unsigned& fresh, unsigned bit) {
-  const float d = pair_d2(m, a);
-  if constexpr (kWeighted) {
-    if (d <= q.best) {
-      const bool nearer = d < q.best;
-      if (nearer || (fresh & bit)) {
-        const float4 n = s_n[j];
-        const float nd = pair_ndot(m, n);
-        if (nearer) {
-          q.best = d;
-          q.pb = n.w;
-          q.ab = nd;
-          fresh |= bit;
-        } else {
-          q.pb = fmaxf(q.pb, n.w);
-          q.ab = fmaxf(q.ab, nd);
-        }
-      }
-    }
-  } else {
-    q.best = fminf(q.best, d);
-  }
-}
-
-template <bool kWeighted>
-__device__ __forceinline__ float contribution(const Nearest& q, float delta2, float cos_gate) {
-  if (!(q.best <= delta2)) return 0.f;
-  if constexpr (kWeighted) {
-    return (q.ab >= cos_gate) ? q.pb : 0.f;
-  } else {
-    return 1.f;
-  }
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -271,6 +225,38 @@ __device__ __forceinline__ float nearest_attributes(const ModelPoint& m, float b
     }
   }
   return (ab >= cos_gate) ? pb : 0.f;
+}
+
+// What model point i (slot m, nearest d2 best) contributes after the scan;
+// when weighted its normal is read here, by the slots within delta^2 only.
+template <int kTier, bool kWeighted>
+__device__ __forceinline__ float contribution(ModelPoint& m, float best, int tile_of,
+                                              unsigned hit, int i, const float* r,
+                                              const float* __restrict__ model_nrm,
+                                              const float4* __restrict__ seg, int Nv, int Ns,
+                                              int ns_tile, float delta2, float cos_gate) {
+  if (i >= Nv || !(best <= delta2)) return 0.f;
+  if constexpr (kWeighted) {
+    m.nx = model_nrm[3 * i]; m.ny = model_nrm[3 * i + 1]; m.nz = model_nrm[3 * i + 2];
+    if constexpr (kTier == kBf16) {
+      m.nx = bf(m.nx); m.ny = bf(m.ny); m.nz = bf(m.nz);
+    }
+    return nearest_attributes<kTier>(m, best, tile_of, hit, r, seg, Ns, ns_tile, cos_gate);
+  } else {
+    return 1.f;
+  }
+}
+
+// The chunk-mask update of the weighted scan after a chunk of tile `tile0`
+// whose minimum is cm: "<" replaces in any tile; "==" joins only in the tile
+// that set the nearest.
+__device__ __forceinline__ void join_chunk(float cm, float& best, int& tile_of, unsigned& hit,
+                                           int tile0, unsigned bit) {
+  const bool nearer = cm < best;
+  const bool joins = cm == best && tile_of == tile0;
+  hit = nearer ? bit : (joins ? (hit | bit) : hit);
+  tile_of = nearer ? tile0 : tile_of;
+  best = fminf(best, cm);
 }
 
 // One hypothesis, one tile of kThreads * kSlots model points.
@@ -327,12 +313,7 @@ __global__ void __launch_bounds__(kThreads) lcp_stream_kernel(LCP_STREAM_ARGS) {
 #pragma unroll
         for (int k = 0; k < kSlots; ++k) {
           if constexpr (kWeighted) {
-            // "<" replaces in any tile; "==" joins only in the tile that set the nearest.
-            const bool nearer = cm[k] < best[k];
-            const bool joins = cm[k] == best[k] && tile_of[k] == tile0;
-            hit[k] = nearer ? bit : (joins ? (hit[k] | bit) : hit[k]);
-            tile_of[k] = nearer ? tile0 : tile_of[k];
-            best[k] = fminf(best[k], cm[k]);
+            join_chunk(cm[k], best[k], tile_of[k], hit[k], tile0, bit);
           } else {
             best[k] = cm[k];
           }
@@ -344,19 +325,9 @@ __global__ void __launch_bounds__(kThreads) lcp_stream_kernel(LCP_STREAM_ARGS) {
   float acc = 0.f;
 #pragma unroll
   for (int k = 0; k < kSlots; ++k) {
-    const int i = (mt * kSlots + k) * kThreads + tid;
-    if (i < Nv && best[k] <= delta2) {
-      if constexpr (kWeighted) {
-        m[k].nx = model_nrm[3 * i]; m[k].ny = model_nrm[3 * i + 1]; m[k].nz = model_nrm[3 * i + 2];
-        if constexpr (kTier == kBf16) {
-          m[k].nx = bf(m[k].nx); m[k].ny = bf(m[k].ny); m[k].nz = bf(m[k].nz);
-        }
-        acc += nearest_attributes<kTier>(m[k], best[k], tile_of[k], hit[k], r, seg, Ns, ns_tile,
-                                         cos_gate);
-      } else {
-        acc += 1.f;
-      }
-    }
+    acc += contribution<kTier, kWeighted>(m[k], best[k], tile_of[k], hit[k],
+                                          (mt * kSlots + k) * kThreads + tid, r, model_nrm, seg,
+                                          Nv, Ns, ns_tile, delta2, cos_gate);
   }
   // Fixed-order block sum: warp shuffle tree, then warp partials in order.
   acc = warp_sum(acc);
@@ -369,83 +340,86 @@ __global__ void __launch_bounds__(kThreads) lcp_stream_kernel(LCP_STREAM_ARGS) {
   }
 }
 
-// kHypGroup hypotheses together, one tile of kThreads * kWidePts model points;
-// a thread holds its model points under every hypothesis of the group.
+// kHypGroup hypotheses a block, one warp each, on one tile of 32 * kWidePts
+// model points: a lane holds kWidePts of them under its warp's hypothesis.
+// The warps share nothing but the block: each stages its own hypothesis's
+// segment chunks and meets only its own lanes (__syncwarp), so a warp of a
+// ragged last group has no work and leaves.
 template <int kTier, bool kWeighted>
 __global__ void __launch_bounds__(kThreads) lcp_stream_wide_kernel(LCP_STREAM_ARGS) {
   __shared__ float4 s_a[kHypGroup][kWideStage];
-  __shared__ float4 s_n[kWeighted ? kHypGroup : 1][kWeighted ? kWideStage : 1];
-  __shared__ float s_warp[kHypGroup][kWarps];
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int h0 = (static_cast<int>(blockIdx.x) / n_mtiles) * kHypGroup;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int h = (static_cast<int>(blockIdx.x) / n_mtiles) * kHypGroup + warp;
   const int mt = static_cast<int>(blockIdx.x) % n_mtiles;
+  if (h >= H) return;
+  float4* s = s_a[warp];
 
-  // Warp w stages for hypothesis h0 + w; a ragged last group scores the last
-  // hypothesis again in its idle slots and writes nothing for them.
   float r[12];
-  {
-    const int h = min(h0 + warp, H - 1);
 #pragma unroll
-    for (int c = 0; c < 12; ++c) r[c] = tr[12 * h + c];
-  }
+  for (int c = 0; c < 12; ++c) r[c] = tr[12 * h + c];
 
   ModelPoint m[kWidePts];
-  Nearest q[kWidePts][kHypGroup];
+  float best[kWidePts];
+  int tile_of[kWidePts];   // weighted: first point of the tile that set best[p]
+  unsigned hit[kWidePts];  // weighted: the chunks of that tile that reached best[p]
 #pragma unroll
   for (int p = 0; p < kWidePts; ++p) {
-    m[p] = load_model<kTier, kWeighted>(model_pts, model_nrm,
-                                        (mt * kWidePts + p) * kThreads + tid, Nv);
-#pragma unroll
-    for (int k = 0; k < kHypGroup; ++k) q[p][k] = {kBig, 0.f, 0.f};
+    m[p] = load_model<kTier, false>(model_pts, model_nrm, (mt * kWidePts + p) * 32 + lane, Nv);
+    best[p] = kBig;
+    tile_of[p] = -1;
+    hit[p] = 0u;
   }
 
-  for (int tile0 = 0; tile0 < Ns; tile0 += ns_tile) {
-    const int tile_end = min(Ns, tile0 + ns_tile);
-    unsigned fresh = 0u;  // bit p * kHypGroup + k
-    for (int c0 = tile0; c0 < tile_end; c0 += kWideStage) {
-      const int n = min(kWideStage, tile_end - c0);
-      __syncthreads();
-      for (int j = lane; j < n; j += 32) {
-        float4 a, nn = make_float4(0.f, 0.f, 0.f, 0.f);
-        stage_point<kTier, kWeighted>(r, seg, c0 + j, a, nn);
-        s_a[warp][j] = a;
-        if constexpr (kWeighted) s_n[warp][j] = nn;
+  // The segment as a run of chunks of kChunk points that never straddle a
+  // tile edge: tile q holds the next ceil(ns_tile / kChunk) chunks, the last
+  // of them padded by points at infinity (never nearest, never tied).
+  const int per_tile = (ns_tile + kChunk - 1) / kChunk;
+  const int n_chunks = (Ns + ns_tile - 1) / ns_tile * per_tile;
+  for (int q0 = 0; q0 < n_chunks; q0 += kWideStage / kChunk) {
+    const int nq = min(kWideStage / kChunk, n_chunks - q0);
+    __syncwarp();  // the previous stage has been scanned
+    for (int cc = 0; cc < nq; ++cc) {
+      const int q = q0 + cc, tile = q / per_tile;
+      const int j = tile * ns_tile + (q - tile * per_tile) * kChunk + lane;
+      const bool in = j < min(Ns, (tile + 1) * ns_tile);
+      s[cc * kChunk + lane] = in ? stage_position<kTier>(r, seg, j)
+                                 : make_float4(0.f, 0.f, 0.f, INFINITY);
+    }
+    __syncwarp();
+    for (int cc = 0; cc < nq; ++cc) {
+      const int q = q0 + cc, tile = q / per_tile;
+      // The chunk's minimum; unweighted, the running minimum itself.
+      float cm[kWidePts];
+#pragma unroll
+      for (int p = 0; p < kWidePts; ++p) cm[p] = kWeighted ? INFINITY : best[p];
+#pragma unroll 8
+      for (int jj = 0; jj < kChunk; ++jj) {
+        const float4 a = s[cc * kChunk + jj];
+#pragma unroll
+        for (int p = 0; p < kWidePts; ++p) cm[p] = fminf(cm[p], pair_d2(m[p], a));
       }
-      __syncthreads();
-      for (int j = 0; j < n; ++j) {
+      const unsigned bit = 1u << ((q - tile * per_tile) & 31);
 #pragma unroll
-        for (int k = 0; k < kHypGroup; ++k) {
-          const float4 a = s_a[k][j];
-#pragma unroll
-          for (int p = 0; p < kWidePts; ++p) {
-            visit<kWeighted>(m[p], a, s_n[kWeighted ? k : 0], j, q[p][k], fresh,
-                                    1u << (p * kHypGroup + k));
-          }
+      for (int p = 0; p < kWidePts; ++p) {
+        if constexpr (kWeighted) {
+          join_chunk(cm[p], best[p], tile_of[p], hit[p], tile * ns_tile, bit);
+        } else {
+          best[p] = cm[p];
         }
       }
     }
   }
 
+  float acc = 0.f;
 #pragma unroll
-  for (int k = 0; k < kHypGroup; ++k) {
-    float acc = 0.f;
-#pragma unroll
-    for (int p = 0; p < kWidePts; ++p) {
-      if ((mt * kWidePts + p) * kThreads + tid < Nv) {
-        acc += contribution<kWeighted>(q[p][k], delta2, cos_gate);
-      }
-    }
-    acc = warp_sum(acc);
-    if (lane == 0) s_warp[k][warp] = acc;
+  for (int p = 0; p < kWidePts; ++p) {
+    acc += contribution<kTier, kWeighted>(m[p], best[p], tile_of[p], hit[p],
+                                          (mt * kWidePts + p) * 32 + lane, r, model_nrm, seg, Nv,
+                                          Ns, ns_tile, delta2, cos_gate);
   }
-  __syncthreads();
-  if (tid < kHypGroup && h0 + tid < H) {
-    float total = 0.f;
-    for (int w = 0; w < kWarps; ++w) total += s_warp[tid][w];
-    partial[(h0 + tid) * n_mtiles + mt] = total;
-  }
+  acc = warp_sum(acc);
+  if (lane == 0) partial[h * n_mtiles + mt] = acc;
 }
 
 // out[h] = (sum of the model tiles' partial sums, in tile order) / Nv.
@@ -463,7 +437,7 @@ int launch(bool wide, const float* tr, const float* model_pts, const float* mode
            const float* seg, float* partial, float* out, int H, int Nv, int Ns, int ns_tile,
            float delta2, float cos_gate, cudaStream_t st) {
   const float4* seg4 = reinterpret_cast<const float4*>(seg);
-  const int model_tile = kThreads * (wide ? kWidePts : kSlots);
+  const int model_tile = wide ? 32 * kWidePts : kThreads * kSlots;
   const int n_mtiles = (Nv + model_tile - 1) / model_tile;
   if (wide) {
     const int groups = (H + kHypGroup - 1) / kHypGroup;
@@ -504,7 +478,7 @@ int dispatch(bool wide, const float* tr, const float* model_pts, const float* mo
 
 // Both launch on `stream` and allocate nothing: `partial` is the caller's
 // workspace of H * ceil(Nv / model tile) floats (model tile 1,024 for
-// lcp_stream_launch, 512 for lcp_stream_wide_launch). tier is 0 (fp32) or 1
+// lcp_stream_launch, 256 for lcp_stream_wide_launch). tier is 0 (fp32) or 1
 // ("default"). They return cudaGetLastError().
 extern "C" int lcp_stream_launch(const float* tr, const float* model_pts,
                                  const float* model_nrm, const float* seg, float* partial,

@@ -92,6 +92,49 @@ def at_delta_inputs(device, h: int = 256, n: int = 256, delta: float = 0.005):
             as_t(rng.uniform(0.3, 1.0, size=n)), as_t(np.ones(n, bool), torch.bool))
 
 
+# Band cases: rows of segment points 0-7 placed again, in other 8-point column
+# tiles and 32-point chunks of the first 256 points and in later 256-point
+# chunks (the mask chunks of lcp_segside_hb's tensor-core filter).
+BAND_COPIES = (197, 300, 530)
+
+
+def band_inputs(device, h: int = 256, n: int = 192, ns: int = 600, delta: float = 0.005):
+    """at_delta_inputs on n model points, whose first n segment points are
+    followed by copies of segment points 0-7 at BAND_COPIES (own normals and
+    probabilities) and by masked points: the nearest point of model point 0,
+    exactly delta off, is tied in four places (two 8-point column tiles and
+    three chunks of 256 points); the rest are 0.5 or 1.5 delta off."""
+    tfs, mpts, mnrm, spts, snrm, sprob, smask = at_delta_inputs(device, h=h, n=n, delta=delta)
+    rng = np.random.default_rng(39)
+    seg = np.concatenate([spts.cpu().numpy(), rng.uniform(0.9, 1.1, size=(ns - n, 3))])
+    nrm = np.concatenate([snrm.cpu().numpy(), rng.normal(size=(ns - n, 3))])
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    prob = np.concatenate([sprob.cpu().numpy(), rng.uniform(0.3, 1.0, size=ns - n)])
+    mask = np.arange(ns) < n
+    for off in BAND_COPIES:
+        seg[off:off + 8] = seg[:8]
+        mask[off:off + 8] = True
+    as_t = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt, device=device)
+    return tfs, mpts, mnrm, as_t(seg), as_t(nrm), as_t(prob), as_t(mask, torch.bool)
+
+
+def band_delta(args, matmul_precision=None, side: int = 0, delta: float = 0.005) -> float:
+    """A delta for band_inputs whose delta^2, rounded to float32 as the
+    kernels and the plain version round it, is the nearest d2 of one row
+    (hypothesis 0, model point i < 8, the positive d2 nearest to the given
+    delta's square) in the tier's plain arithmetic (side 0), one float32 step
+    above it (side 1: that row is just within) or below it (side -1: just
+    beyond). The rows of the other identity hypotheses tie with it. (The
+    "default" tier's bf16 operands move d2 by up to a third of delta^2, so
+    model point 0, exactly delta off, is not always the row nearest it.)"""
+    d2 = lcp.nearest_d2_plain(args[0][:1], args[1][:8], args[3], args[6], matmul_precision)[0]
+    d2 = torch.where(d2 > 0, d2, math.inf)
+    v = float(d2[torch.argmin((d2 - delta * delta).abs())].cpu())
+    if side:
+        v = float(np.nextafter(np.float32(v), np.float32(np.inf if side > 0 else -np.inf)))
+    return math.sqrt(v)
+
+
 def far_hypotheses(args, seed: int = 37):
     """lcp_inputs with every other hypothesis moved 0.1-0.3 m in x and y (the
     clutter inputs' garbage half), in place."""

@@ -20,7 +20,8 @@ coordinates centred at the segment:
   for the unweighted lowered tiers of large calls, finds the candidates on
   the tensor cores: the scores are the same bits) and lcp_segside_hb (a
   group of hypotheses per block, for small models such as the coarse ranking
-  pass); uses_hypothesis_block picks between them;
+  pass; its launcher takes the tensor cores for the unweighted "default"
+  tier, the CUDA cores otherwise); uses_hypothesis_block picks between them;
 - lcp_scores_plain, their plain version.
 Exactly tied nearest distances take the max probability and the max |ndot|
 over all ties (the TPU kernel's tie rule).
@@ -146,6 +147,36 @@ def _lowered_products(rot, t, model_pts, model_nrm, seg_c, seg_sq, seg_nrm, tier
     return d2, torch.abs(ndot)
 
 
+def _plain_products(tc, model_pts, model_nrm, seg_c, seg_sq, seg_nrm, tier, weighted):
+    """d2 [hc, Nv, Ns] and |ndot| (or None) of lcp_scores_plain for centred
+    poses tc [hc, 4, 4]: a matrix product in float32, term by term in the
+    lowered tiers (_lowered_products)."""
+    rot, t = tc[:, :3, :3], tc[:, :3, 3]
+    if tier is not None:
+        return _lowered_products(rot, t, model_pts, model_nrm, seg_c, seg_sq, seg_nrm, tier,
+                                 weighted)
+    u = torch.einsum("hij,nj->hni", rot, model_pts) + t[:, None, :]  # [hc, Nv, 3]
+    usq = torch.sum(u * u, dim=-1)
+    d2 = seg_sq + usq[..., None] - 2.0 * (u @ seg_c.T)  # [hc, Nv, Ns]
+    if not weighted:
+        return d2, None
+    un = torch.einsum("hij,nj->hni", rot, model_nrm)
+    return d2, torch.abs(un @ seg_nrm.T)  # [hc, Nv, Ns]
+
+
+def nearest_d2_plain(transforms, model_pts, seg_pts, seg_mask,
+                     matmul_precision=None) -> torch.Tensor:
+    """The nearest d2 [H, Nv] that lcp_scores_plain compares with delta^2,
+    in its arithmetic for the tier (for constructing inputs on the edge)."""
+    tier = matmul_precision if TIERS[matmul_precision] else None
+    seg_c, tr = center_at_segment(transforms, seg_pts, seg_mask)
+    seg_sq = torch.where(seg_mask, torch.sum(seg_c * seg_c, dim=-1), _BIG)
+    return torch.cat([
+        torch.amin(_plain_products(tc, model_pts, None, seg_c, seg_sq, None, tier, False)[0],
+                   dim=-1)
+        for tc in tr.split(32)])
+
+
 def lcp_scores_plain(
     transforms: torch.Tensor,
     model_pts: torch.Tensor,
@@ -176,19 +207,8 @@ def lcp_scores_plain(
     cos_gate = math.cos(math.radians(normal_gate_deg))
     out = []
     for tc in tr.split(h_chunk):
-        rot, t = tc[:, :3, :3], tc[:, :3, 3]
-        if tier is None:
-            u = torch.einsum("hij,nj->hni", rot, model_pts) + t[:, None, :]  # [hc, Nv, 3]
-            usq = torch.sum(u * u, dim=-1)
-            d2 = seg_sq + usq[..., None] - 2.0 * (u @ seg_c.T)  # [hc, Nv, Ns]
-            ndot = None
-            if weighted:
-                un = torch.einsum("hij,nj->hni", rot, model_nrm)
-                ndot = torch.abs(un @ seg_nrm.T)  # [hc, Nv, Ns]
-        else:
-            d2, ndot = _lowered_products(
-                rot, t, model_pts, model_nrm, seg_c, seg_sq, seg_nrm, tier, weighted
-            )
+        d2, ndot = _plain_products(tc, model_pts, model_nrm, seg_c, seg_sq, seg_nrm, tier,
+                                   weighted)
         m = torch.amin(d2, dim=-1)
         within = m <= delta * delta
         if not weighted:
@@ -261,11 +281,12 @@ def _count_launch(wrapper, rc, tier):
 
 
 def _launch(wrapper, symbol, tr12, model_pts, model_nrm, segcat, delta2, cos_gate,
-            weighted, tier, tiled_sums=False, unit=None):
+            weighted, tier, tiled_sums=False, unit=None, after_out=()):
     """Check the arguments, launch `symbol` on the current stream and count
     it. tiled_sums: the kernel writes one partial sum per (hypothesis, model
     tile) into a workspace handed in before `out` (lcp_segside). unit: the
-    launcher's leading argument, where it has one."""
+    launcher's leading argument, where it has one. after_out: pointers the
+    launcher takes after `out`."""
     name = wrapper.__name__
     h, nv, ns = _check_launch_args(name, tr12, model_pts, model_nrm, segcat)
     if ns > MAX_SEGMENT_POINTS:
@@ -280,7 +301,7 @@ def _launch(wrapper, symbol, tr12, model_pts, model_nrm, segcat, delta2, cos_gat
         n_tiles = _build.load("lcp_segside").lcp_segside_workspace_tiles(nv)
         partial = torch.empty((h, n_tiles), dtype=torch.float32, device=dev)
         head.append(partial.data_ptr())
-    head.append(out.data_ptr())
+    head += [out.data_ptr(), *after_out]
     types = [ctypes.c_void_p] * len(head)
     if unit is not None:
         head, types = [unit] + head, [ctypes.c_int] + types
@@ -366,6 +387,31 @@ def lcp_segside_hb(
 
 lcp_segside_hb.launches = 0
 lcp_segside_hb.tier_launches = [0, 0, 0]
+
+# The units lcp_segside_hb's launcher chooses between (csrc/lcp_segside.cu):
+# the CUDA cores, and the tensor-core filter (unweighted "default" only). The
+# functions below serve measurements and checks only.
+_HB_UNIT_CUDA_CORES, _HB_UNIT_TENSOR_CORES = 1, 2
+
+
+def _lcp_segside_hb_on_unit(unit, tr12, model_pts, model_nrm, segcat, delta2, cos_gate,
+                            weighted, matmul_precision=None, band_rows=None) -> torch.Tensor:
+    """lcp_segside_hb on a named unit: same arguments, same scores; counted
+    as a launch of lcp_segside_hb. band_rows: None, or a one-element int32
+    CUDA tensor to which the tensor-core filter adds the number of rows that
+    walked the band between its two thresholds."""
+    if TIERS[matmul_precision] == 2:
+        raise ValueError("lcp_segside_hb has no high3 tier")
+    extra = (0 if band_rows is None else band_rows.data_ptr(),)
+    return _launch(lcp_segside_hb, "lcp_segside_hb_launch_on", tr12, model_pts, model_nrm,
+                   segcat, delta2, cos_gate, weighted, TIERS[matmul_precision], unit=int(unit),
+                   after_out=extra)
+
+
+def _lcp_segside_hb_unit_for(weighted: bool, matmul_precision: str | None = None) -> int:
+    """The unit lcp_segside_hb's launcher takes for such a call."""
+    return _build.load("lcp_segside").lcp_segside_hb_unit_for(
+        int(weighted), TIERS[matmul_precision])
 
 
 def pack_segment(seg_c, seg_nrm, seg_prob, seg_mask) -> torch.Tensor:
@@ -603,8 +649,8 @@ def _launch_stream(wrapper, symbol, model_tile, tr12, model_pts, model_nrm,
 
 
 # Model points a block of each streaming kernel takes (kThreads * kSlots and
-# kThreads * kWidePts in csrc/lcp_stream.cu).
-_STREAM_MODEL_TILE, _STREAM_WIDE_MODEL_TILE = 1024, 512
+# 32 * kWidePts in csrc/lcp_stream.cu).
+_STREAM_MODEL_TILE, _STREAM_WIDE_MODEL_TILE = 1024, 256
 
 
 def lcp_stream(

@@ -338,3 +338,31 @@ def test_ties_join_inside_a_tile_only(other, ns_tile, want):
         pallas = interpret(jlcp.lcp_scores_pallas, jargs, **kw)
         np.testing.assert_allclose(pallas, [want], atol=1e-6)
         np.testing.assert_allclose(n(lcp.lcp_scores_stream_plain(*targs, **kw)), [want], atol=1e-6)
+
+
+# Exact ties for the wide kernel (tiles of 128 segment points, chunks of 32 in
+# csrc/lcp_stream.cu): the first 8 segment points again at rows 28-35 (across
+# a chunk edge inside tile 0), at 124-131 (across the tile edge) and at
+# 28, 124 and 200 together.
+WIDE_TIES = {"across_chunks": (28,), "across_tile_edge": (124,),
+             "chunks_and_tiles": (28, 124, 200)}
+
+
+@pytest.mark.parametrize("precision", [None, "default"])
+@pytest.mark.parametrize("name", list(WIDE_TIES))
+def test_wide_ties_match_tpu_wide_kernel_interpret(rng, name, precision):
+    # Weighted (where ties decide), 1.5 / Nv as above; the ties must move the
+    # plain version's scores, or the case tests nothing.
+    nv, ns, h = 256, 300, 33
+    case = twisted_case(rng, nv, ns, h, 6, WIDE_TIES[name])
+    jargs, targs = _both(case)
+    want = interpret(wide_script().lcp_scores_pallas_wide, jargs, matmul_precision=precision)
+    got = n(lcp.lcp_scores_stream_wide(*targs, matmul_precision=precision))
+    assert got.shape == (h,) and want.max() > 0.05
+    np.testing.assert_allclose(got, want, atol=1.5 / nv)
+    untied = list(targs)
+    untied[6] = targs[6].clone()
+    for off in WIDE_TIES[name]:
+        untied[6][off:off + 8] = False
+    moved = np.abs(n(lcp.lcp_scores_stream_wide(*untied, matmul_precision=precision)) - got).max()
+    assert moved > 0.0

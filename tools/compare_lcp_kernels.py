@@ -4,7 +4,7 @@ another revision's on one card.
     git archive <revision> physimglobalpose_tpu_torch/csrc | tar -x -C build/other
     python3 tools/compare_lcp_kernels.py \
         --other-csrc build/other/physimglobalpose_tpu_torch/csrc [--out FILE.json] \
-        [--sections lcp hb icp units]
+        [--sections lcp hb wide icp units]
 
 Builds lcp_segside.cu, lcp_stream.cu and icp_corr_segside.cu of both trees
 with the package's nvcc flags and calls their C launchers on the same
@@ -12,10 +12,14 @@ tensors, at the shapes of PERF.md's kernel table, timing each pair in turns
 (other, this, this, other; CUDA events, median; the kernels' device time from
 torch.profiler beside it). Sections:
   lcp    lcp_segside and lcp_stream, scores within 2 / Nv of the other tree's;
-         lcp_stream_wide must give the same bits in both trees;
-  hb     lcp_segside_hb at the coarse shape of a scoring call and others,
-         weighted and unweighted, both tiers: scores within 2e-7 of the other
-         tree's (the sum order may differ);
+  hb     lcp_segside_hb at the coarse shape of a scoring call and others, and
+         on kernel_inputs.band_inputs with delta^2 on a row's nearest d2 and
+         one float32 step to either side, weighted and unweighted, both tiers:
+         unweighted scores bit for bit the other tree's (the terms are 0 or 1,
+         so no sum order moves them), weighted within 1e-6;
+  wide   lcp_stream_wide at the coarse shape of the yardstick pipeline on
+         4,096-point segments (H 16,384, Nv 512) and two ragged shapes, both
+         tiers: the same rule as hb;
   icp    icp_corr_segside at the ICP shapes of both scoring calls, both tiers:
          (A, b) within 1e-6 of the other tree's, relative to the largest entry;
   units  this tree's unweighted lcp_segside on its two units, the CUDA cores
@@ -96,7 +100,8 @@ class Kernels:
         stream = torch.cuda.current_stream().cuda_stream
         tail = (delta2, cos_gate, int(weighted), tier, stream)
         if kernel in ("lcp_stream", "lcp_stream_wide"):
-            tile = 1024 if kernel == "lcp_stream" else 512
+            # The smallest model tile either tree's kernel takes sizes the workspace.
+            tile = 1024 if kernel == "lcp_stream" else 256
             partial = torch.empty((h, -(-nv // tile)), dtype=torch.float32, device=out.device)
             rc = getattr(self.stream, kernel + "_launch")(
                 *ptrs, partial.data_ptr(), out.data_ptr(), h, nv, ns, ns_tile, *tail)
@@ -133,12 +138,8 @@ TIMED = (
     ("lcp_stream", "scene", 10_000, 4096, 4096, False, None, 1024, 3),
     ("lcp_stream", "yardstick_coarse", 16_384, 512, 4096, True, None, 128, 3),
 )
-# (kernel, H, Nv, Ns, ns_tile): both trees must give the same bits, every tier, both variants.
-UNCHANGED = (
-    ("lcp_stream_wide", 16_384, 512, 4096, 128),
-    ("lcp_stream_wide", 37, 700, 333, 128),
-    ("lcp_stream_wide", 5, 77, 2100, 128),
-)
+# (H, Nv, Ns) of lcp_stream_wide (ns_tile 128): the yardstick's coarse shape first.
+WIDE_SHAPES = ((16_384, 512, 4096), (37, 700, 333), (5, 77, 2100))
 # (H, Nv, Ns) of the unit grid: the coarse shape at four segment sizes and three
 # H, a small and a large model, the bulk-fine and exact shapes of a scoring call.
 UNIT_GRID = (
@@ -184,25 +185,58 @@ def timed_pair(run_other, run_this, reps: int, inner: int, kernel: str):
     return [o1, o2], [n1, n2], dev(run_other), dev(run_this)
 
 
+def compare_pair(section, kernel, span, label, packed, weighted, tier, this, other, reps, inner,
+                 ns_tile=0) -> tuple[bool, dict]:
+    """One case of a section: both trees' scores (unweighted bit for bit,
+    weighted within 1e-6) and their times in turns."""
+    run = lambda k: k.run(kernel, packed, weighted, tier, ns_tile)
+    a, b = run(this), run(other)
+    diff = float((a - b).abs().max())
+    same = bool(torch.equal(a, b))
+    ok = diff <= 1e-6 and (same or weighted)
+    o, n, od, nd = timed_pair(lambda: run(other), lambda: run(this), reps, inner, span)
+    h, nv, ns = packed[0].shape[0], packed[1].shape[0], packed[3].shape[0]
+    print(f"[{section}] {label} H={h} Nv={nv} Ns={ns} tier={tier} weighted={weighted}: other "
+          f"{o[0]:.4f} / {o[1]:.4f} ms, this {n[0]:.4f} / {n[1]:.4f} ms (device {od} -> {nd}; "
+          f"{min(o) / max(n):.2f}x), max_abs_diff={diff:.3e}, bit-identical={same}"
+          f"{'' if ok else ' FAILED'}")
+    return ok, dict(kernel=kernel, label=label, shape=[h, nv, ns], weighted=weighted, tier=tier,
+                    other_ms=o, this_ms=n, other_device_ms=od, this_device_ms=nd,
+                    max_abs_diff=diff, bit_identical=same)
+
+
 def compare_hb(this, other, device) -> tuple[bool, list]:
     ok, rows = True, []
-    for h, nv, ns in HB_SHAPES:
-        packed = kernel_inputs.packed_lcp_args(kernel_inputs.lcp_inputs(93, h, nv, ns, 20, device))
-        for tier in (1, 0):
+    cases = [(f"{h}x{nv}x{ns}", kernel_inputs.lcp_inputs(93, h, nv, ns, 20, device), 0.005, (1, 0))
+             for h, nv, ns in HB_SHAPES]
+    band = kernel_inputs.band_inputs(device)
+    for tier in ("default", None):
+        for side in (0, 1, -1):
+            cases.append((f"band side={side}", band, kernel_inputs.band_delta(band, tier, side),
+                          (lcp.TIERS[tier],)))
+    for label, inputs, delta, tiers in cases:
+        packed = kernel_inputs.packed_lcp_args(inputs, delta=delta)
+        for tier in tiers:
             for weighted in (False, True):
-                run = lambda k: k.run("lcp_segside_hb", packed, weighted, tier)
-                a, b = run(this), run(other)
-                diff = float((a - b).abs().max())
-                ok &= diff <= 2e-7
-                o, n, od, nd = timed_pair(lambda: run(other), lambda: run(this), 5, 10,
-                                          "lcp_segside_hb_kernel")
-                row = dict(kernel="lcp_segside_hb", shape=[h, nv, ns], weighted=weighted,
-                           tier=tier, other_ms=o, this_ms=n, other_device_ms=od,
-                           this_device_ms=nd, max_abs_diff=diff, bit_identical=bool(torch.equal(a, b)))
+                case_ok, row = compare_pair("hb", "lcp_segside_hb", "lcp_segside_hb", label, packed,
+                                            weighted, tier, this, other, 5, 10)
+                ok &= case_ok
                 rows.append(row)
-                print(f"[hb] H={h} Nv={nv} Ns={ns} tier={tier} weighted={weighted}: other "
-                      f"{o[0]:.4f} / {o[1]:.4f} ms, this {n[0]:.4f} / {n[1]:.4f} ms (device {od} -> "
-                      f"{nd}), max_abs_diff={diff:.3e}, bit-identical={row['bit_identical']}")
+    return ok, rows
+
+
+def compare_wide(this, other, device) -> tuple[bool, list]:
+    ok, rows = True, []
+    for h, nv, ns in WIDE_SHAPES:
+        packed = kernel_inputs.stream_lcp_args(kernel_inputs.lcp_inputs(90, h, nv, ns, 20, device))
+        reps, inner = (3, 1) if h >= 10_000 else (5, 10)
+        for tier in (0, 1):
+            for weighted in (True, False):
+                case_ok, row = compare_pair("wide", "lcp_stream_wide", "lcp_stream_wide_kernel",
+                                            f"{h}x{nv}x{ns}", packed, weighted, tier, this, other,
+                                            reps, inner, ns_tile=lcp.STREAM_WIDE_NS_TILE)
+                ok &= case_ok
+                rows.append(row)
     return ok, rows
 
 
@@ -230,8 +264,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other-csrc", required=True, type=Path)
     ap.add_argument("--out", type=Path)
-    ap.add_argument("--sections", nargs="+", default=["lcp", "hb", "icp", "units"],
-                    choices=["lcp", "hb", "icp", "units"])
+    ap.add_argument("--sections", nargs="+", default=["lcp", "hb", "wide", "icp", "units"],
+                    choices=["lcp", "hb", "wide", "icp", "units"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("compare_lcp_kernels: no CUDA device", file=sys.stderr)
@@ -245,21 +279,6 @@ def main() -> int:
     ok, rows, summary = True, [], dict(card=smi)
 
     if "lcp" in args.sections:
-        for kernel, h, nv, ns, tile in UNCHANGED:
-            inputs = kernel_inputs.lcp_inputs(90, h, nv, ns, 20, device)
-            stream = kernel == "lcp_stream_wide"
-            pack = kernel_inputs.stream_lcp_args if stream else kernel_inputs.packed_lcp_args
-            packed = pack(inputs)
-            for tier in (0, 1):
-                for weighted in (True, False):
-                    a = this.run(kernel, packed, weighted, tier, tile)
-                    b = other.run(kernel, packed, weighted, tier, tile)
-                    torch.cuda.synchronize()
-                    same = bool(torch.equal(a, b))
-                    ok &= same
-                    print(f"[unchanged] {kernel} H={h} Nv={nv} Ns={ns} tier={tier} "
-                          f"weighted={weighted}: bit-identical={same} mean={float(a.mean()):.4f}")
-
         for kernel, label, h, nv, ns, weighted, tier, tile, reps in TIMED:
             inputs = kernel_inputs.lcp_inputs(91, h, nv, ns, 24, device)
             stream = kernel == "lcp_stream"
@@ -283,6 +302,9 @@ def main() -> int:
     if "hb" in args.sections:
         hb_ok, summary["hb"] = compare_hb(this, other, device)
         ok &= hb_ok
+    if "wide" in args.sections:
+        wide_ok, summary["wide"] = compare_wide(this, other, device)
+        ok &= wide_ok
     if "icp" in args.sections:
         icp_ok, summary["icp"] = compare_icp(this, other, device)
         ok &= icp_ok
