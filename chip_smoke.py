@@ -24,7 +24,8 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    on a segment both take; [lcp-wide] its hypothesis-group variant, also
    against the streaming kernel and on ties across its chunk and tile edges;
    [icp-stream] the model-streaming ICP kernel,
-   one pass and four iterations;
+   one pass (also on exact ties across its tiles), four iterations, and a
+   singular hypothesis that comes out non-finite as in the plain loop;
 4. [e2e] a 640x480 scene of three boxes on a table, ray-cast here in numpy,
    through the port's prepare_object and estimate_pose (GT / PCS / LCP) at the
    default configuration; every object must come back within ADD-S 1 cm, and
@@ -852,12 +853,10 @@ def time_hb_coarse(args, h, nv, ns) -> dict:
                 bound_ms=bound, cuda_core_bound_ms=core_bound, shape=[h, nv, ns], registers=regs)
 
 
-def device_ms(fn, kernel: str, launches: int = 1, reps: int = 20) -> float | None:
-    """Device time of one fn() call from torch.profiler: the spans of the
-    kernels whose name holds `kernel`, summed over reps calls (no host time
-    between launches) and divided by reps. None unless the profiler kept
-    exactly reps * launches such spans: it may drop events, and a sum over
-    some of them reads low. Where it is None the CUDA-event time stands alone."""
+def device_spans(fn, kernel: str, reps: int) -> list[tuple[str, float]]:
+    """(name, ms) of the device spans of the kernels whose name holds
+    `kernel` over reps calls of fn() (after one call outside the profile), no
+    host time between launches."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -866,13 +865,42 @@ def device_ms(fn, kernel: str, launches: int = 1, reps: int = 20) -> float | Non
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    spans = [e for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+    return [(e.name, (e.time_range.end - e.time_range.start) / 1e3) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+
+
+def device_ms(fn, kernel: str, launches: int = 1, reps: int = 20) -> float | None:
+    """Device time of one fn() call from torch.profiler: the spans of the
+    kernels whose name holds `kernel`, summed over reps calls and divided by
+    reps. None unless the profiler kept exactly reps * launches such spans: it
+    may drop events, and a sum over some of them reads low. Where it is None
+    the CUDA-event time stands alone."""
+    spans = device_spans(fn, kernel, reps)
     if len(spans) != reps * launches:
         log(f"[profile] {kernel}: {len(spans)} device spans kept of {reps * launches}; "
             "no device time")
         return None
-    return sum(e.time_range.end - e.time_range.start for e in spans) / 1e3 / reps
+    return sum(ms for _, ms in spans) / reps
+
+
+def kernel_means_ms(fn, kernel: str, reps: int = 20) -> dict[str, float] | None:
+    """Device time of each kernel whose name holds `kernel`, for a fn() that
+    launches each such kernel once a call: per exact kernel name, the mean of
+    the spans torch.profiler kept over reps calls. The profiler drops a span
+    now and then (one of 20 is common), which leaves device_ms nothing; the
+    mean of one kernel's kept spans does not read low. None where a name has
+    more than reps spans (`kernel` matched a kernel launched more than once a
+    call) or no span was kept."""
+    spans: dict[str, list[float]] = {}
+    for name, ms in device_spans(fn, kernel, reps):
+        spans.setdefault(name, []).append(ms)
+    kept = sorted(len(v) for v in spans.values())
+    if not spans or kept[-1] > reps:
+        log(f"[profile] {kernel}: spans kept per kernel {kept} of {reps} calls; no device time")
+        return None
+    if kept[0] < reps:
+        log(f"[profile] {kernel}: spans kept per kernel {kept} of {reps} calls")
+    return {name: sum(v) / len(v) for name, v in spans.items()}
 
 
 # Model points tied on purpose, (copy, original): the copy takes the
@@ -1231,13 +1259,29 @@ def phase_lcp_wide(device) -> tuple[dict, int]:
     return stats, launches
 
 
+def icp_stream_device_ms(run) -> tuple[float | None, float | None]:
+    """(scan kernel, whole pass) device ms of an icp_corr_stream call: each of
+    its two kernels' mean span (kernel_means_ms), the pass their sum."""
+    means = kernel_means_ms(run, "icp_corr_stream") or {}
+    scan = [v for k, v in means.items() if "icp_corr_stream_kernel" in k]
+    if len(scan) != 1 or len(means) != 2:
+        return None, None
+    return scan[0], sum(means.values())
+
+
 def phase_icp_stream(device) -> tuple[dict, int]:
     """icp_corr_stream against icp_stream_pass_plain: (A, b) of one pass at the
     shape the scoring pipeline's large-cloud ICP branch sees (H 256, Nm 1,024,
-    Ns 4,096) with masked points and garbage hypotheses, at two tiles; then
+    Ns 4,096) with masked points and garbage hypotheses, at two tiles, and on
+    kernel_inputs.icp_tie_inputs (every d2 exact, most nearest points tied,
+    many of them across tiles) at tiles 37, 100 and 256, and at tile 512 on
+    larger lattices, and with a model too large to stay staged; then
     refine_icp_stream for four iterations, its path, against the same loop
-    over the plain pass; then the pass timed alone, beside one iteration of
-    plain refine_icp on the same inputs."""
+    over the plain pass; a batch with kernel_inputs.with_singular_hypothesis
+    (non-finite at the same hypotheses as the plain loop, as in the JAX
+    package); then the pass timed alone (events, and the device time of its
+    two kernels from kernel_means_ms), beside one iteration of plain
+    refine_icp on the same inputs."""
     from physimglobalpose_tpu_torch.ops import icp
 
     h, nm, ns, n_garbage = 256, 1024, 4096, 8
@@ -1264,15 +1308,49 @@ def phase_icp_stream(device) -> tuple[dict, int]:
             fail("icp_corr_stream: a near-truth hypothesis found no correspondence")
         worst = max(worst, err_a, err_b)
 
+    # Exact ties: on the 216-point lattice at tiles that are no multiple of a
+    # chunk; on 1,000 and 4,096 points at tile 512, more chunks a tile than
+    # the match word has bits (chunks c and c + 8 share one), the model staged
+    # and streamed (above 1,792 slots the walk rebuilds the points it visits).
+    for side, tiles in ((6, (37, 100, 256)), (10, (512,)), (16, (512, 100))):
+        tie_tfs, tie_m, tie_n, tie_s, tie_mask = kernel_inputs.icp_tie_inputs(device, side=side)
+        tie_args = (tie_tfs[:, :3, :].reshape(-1, 12).contiguous(),
+                    icp.pack_icp_stream_segment(tie_s, tie_mask), tie_m, tie_n, 0.02)
+        for tile in tiles:
+            err = _check_icp_pass(f"icp_corr_stream ties Nm={tie_m.shape[0]} nm_tile={tile}",
+                                  icp.icp_corr_stream(*tie_args, tile),
+                                  icp.icp_stream_pass_plain(*tie_args, tile))
+            log(f"[icp-stream] exact ties H={tie_tfs.shape[0]} Nm={tie_m.shape[0]} "
+                f"Ns={tie_s.shape[0]} nm_tile={tile}: rel_err={err:.3e} (tol {TOL_ICP_PASS:.0e})")
+            worst = max(worst, err)
+
+    # A random model above the slots the kernel keeps staged (1,792): the scan
+    # streams it through shared memory and the walk rebuilds the points it visits.
+    b_tfs, b_m, b_n, b_s, b_mask = icp_inputs(71, 16, 4096, 700, 10, 2, device)
+    big_args = (b_tfs[:, :3, :].reshape(-1, 12).contiguous(),
+                icp.pack_icp_stream_segment(b_s, b_mask), b_m, b_n, 0.02)
+    for tile in (256, 100):
+        err = _check_icp_pass(f"icp_corr_stream large model nm_tile={tile}",
+                              icp.icp_corr_stream(*big_args, tile),
+                              icp.icp_stream_pass_plain(*big_args, tile))
+        log(f"[icp-stream] large model H=16 Nm=4096 Ns=700 nm_tile={tile}: rel_err={err:.3e} "
+            f"(tol {TOL_ICP_PASS:.0e})")
+        worst = max(worst, err)
+
+    def plain_loop(tf, m, nrm, s, mask, iters):
+        want = tf.to(torch.float32)  # refine_icp_stream's loop over the plain pass
+        seg = icp.pack_icp_stream_segment(s, mask)
+        for _ in range(iters):
+            pa, pb = icp.icp_stream_pass_plain(
+                want[:, :3, :].reshape(-1, 12).contiguous(), seg, m, nrm, 0.02)
+            want = icp.icp_update(want, pa, pb)
+        return want
+
     icp.icp_corr_stream.launches = 0
     got = icp.refine_icp_stream(tfs, mpts, mnrm, spts, smask, iters=4)
     torch.cuda.synchronize()
     launches = icp.icp_corr_stream.launches
-    want = tfs.to(torch.float32)  # the same loop over the plain pass
-    for _ in range(4):
-        pa, pb = icp.icp_stream_pass_plain(
-            want[:, :3, :].reshape(-1, 12).contiguous(), seg4, mpts, mnrm, 0.02)
-        want = icp.segside_update(want, pa, pb)
+    want = plain_loop(tfs, mpts, mnrm, spts, smask, 4)
     torch.cuda.synchronize()
     place = lambda tf: torch.einsum("hij,nj->hni", tf[:, :3, :3], mpts) + tf[:, None, :3, 3]
     disp = (place(got) - place(want)).norm(dim=-1).mean(dim=-1)
@@ -1285,7 +1363,24 @@ def phase_icp_stream(device) -> tuple[dict, int]:
     if float((got[h - n_garbage:] - tfs[h - n_garbage:]).abs().max()) > 1e-6:
         fail("refine_icp_stream moved a hypothesis without correspondences")
 
-    ms = cuda_time_ms(lambda: icp.icp_corr_stream(tr12, seg4, mpts, mnrm, 0.02), reps=5, inner=10)
+    # Four near-truth hypotheses, two without correspondences and a singular one.
+    keep = torch.tensor([0, 1, 2, 3, h - 2, h - 1], device=device)
+    sing = kernel_inputs.with_singular_hypothesis(tfs[keep], mpts, mnrm, spts, smask)
+    got_s = icp.refine_icp_stream(*sing, iters=2)
+    want_s = plain_loop(*sing, 2)
+    finite = lambda x: [bool(v) for v in torch.isfinite(x).reshape(x.shape[0], -1).all(dim=1)]
+    log(f"[icp-stream] singular hypothesis, 2 iterations: finite kernel {finite(got_s)}, "
+        f"plain loop {finite(want_s)}")
+    if finite(got_s) != finite(want_s) or finite(got_s) != [True] * 6 + [False]:
+        fail("refine_icp_stream: non-finite poses differ from the plain loop's")
+    m_s = sing[1]
+    place_s = lambda tf: torch.einsum("hij,nj->hni", tf[:6, :3, :3], m_s) + tf[:6, None, :3, 3]
+    if float((place_s(got_s) - place_s(want_s)).norm(dim=-1).mean(dim=-1).max()) > TOL_ICP_REFINE:
+        fail("refine_icp_stream beside a singular hypothesis parts from the plain loop")
+
+    run = lambda: icp.icp_corr_stream(tr12, seg4, mpts, mnrm, 0.02)
+    ms = cuda_time_ms(run, reps=5, inner=10)
+    dev_ms, pass_dev_ms = icp_stream_device_ms(run)
     plain_ms = cuda_time_ms(lambda: icp.icp_stream_pass_plain(tr12, seg4, mpts, mnrm, 0.02),
                             reps=2, warmup=1)
     refine_icp_ms = cuda_time_ms(
@@ -1303,12 +1398,16 @@ def phase_icp_stream(device) -> tuple[dict, int]:
     ops_s = (8.0 * h * nm * ns + 60.0 * h * (nm + ns)) / PEAK_FP32_FLOPS
     bytes_s = 4.0 * (12 * h + 4 * ns + 6 * nm + 42 * h) / PEAK_HBM_BYTES
     bound = max(ops_s, bytes_s) * 1e3
-    log(f"[icp-stream] timed pass H={h} Nm={nm} Ns={ns}: icp_corr_stream={ms:.4f} ms "
-        f"plain={plain_ms:.3f} ms; one iteration of plain refine_icp={refine_icp_ms:.3f} ms; "
-        f"cdist_nearest_yardstick={cdist_ms:.3f} ms; bound={bound:.5f} ms share {bound / ms:.4f}")
-    stats = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+    regs = registers_of("icp_corr_stream")
+    log(f"[icp-stream] timed pass H={h} Nm={nm} Ns={ns}: icp_corr_stream={ms:.4f} ms (device: "
+        f"scan kernel {dev_ms} ms, with the finishing kernel {pass_dev_ms} ms) "
+        f"plain={plain_ms:.3f} ms; one iteration of plain refine_icp="
+        f"{refine_icp_ms:.3f} ms; cdist_nearest_yardstick={cdist_ms:.3f} ms; bound={bound:.5f} ms "
+        f"share {bound / ms:.4f}; registers (ptxas) {json.dumps(regs)}")
+    stats = dict(max_abs_err=worst, ms=ms, device_ms=dev_ms, pass_device_ms=pass_dev_ms,
+                 plain_ms=plain_ms, bound_ms=bound,
                  refine_icp_iteration_ms=refine_icp_ms, cdist_yardstick_ms=cdist_ms,
-                 shape=[h, nm, ns])
+                 shape=[h, nm, ns], registers=regs)
     return stats, launches
 
 
@@ -1652,8 +1751,9 @@ def main() -> int:
                   "unweighted_ms", "default_ms", "scene_unweighted_ms", "scene_default_ms")}),
         entry("icp_corr_stream", "physimglobalpose_tpu_torch/csrc/icp_corr_stream.cu",
               "physimglobalpose_tpu/ops/icp.py:569", "ops/icp.py::_icp_corr_kernel",
-              icp_stream_launches, icp_stream_stats, shape=icp_stream_stats["shape"],
-              cdist_yardstick_ms=icp_stream_stats["cdist_yardstick_ms"]),
+              icp_stream_launches, icp_stream_stats,
+              **{k: icp_stream_stats[k] for k in (
+                  "shape", "device_ms", "pass_device_ms", "cdist_yardstick_ms", "registers")}),
         entry("lcp_stream_wide", stream_src, "scripts/lcp_wide_kernel_experiment.py:42",
               "scripts/lcp_wide_kernel_experiment.py::_lcp_kernel_wide", wide_launches,
               wide_stats, **{k: wide_stats[k] for k in (

@@ -177,3 +177,55 @@ def icp_pass_args(tfs, mpts, mnrm, spts, smask):
     """(tr12, seg4, centred poses) of one correspondence pass."""
     seg_c, tr_c = lcp.center_at_segment(tfs, spts, smask)
     return tr_c[:, :3, :].reshape(-1, 12).contiguous(), icp.pack_icp_segment(seg_c, smask), tr_c
+
+
+def icp_tie_inputs(device, n_seg: int = 200, n_masked: int = 12, side: int = 6):
+    """A model on a lattice of spacing 4/256 m near the origin (side^3
+    points in a shuffled order, random unit normals) and segment points at
+    its cell centres, face centres, edge midpoints and points (8-, 4-, 2- and
+    1-fold exact ties of the nearest distance) or at odd offsets; every
+    coordinate is a multiple of 2^-8 m and every pose keeps it so (rotations
+    by quarter turns, translations on the grid), so every d2 of the
+    model-streaming pass is exact in float32 and any two computations of it
+    find the same ties. Poses: the identity, a quarter turn about z, a half
+    turn about x, a shift by half a cell (which swaps the roles of cell
+    centres and lattice points) and one 0.7 m away (no correspondence)."""
+    rng = np.random.default_rng(11)
+    g = np.arange(-(side // 2), side - side // 2) * 4
+    lattice = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    model = lattice[rng.permutation(len(lattice))] / 256.0
+    mnrm = rng.normal(size=model.shape)
+    mnrm /= np.linalg.norm(mnrm, axis=1, keepdims=True)
+    offsets = np.array([[2, 2, 2], [2, 2, 0], [0, 2, 2], [2, 0, 0], [0, 0, 0], [1, 3, 0],
+                        [3, 1, 2]])
+    seg = (lattice[rng.choice(len(lattice), n_seg)]
+           + offsets[rng.integers(len(offsets), size=n_seg)]) / 256.0
+    mask = np.ones(n_seg, bool)
+    mask[rng.choice(n_seg, n_masked, replace=False)] = False
+    tfs = np.tile(np.eye(4), (5, 1, 1))
+    tfs[1, :3, :3] = [[0, -1, 0], [1, 0, 0], [0, 0, 1]]
+    tfs[1, :3, 3] = np.array([4, 0, -4]) / 256.0
+    tfs[2, :3, :3] = np.diag([1.0, -1.0, -1.0])
+    tfs[2, :3, 3] = np.array([0, 4, 0]) / 256.0
+    tfs[3, :3, 3] = np.array([2, 2, 2]) / 256.0
+    tfs[4, :3, 3] = [0.5, 0.5, 0.0]
+    as_t = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt, device=device)
+    return as_t(tfs), as_t(model), as_t(mnrm), as_t(seg), as_t(mask, torch.bool)
+
+
+def with_singular_hypothesis(tfs, mpts, mnrm, spts, smask):
+    """The ICP inputs with one hypothesis more, the last, whose pass has
+    exactly one correspondence and an exactly singular system: a model point
+    m = (0.25, 0, 0) with normal (1, 0, 0), a segment point (0.25, 0, 2) and
+    the pose (I, (0, 0, 2)), which puts m on it. There d2 = 0 exactly, w = 1,
+    r = 0 and the Jacobian row is (0, 2, 0, 1, 0, 0), all powers of two, so A
+    is exactly of rank one (1e-8 is lost beside 4 and 1), b = 0, and an LU
+    factorisation of A + 1e-8 I meets an exact zero pivot. m lies about 20 cm from
+    a model of a few centimetres, the segment point over a metre from the
+    other hypotheses' models."""
+    dev = tfs.device
+    pose = torch.eye(4, device=dev)
+    pose[2, 3] = 2.0
+    cat = lambda a, row: torch.cat([a, torch.as_tensor(row, dtype=a.dtype, device=dev)[None]])
+    return (torch.cat([tfs, pose[None]]), cat(mpts, [0.25, 0.0, 0.0]), cat(mnrm, [1.0, 0.0, 0.0]),
+            cat(spts, [0.25, 0.0, 2.0]), cat(smask, True))

@@ -23,7 +23,8 @@ Three refiners:
   size, in the scene frame, the model streaming past the segment in tiles of
   nm_tile points (csrc/icp_corr_stream.cu, icp_corr_stream; plain version
   icp_stream_pass_plain). Within a tile exactly tied nearest model points are
-  averaged; a later tile replaces the match only when strictly nearer. No
+  averaged; a later tile replaces the match only when strictly nearer. Its
+  update has no finite guard, as the JAX package's refine_icp_pallas. No
   other code of the package calls it, as in the JAX package.
 """
 
@@ -318,12 +319,15 @@ def icp_segside_pass(tr12, seg4, model_pts, model_nrm, max_corr_dist: float = 0.
     return fn(tr12, seg4, model_pts, model_nrm, max_corr_dist, matmul_precision)
 
 
-def segside_update(tfs, a, b):
-    """One pose update from the normal equations: solve (A + 1e-8 I) x = b,
-    x = (omega, t) -> Rodrigues rotation, composed onto tfs [H, 4, 4]. A
-    hypothesis whose update is not finite keeps its pose."""
+def icp_update(tfs, a, b):
+    """One pose update from the normal equations, the step of the JAX
+    package's refine_icp_pallas: solve (A + 1e-8 I) x = b by an LU
+    factorisation, x = (omega, t) -> Rodrigues rotation, composed onto tfs
+    [H, 4, 4]. No guard: where the solve is not finite (an exactly singular
+    system meets a zero pivot) the pose comes out non-finite."""
     eye6 = torch.eye(6, device=tfs.device, dtype=a.dtype)
-    x = torch.linalg.solve_ex(a + 1e-8 * eye6, b[..., None]).result[..., 0]  # no host sync
+    lu, pivots, _ = torch.linalg.lu_factor_ex(a + 1e-8 * eye6)  # no host sync
+    x = torch.linalg.lu_solve(lu, pivots, b[..., None])[..., 0]
     omega, t = x[:, :3], x[:, 3:]
     theta = torch.linalg.norm(omega, dim=-1, keepdim=True)
     kx = _skew(omega / torch.clamp(theta, min=1e-12))
@@ -336,6 +340,13 @@ def segside_update(tfs, a, b):
     out[:, :3, :3] = drot @ tfs[:, :3, :3]
     out[:, :3, 3] = torch.einsum("hij,hj->hi", drot, tfs[:, :3, 3]) + t
     out[:, 3, 3] = 1.0
+    return out
+
+
+def segside_update(tfs, a, b):
+    """icp_update with the guard of refine_icp_pallas_segside: a hypothesis
+    whose update is not finite keeps its pose."""
+    out = icp_update(tfs, a, b)
     finite = torch.all(torch.isfinite(out).reshape(out.shape[0], -1), dim=-1)
     return torch.where(finite[:, None, None], out, tfs)
 
@@ -379,7 +390,9 @@ def refine_icp_segside(
 
 # Model points per tile of the tie rule, as the TPU wrapper sets it.
 STREAM_NM_TILE = 256
-_STREAM_SEG_CHUNK = 512  # segment points a block takes (csrc/icp_corr_stream.cu)
+# Segment points whose 27 sums the kernel keeps apart, a warp's group (kGroup
+# in csrc/icp_corr_stream.cu): its workspace holds a row per group.
+_STREAM_SEG_CHUNK = 128
 
 
 def pack_icp_stream_segment(seg_pts, seg_mask) -> torch.Tensor:
@@ -476,8 +489,8 @@ def icp_corr_stream(tr12, seg4, model_pts, model_nrm, max_corr_dist: float = 0.0
     if nm_tile < 1:
         raise ValueError("icp_corr_stream: nm_tile must be positive")
     out = torch.empty((h, 42), dtype=torch.float32, device=dev)
-    # 27 sums per (hypothesis, segment chunk); the launcher's second kernel adds
-    # the chunks per hypothesis in index order.
+    # 27 sums per (hypothesis, segment group); the launcher's second kernel
+    # adds the groups per hypothesis in index order.
     partial = torch.empty((h, -(-ns // _STREAM_SEG_CHUNK), 27), dtype=torch.float32, device=dev)
     rc = _icp_stream_launcher()(
         tr12.data_ptr(), seg4.data_ptr(), model_pts.data_ptr(), model_nrm.data_ptr(),
@@ -515,12 +528,14 @@ def refine_icp_stream(
     """Model-streaming point-to-plane ICP for clouds of any size (the JAX
     package's refine_icp_pallas); returns [H, 4, 4].
 
-    Every iteration is one icp_stream_pass and one segside_update (the same
-    6x6 solve, Rodrigues rotation and composition; there a hypothesis whose
-    update is not finite keeps its pose). It works in the scene frame, without
-    centring, in float32 only. The matches differ from refine_icp's where
-    nearest distances tie exactly: ties are averaged within a tile of nm_tile
-    model points and a later tile does not join them.
+    Every iteration is one icp_stream_pass and one icp_update (the 6x6 solve,
+    Rodrigues rotation and composition), with no finite guard, as in
+    refine_icp_pallas: a hypothesis whose solve is not finite comes out
+    non-finite. One without any correspondence keeps its pose (A = 1e-8 I,
+    b = 0). It works in the scene frame, without centring, in float32 only.
+    The matches differ from refine_icp's where nearest distances tie exactly:
+    ties are averaged within a tile of nm_tile model points and a later tile
+    does not join them.
     """
     seg4 = pack_icp_stream_segment(seg_pts, seg_mask)
     mp = model_pts.to(torch.float32).contiguous()
@@ -529,5 +544,5 @@ def refine_icp_stream(
     for _ in range(iters):
         tr12 = tfs[:, :3, :].reshape(-1, 12).contiguous()
         a, b = icp_stream_pass(tr12, seg4, mp, mn, max_corr_dist, nm_tile)
-        tfs = segside_update(tfs, a, b)
+        tfs = icp_update(tfs, a, b)
     return tfs

@@ -1,13 +1,14 @@
-"""Time the LCP and segment-stationary ICP kernels of this tree against
-another revision's on one card.
+"""Time the LCP and ICP kernels of this tree against another revision's on
+one card.
 
     git archive <revision> physimglobalpose_tpu_torch/csrc | tar -x -C build/other
     python3 tools/compare_lcp_kernels.py \
         --other-csrc build/other/physimglobalpose_tpu_torch/csrc [--out FILE.json] \
-        [--sections lcp hb wide icp units]
+        [--sections lcp hb wide icp icp-stream units]
 
-Builds lcp_segside.cu, lcp_stream.cu and icp_corr_segside.cu of both trees
-with the package's nvcc flags and calls their C launchers on the same
+Builds lcp_segside.cu, lcp_stream.cu, icp_corr_segside.cu and
+icp_corr_stream.cu of both trees with the package's nvcc flags and calls
+their C launchers on the same
 tensors, at the shapes of PERF.md's kernel table, timing each pair in turns
 (other, this, this, other; CUDA events, median; the kernels' device time from
 torch.profiler beside it). Sections:
@@ -22,11 +23,21 @@ torch.profiler beside it). Sections:
          tiers: the same rule as hb;
   icp    icp_corr_segside at the ICP shapes of both scoring calls, both tiers:
          (A, b) within 1e-6 of the other tree's, relative to the largest entry;
+  icp-stream  icp_corr_stream at H 256 and 32 x Nm 1,024 x Ns 4,096 (tile
+         256) and on kernel_inputs.icp_tie_inputs (tiles 37, 100, 256; tile
+         512 on lattices of 1,000 and 4,096 points): the same rule as icp (the
+         matches must agree; the order of the sums over segment points may
+         differ); device times of the scan kernel and of the pass (the scan's
+         mean span plus the finishing kernel's, chip_smoke.kernel_means_ms);
+         at the first two shapes also this tree's streamed variant against
+         its staged one;
   units  this tree's unweighted lcp_segside on its two units, the CUDA cores
          and the tensor-core filter, over a grid of lowered-tier shapes: what
          the launcher's routing rule rests on.
 The inputs are physimglobalpose_tpu_torch/kernel_inputs.py's, the timers
-chip_smoke.py's; a device time is null where the profiler dropped spans.
+chip_smoke.py's; a device time is null where the profiler dropped spans
+(chip_smoke.device_ms), but for icp-stream's (the mean of each kernel's kept
+spans).
 Prints one line per case and a JSON summary; exits non-zero when a check
 above fails. Two revisions are compared inside one run only: two runs may
 land on cards with other power limits.
@@ -48,7 +59,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))  # the repositor
 
 import chip_smoke  # noqa: E402  (the timers)
 from physimglobalpose_tpu_torch import _build, kernel_inputs  # noqa: E402
-from physimglobalpose_tpu_torch.ops import lcp  # noqa: E402
+from physimglobalpose_tpu_torch.ops import icp, lcp  # noqa: E402
 
 _COMMON = [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
                                  ctypes.c_void_p]
@@ -67,11 +78,11 @@ def build_other(csrc: Path, name: str) -> ctypes.CDLL:
 
 
 class Kernels:
-    """The LCP and segment-stationary ICP launchers of one tree behind one
-    calling convention."""
+    """The LCP and ICP launchers of one tree behind one calling convention."""
 
-    def __init__(self, segside: ctypes.CDLL, stream: ctypes.CDLL, icp_lib: ctypes.CDLL):
-        self.segside, self.stream, self.icp = segside, stream, icp_lib
+    def __init__(self, segside: ctypes.CDLL, stream: ctypes.CDLL, icp_lib: ctypes.CDLL,
+                 icp_stream: ctypes.CDLL):
+        self.segside, self.stream, self.icp, self.icp_stream = segside, stream, icp_lib, icp_stream
         # A tree whose lcp_segside sums model tiles takes a workspace before `out`.
         self.tiled = hasattr(segside, "lcp_segside_workspace_tiles")
         segside.lcp_segside_launch.argtypes = [ctypes.c_void_p] * (6 if self.tiled else 5) + _COMMON
@@ -80,6 +91,27 @@ class Kernels:
             fn.argtypes = [ctypes.c_void_p] * 6 + _STREAM_COMMON
         icp_lib.icp_corr_segside_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
             ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        for name in ("icp_corr_stream_launch", "icp_corr_stream_launch_streamed"):
+            if hasattr(icp_stream, name):
+                getattr(icp_stream, name).argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+                    ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+
+    def run_icp_stream(self, tr12, seg4, mpts, mnrm, nm_tile: int, max_corr: float = 0.02,
+                       streamed: bool = False):
+        """streamed: the kernel's streamed variant at any size (this tree only)."""
+        h, ns, nm = tr12.shape[0], seg4.shape[0], mpts.shape[0]
+        out = torch.empty((h, 42), dtype=torch.float32, device=tr12.device)
+        # A row of 27 sums per 128 segment points covers either tree's workspace.
+        partial = torch.empty((h, -(-ns // 128), 27), dtype=torch.float32, device=tr12.device)
+        launch = (self.icp_stream.icp_corr_stream_launch_streamed if streamed
+                  else self.icp_stream.icp_corr_stream_launch)
+        rc = launch(
+            tr12.data_ptr(), seg4.data_ptr(), mpts.data_ptr(), mnrm.data_ptr(),
+            partial.data_ptr(), out.data_ptr(), h, ns, nm, min(nm_tile, nm), max_corr * max_corr,
+            2.0 * (max_corr * 0.5) ** 2, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"icp_corr_stream launch failed with CUDA error {rc}")
+        return out
 
     def run_icp(self, tr12, seg4, mpts, mnrm, tier: int, max_corr: float = 0.02):
         h, ns, nm = tr12.shape[0], seg4.shape[0], mpts.shape[0]
@@ -260,22 +292,76 @@ def compare_icp(this, other, device) -> tuple[bool, list]:
     return ok, rows
 
 
+def compare_icp_stream(this, other, device) -> tuple[bool, list]:
+    ok, rows = True, []
+    cases = []
+    for h in (256, 32):
+        tfs, mpts, mnrm, spts, smask = kernel_inputs.icp_inputs(70, h, 1024, 4096, 100, 8, device)
+        cases.append((f"{h}x1024x4096", tfs, mpts, mnrm, spts, smask, (icp.STREAM_NM_TILE,)))
+    cases.append(("ties", *kernel_inputs.icp_tie_inputs(device), (37, 100, 256)))
+    # More chunks a tile than the match word has bits, the model staged (1,000
+    # points) and streamed (4,096).
+    for side in (10, 16):
+        cases.append((f"ties side {side}", *kernel_inputs.icp_tie_inputs(device, side=side),
+                      (512,)))
+    for label, tfs, mpts, mnrm, spts, smask, tiles in cases:
+        tr12 = tfs[:, :3, :].reshape(-1, 12).contiguous()
+        seg4 = icp.pack_icp_stream_segment(spts, smask)
+        for tile in tiles:
+            run = lambda k, streamed=False: k.run_icp_stream(tr12, seg4, mpts, mnrm, tile,
+                                                             streamed=streamed)
+            a, b = run(this), run(other)
+            rel = float((a - b).abs().max() / b.abs().max())
+            ok &= rel <= 1e-6
+            t = lambda f: chip_smoke.cuda_time_ms(f, reps=5, warmup=1, inner=10)
+            o1, n1, n2, o2 = (t(lambda: run(k)) for k in (other, this, this, other))
+            (od, od2), (nd, nd2) = (chip_smoke.icp_stream_device_ms(lambda: run(k))
+                                    for k in (other, this))
+            row = dict(kernel="icp_corr_stream", label=label, nm_tile=tile,
+                       shape=list(tr12.shape[:1]) + [mpts.shape[0], seg4.shape[0]],
+                       other_ms=[o1, o2], this_ms=[n1, n2], other_device_ms=od,
+                       this_device_ms=nd, other_pass_device_ms=od2, this_pass_device_ms=nd2,
+                       rel_diff=rel)
+            line = (f"[icp-stream] {label} nm_tile={tile}: other {o1:.4f} / {o2:.4f} ms, this "
+                    f"{n1:.4f} / {n2:.4f} ms (scan kernel device {od} -> {nd}; with the "
+                    f"finishing kernel {od2} -> {nd2}; {min(o1, o2) / max(n1, n2):.2f}x), "
+                    f"(A, b) relative difference {rel:.3e} (tol 1e-6)")
+            if label.endswith("x4096"):
+                # This tree's streamed variant on the same call, in turns with
+                # the staged one: the gain that keeps the staged variant.
+                a_s = run(this, True)
+                rel_s = float((a_s - a).abs().max() / a.abs().max())
+                ok &= rel_s <= 1e-6
+                s1, g1, g2, s2 = (t(lambda: run(this, v)) for v in (True, False, False, True))
+                sd, sd2 = chip_smoke.icp_stream_device_ms(lambda: run(this, True))
+                gd, gd2 = chip_smoke.icp_stream_device_ms(lambda: run(this))
+                row.update(streamed_ms=[s1, s2], staged_ms=[g1, g2], streamed_device_ms=sd,
+                           staged_device_ms=gd, streamed_pass_device_ms=sd2,
+                           staged_pass_device_ms=gd2, streamed_rel_diff=rel_s)
+                line += (f"; streamed variant {s1:.4f} / {s2:.4f} ms against staged {g1:.4f} / "
+                         f"{g2:.4f} ms (scan kernel device {sd} against {gd}), (A, b) relative "
+                         f"difference {rel_s:.3e}")
+            rows.append(row)
+            print(line)
+    return ok, rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other-csrc", required=True, type=Path)
     ap.add_argument("--out", type=Path)
-    ap.add_argument("--sections", nargs="+", default=["lcp", "hb", "wide", "icp", "units"],
-                    choices=["lcp", "hb", "wide", "icp", "units"])
+    sections = ["lcp", "hb", "wide", "icp", "icp-stream", "units"]
+    ap.add_argument("--sections", nargs="+", default=sections, choices=sections)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("compare_lcp_kernels: no CUDA device", file=sys.stderr)
         return 1
     device = torch.device("cuda")
     smi = chip_smoke.phase_device()
-    this = Kernels(_build.load("lcp_segside"), _build.load("lcp_stream"),
-                   _build.load("icp_corr_segside"))
-    other = Kernels(*(build_other(args.other_csrc, name)
-                      for name in ("lcp_segside", "lcp_stream", "icp_corr_segside")))
+    names = ("lcp_segside", "lcp_stream", "icp_corr_segside", "icp_corr_stream")
+    _build.build(names)  # this tree's, one nvcc per source, all started together
+    this = Kernels(*(_build.load(name) for name in names))
+    other = Kernels(*(build_other(args.other_csrc, name) for name in names))
     ok, rows, summary = True, [], dict(card=smi)
 
     if "lcp" in args.sections:
@@ -308,6 +394,9 @@ def main() -> int:
     if "icp" in args.sections:
         icp_ok, summary["icp"] = compare_icp(this, other, device)
         ok &= icp_ok
+    if "icp-stream" in args.sections:
+        stream_ok, summary["icp_stream"] = compare_icp_stream(this, other, device)
+        ok &= stream_ok
     if "units" in args.sections:
         units_ok, summary["units"] = time_units(device)
         ok &= units_ok
