@@ -41,7 +41,14 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    LCP kernel; [e2e-large] the scene again with max_segment_points = 4096,
    whose hypothesis scoring takes it; the direct calls of [lcp-wide] and
    [icp-stream] are the paths of the two kernels no pipeline routes to;
-7. one JSON line describing every kernel, the card line, and last a JSON
+7. the physics-aware search on the three-box scene at the default configuration,
+   run after [e2e-large] and before [scoring]: [leaf] one batch of 128
+   placements through the leaf evaluator (settle, splat render, pixel cost) on
+   the card against the same batch on the CPU,
+   then its warm time, launches and device-idle share; [mcts] and [greedy]
+   estimate_pose in MCTS and GREEDY mode, every object within ADD-S 1 cm,
+   the LCP stage's lcp_segside launched, the search's time and expansions;
+8. one JSON line describing every kernel, the card line, and last a JSON
    line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX. Exits non-zero without a CUDA device.
@@ -49,6 +56,7 @@ Imports nothing of JAX. Exits non-zero without a CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -853,15 +861,35 @@ def time_hb_coarse(args, h, nv, ns) -> dict:
                 bound_ms=bound, cuda_core_bound_ms=core_bound, shape=[h, nv, ns], registers=regs)
 
 
+# Once a process has profiled a large session (the ~37,000 launches of [leaf]),
+# torch.profiler loses device spans of later sessions: a few in each, now and
+# then most of one. With this pause between the profiler's start and the first
+# launch, the scoring call's early coarse span was kept in every session of
+# tools/profile_drop_probe.py; the cause inside the profiler is not known
+# (PERF.md section 7).
+PROFILE_PAUSE_S = 0.02
+
+
+@contextlib.contextmanager
+def profiled(*activities):
+    """torch.profiler over the body, which starts PROFILE_PAUSE_S after the
+    profiler; yields the profile, read after the block."""
+    from torch.profiler import profile
+
+    with profile(activities=list(activities)) as prof:
+        time.sleep(PROFILE_PAUSE_S)
+        yield prof
+
+
 def device_spans(fn, kernel: str, reps: int) -> list[tuple[str, float]]:
     """(name, ms) of the device spans of the kernels whose name holds
     `kernel` over reps calls of fn() (after one call outside the profile), no
     host time between launches."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profiled(ProfilerActivity.CUDA) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -1498,9 +1526,10 @@ def phase_scoring(device, large: bool = False) -> tuple[dict, dict]:
             f"{max(walls):.3f}), CUDA events {event_ms:.3f} ms, "
             f"{h / (wall_ms * 1e-3):.0f} hyp/s")
         launches = counts
-    busy_ms = profile_scene(
+    prof = profile_scene(
         run, label="scoring, clutter inputs" + (", 4,096-point segments" if large else ""))
-    if busy_ms is not None:
+    if prof is not None:
+        busy_ms = prof["busy_ms"]
         # The profiler slows the host; against the unprofiled warm call the
         # same device time gives the idle share a caller sees.
         wall_ms = stats["clutter"]["wall_ms"]
@@ -1514,11 +1543,11 @@ def check_coarse_span(run, name: str, tries: int = 3) -> None:
     spans: exactly one lcp_segside_hb kernel, the tensor-core filter
     (lcp_segside_hb_mma_kernel). A run whose profile kept no such span (the
     profiler may drop events) is tried again."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     for _ in range(tries):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profiled(ProfilerActivity.CUDA) as prof:
             run()
             torch.cuda.synchronize()
         spans = [e.name for e in prof.events()
@@ -1559,7 +1588,7 @@ def scene_setup(device, workdir: str) -> dict:
         color=np.zeros((HEIGHT, WIDTH, 3), np.uint8), depth=depth, intrinsics=INTRINSICS,
         cam_pose=cam_pose, object_names=[b[0] for b in BOXES], class_mask=label,
     )
-    return dict(cam_pose=cam_pose, objects=objects, db=db, scene=sc)
+    return dict(cam_pose=cam_pose, objects=objects, db=db, scene=sc, label=label)
 
 
 def phase_e2e(device, workdir: str, setup: dict, large: bool = False) -> tuple[dict, dict]:
@@ -1630,18 +1659,30 @@ def phase_e2e(device, workdir: str, setup: dict, large: bool = False) -> tuple[d
     return timings, launches
 
 
-def profile_scene(run, label: str = "scene") -> float | None:
+# The runtime API calls that launch a kernel: CUPTI records each on the host
+# side, beside the kernel's device span.
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+
+
+def profile_scene(run, label: str = "scene") -> dict | None:
     """One more call of run() under torch.profiler: device busy time, its
-    share of the wall time, and the device time by kernel (top entries)."""
-    from torch.profiler import ProfilerActivity, profile
+    share of the wall time, and the device time by kernel (top entries).
+    Launches are counted twice: the host's launch calls and the kernels'
+    device spans. The profiler loses a few spans once a process has profiled
+    large sessions (PERF.md section 7): spans_lost says how many, and busy
+    time then reads low by their share."""
+    from torch.profiler import ProfilerActivity
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiled(ProfilerActivity.CPU, ProfilerActivity.CUDA) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    all_events = prof.events()
+    events = [e for e in all_events if e.device_type == torch.autograd.DeviceType.CUDA]
+    launch_calls = sum(1 for e in all_events
+                       if e.device_type != torch.autograd.DeviceType.CUDA and e.name in LAUNCH_CALLS)
     if not events:
         log(f"[profile] {label}: no device events recorded: device busy share not measured")
         return None
@@ -1657,12 +1698,149 @@ def profile_scene(run, label: str = "scene") -> float | None:
     for e in events:
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    kernels = sum(1 for e in events if not e.name.startswith(("Memcpy", "Memset")))
     log("[profile] " + json.dumps({
         "what": label, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms, "device_events": len(events),
+        "kernel_launches": launch_calls, "kernel_spans": kernels,
+        "spans_lost": launch_calls - kernels,
         "top_device_ms": {k[:60]: round(v, 3) for k, v in top},
     }))
-    return busy_ms
+    return {"busy_ms": busy_ms, "launches": launch_calls, "spans_lost": launch_calls - kernels}
+
+
+# The search phases' bar: every object within ADD-S 1 cm of the truth.
+SEARCH_ADDS_BAR = 0.01
+# [leaf]: the card's leaf batch against the same batch on the CPU.
+TOL_LEAF_COST = 2.0  # pixels a leaf
+TOL_LEAF_POS = 1e-3  # m
+TOL_LEAF_ROT = 1e-3  # rad
+
+
+def table_pose_world() -> np.ndarray:
+    """The physics table box of the scene: top face at world z = 0."""
+    from physimglobalpose_tpu_torch.config import DEFAULT_CONFIG
+
+    pose = np.eye(4, dtype=np.float32)
+    pose[2, 3] = -DEFAULT_CONFIG.physics.table_half_extents[2]
+    return pose
+
+
+def phase_leaf(device, setup: dict) -> dict:
+    """One BatchedLeafEvaluator on the three-box scene at the default
+    configuration (render scale 4, 4,096-point render clouds, full hulls,
+    sequential settle): 128 random placements from a numpy seed, on the card
+    and on the CPU; then one batch timed warm with CUDA events and once
+    under the profiler."""
+    from physimglobalpose_tpu_torch.config import DEFAULT_CONFIG
+    from physimglobalpose_tpu_torch.pipeline import api, mcts
+
+    cfg = DEFAULT_CONFIG
+    lcp_result = api.estimate_pose(
+        "<memory>", setup["db"], cfg=cfg, seed=0, scene=setup["scene"], refine_final=False,
+        write_result=False, device=device,
+    )
+    sc = setup["scene"]
+    hyp_world, _scores, obj_hulls = mcts._scene_search_inputs(lcp_result.objects, sc, setup["db"], cfg)
+    # The observed depth with the table removed exactly (the ray-cast labels).
+    obs = np.where(setup["label"] > 0, sc.depth, 0.0).astype(np.float32)
+    make = lambda dev: mcts.BatchedLeafEvaluator(
+        obj_hulls, hyp_world, obs, sc.intrinsics, sc.cam_pose, table_pose_world(), cfg, device=dev)
+    ev, ev_cpu = make(device), make("cpu")
+    k, c = hyp_world.shape[:2]
+    b = cfg.mcts.leaf_batch
+    rng = np.random.default_rng(0)
+    choices = rng.integers(0, c, (b, k))
+    placed = rng.integers(1, k + 1, b)  # rows place 1..K objects, as the tree's do
+    choices[np.arange(k)[None, :] >= placed[:, None]] = -1
+    active = choices >= 0
+    costs, settled = ev.evaluate(choices, active)
+    costs_cpu, settled_cpu = ev_cpu.evaluate(choices, active)
+    cost_err = float(np.abs(costs - costs_cpu).max())
+    pos_err = float(np.abs(settled[..., :3, 3] - settled_cpu[..., :3, 3]).max())
+    # The angle between two rotations from their chordal distance
+    # |R1 - R2|_F = 2 sqrt(2) sin(angle / 2), which stays exact near zero.
+    chord = np.linalg.norm((settled[..., :3, :3] - settled_cpu[..., :3, :3]).astype(np.float64),
+                           axis=(-2, -1))
+    rot_err = float((2.0 * np.arcsin(np.minimum(chord / (2.0 * np.sqrt(2.0)), 1.0))).max())
+    log(f"[leaf] {b} leaves x {k} objects ({int(active.sum())} placements), render "
+        f"{ev.h}x{ev.w}, {obj_hulls[0]['render_pts'].shape[0]}-point clouds: card vs CPU worst "
+        f"cost {cost_err:.1f} px, position {pos_err:.2e} m, rotation {rot_err:.2e} rad; "
+        f"costs {costs.min():.0f}-{costs.max():.0f}")
+    if not (np.isfinite(costs).all() and np.isfinite(settled).all()):
+        fail("[leaf] non-finite costs or poses")
+    if cost_err > TOL_LEAF_COST or pos_err > TOL_LEAF_POS or rot_err > TOL_LEAF_ROT:
+        fail(f"[leaf] the card and the CPU disagree beyond {TOL_LEAF_COST} px / "
+             f"{TOL_LEAF_POS} m / {TOL_LEAF_ROT} rad")
+    # Queueing a batch must not wait for the card: CUDA's sync debug mode
+    # raises on any operation that synchronises with the host.
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ev.evaluate_async(choices, active)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log("[leaf] evaluate_async queued a batch with no host synchronisation")
+    ms = cuda_time_ms(lambda: ev.evaluate_async(choices, active), reps=3, warmup=1)
+    log(f"[leaf] warm batch {ms:.2f} ms ({ms / b:.3f} ms a leaf), CUDA events")
+    prof = profile_scene(lambda: ev.evaluate(choices, active), label=f"leaf batch of {b}") or {}
+    return {"batch_ms": ms, "leaf_ms": ms / b, "device_busy_ms": prof.get("busy_ms"),
+            "launches": prof.get("launches"), "spans_lost": prof.get("spans_lost"),
+            "cost_err": cost_err,
+            "pos_err": pos_err, "rot_err": rot_err}
+
+
+def phase_search(device, workdir: str, setup: dict, mode: str) -> dict:
+    """estimate_pose(verification_mode=mode) on the three-box scene at the
+    default configuration (top_k 25, branching 25, 1,200 expansions, the
+    TrICP final pass), on the card; every object within SEARCH_ADDS_BAR."""
+    from physimglobalpose_tpu_torch.config import DEFAULT_CONFIG
+    from physimglobalpose_tpu_torch.geometry import metrics
+    from physimglobalpose_tpu_torch.ops import lcp
+    from physimglobalpose_tpu_torch.pipeline import api
+
+    tag = f"[{mode.lower()}]"
+    cfg = DEFAULT_CONFIG
+    result_path = os.path.join(workdir, f"result_{mode}.txt")
+    lcp.lcp_segside.launches, lcp.lcp_segside.tier_launches = 0, [0, 0, 0]
+    t0 = time.perf_counter()
+    result = api.estimate_pose(
+        "<memory>", setup["db"], verification_mode=mode, cfg=cfg, seed=0,
+        scene=setup["scene"], result_path=result_path, device=device,
+    )
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = lcp.lcp_segside.tier_launches[0]
+    timings = {k: v for k, v in result.timings.items() if k != "result_path"}
+    timings["wall_s"] = wall
+    out = {"timings": timings, "lcp_segside_launches": launches}
+    if mode == "MCTS":
+        log(f"{tag} expansions {timings['search_expansions']} of a budget of "
+            f"{timings['search_budget']}; the {cfg.mcts.max_search_seconds:.0f} s deadline cut "
+            f"the search: {timings['search_deadline_cut']}")
+    log(f"{tag} timings {json.dumps(timings)}; lcp_segside launches {launches}")
+    if launches < 1:
+        fail(f"{tag} the run launched no lcp_segside")
+    if [o.name for o in result.objects] != [b[0] for b in BOXES]:
+        fail(f"{tag} estimate_pose returned another object list")
+    inv_cam = np.linalg.inv(setup["cam_pose"])
+    as_t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    adds_all = {}
+    for (name, _cls, size, xy, yaw), est in zip(BOXES, result.objects):
+        gt_cam = inv_cam @ box_pose_world(size, xy, yaw)
+        if not np.isfinite(est.pose_cam).all():
+            fail(f"{tag} {name}: non-finite pose")
+        adds = float(metrics.adds_error(as_t(est.pose_cam), as_t(gt_cam),
+                                        as_t(setup["objects"][name].validation_pts)))
+        adds_all[name] = adds
+        log(f"{tag} {name}: score={est.score:.4f} ADD-S={adds * 1000:.2f} mm "
+            f"t_world={np.round(est.pose_world[:3, 3], 4).tolist()}")
+        if not adds < SEARCH_ADDS_BAR:
+            fail(f"{tag} {name}: ADD-S {adds * 1000:.2f} mm >= {SEARCH_ADDS_BAR * 1000:.0f} mm")
+    with open(result_path) as fh:
+        if len(fh.read().splitlines()) != len(BOXES):
+            fail(f"{tag} result.txt does not have a row per object")
+    out["adds_m"] = adds_all
+    return out
 
 
 def main() -> int:
@@ -1686,8 +1864,11 @@ def main() -> int:
         setup = scene_setup(device, workdir)
         _timings, launches = phase_e2e(device, workdir, setup)
         _timings, large_launches = phase_e2e(device, workdir, setup, large=True)
-    _scoring_stats, scoring_launches = phase_scoring(device)
-    _scoring_stats, scoring_large_launches = phase_scoring(device, large=True)
+        leaf_stats = phase_leaf(device, setup)
+        mcts_stats = phase_search(device, workdir, setup, "MCTS")
+        greedy_stats = phase_search(device, workdir, setup, "GREEDY")
+        _scoring_stats, scoring_launches = phase_scoring(device)
+        _scoring_stats, scoring_large_launches = phase_scoring(device, large=True)
 
     lcp_src = "physimglobalpose_tpu_torch/csrc/lcp_segside.cu"
     stream_src = "physimglobalpose_tpu_torch/csrc/lcp_stream.cu"
@@ -1714,7 +1895,10 @@ def main() -> int:
               unweighted_ms=lcp_stats["unweighted_ms"],
               # ms is the kernel alone; the same call through lcp_scores, with
               # the centring and the packing:
-              lcp_scores_ms=lcp_stats["lcp_scores_ms"]),
+              lcp_scores_ms=lcp_stats["lcp_scores_ms"],
+              # The LCP stage ahead of the searches launches it too.
+              launches_mcts=mcts_stats["lcp_segside_launches"],
+              launches_greedy=greedy_stats["lcp_segside_launches"]),
         entry("lcp_segside/default", lcp_src, "physimglobalpose_tpu/ops/lcp.py:420",
               "ops/lcp.py::_lcp_kernel_segside (default tier)",
               scoring_launches["lcp_segside/default"], tier_stats["default"],
@@ -1763,6 +1947,7 @@ def main() -> int:
     for k in kernels:
         if k["launches"] <= 0:
             fail(f"kernel {k['name']} was not launched on its main path")
+    log("[search] " + json.dumps({"leaf": leaf_stats, "mcts": mcts_stats, "greedy": greedy_stats}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -8,8 +8,9 @@ Here:
       --obj-config <obj_config.yml> --model-dir <meshes> [--device cpu]
 
 Runs on the card (--device cuda, the default) unless asked for the CPU. The
-flags match the JAX package's CLI; modes that are not ported yet raise
-NotImplementedError.
+flags match the JAX package's CLI; --verification takes LCP, MCTS or GREEDY
+(the physics-aware searches); the segmentation and hypothesis modes that are
+not ported yet raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -36,7 +37,9 @@ def main(argv=None):
     p.add_argument("--verification", default="LCP", choices=["LCP", "MCTS", "GREEDY"])
     p.add_argument("--obj-config", required=True, help="obj_config.yml path")
     p.add_argument("--model-dir", required=True, help="mesh directory")
-    p.add_argument("--cache-dir", default="/tmp/physim_tpu_cache")
+    p.add_argument("--cache-dir", default=None,
+                   help="asset cache (default: physimglobalpose_tpu_torch_cache "
+                        "under the temporary directory)")
     p.add_argument("--objects", nargs="*", default=None,
                    help="restrict asset prep to these objects")
     p.add_argument("--seed", type=int, default=0)
@@ -87,8 +90,8 @@ def main(argv=None):
         sc = scene_mod.load_scene(args.scene, dataset=args.dataset)
     only = args.objects if args.objects else sc.object_names
     db = objectdb.load_object_db(
-        args.obj_config, args.model_dir, config=cfg, cache_dir=args.cache_dir,
-        only=only, device=args.device,
+        args.obj_config, args.model_dir, config=cfg,
+        cache_dir=args.cache_dir or objectdb.default_cache_dir(), only=only, device=args.device,
     )
 
     for rep in range(args.repeat):

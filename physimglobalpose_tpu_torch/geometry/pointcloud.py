@@ -33,6 +33,30 @@ def backproject(
     return torch.stack([x, y, d], dim=-1), valid
 
 
+def project_zmin(
+    points: torch.Tensor,
+    valid: torch.Tensor,
+    intrinsics: torch.Tensor,
+    height: int,
+    width: int,
+) -> torch.Tensor:
+    """Project camera-frame points [N, 3] (mask [N]) into a depth map
+    [height, width] with z-min compositing (convert2d), 0 where nothing
+    projects. Pixels round to nearest, the inverse of backproject; the
+    reference's bounds are exclusive-low (utilities.cpp:240)."""
+    px = points @ intrinsics.T
+    z = px[:, 2]
+    safe_z = torch.where(z == 0, 1.0, z)
+    col = torch.floor(px[:, 0] / safe_z + 0.5).to(torch.int64)
+    row = torch.floor(px[:, 1] / safe_z + 0.5).to(torch.int64)
+    inb = (row > 0) & (row < height) & (col > 0) & (col < width) & valid & (z > 0)
+    flat = torch.where(inb, row * width + col, height * width)  # spill slot
+    buf = torch.full((height * width + 1,), torch.inf, device=points.device)
+    buf.scatter_reduce_(0, flat, torch.where(inb, z, torch.inf), reduce="amin")
+    depth = buf[:-1].reshape(height, width)
+    return torch.where(torch.isinf(depth), 0.0, depth)
+
+
 def compact_mask_indices(
     mask: torch.Tensor,
     max_points: int,

@@ -1,5 +1,4 @@
-"""SE(3) helpers on torch tensors (the subset the estimate_pose path and the
-pose metrics use).
+"""SE(3) helpers on torch tensors.
 
 Conventions as in the JAX package: quaternions are [w, x, y, z], poses are
 4x4 homogeneous matrices, world<->camera changes are plain matrix products.
@@ -11,6 +10,27 @@ from __future__ import annotations
 import torch
 
 from physimglobalpose_tpu_torch import _torchcfg  # noqa: F401  (precision setup)
+
+
+def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion [..., 4] (w, x, y, z) -> rotation matrix [..., 3, 3]."""
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    r = torch.stack(
+        [
+            1 - 2 * (y * y + z * z),
+            2 * (x * y - w * z),
+            2 * (x * z + w * y),
+            2 * (x * y + w * z),
+            1 - 2 * (x * x + z * z),
+            2 * (y * z - w * x),
+            2 * (x * z - w * y),
+            2 * (y * z + w * x),
+            1 - 2 * (x * x + y * y),
+        ],
+        dim=-1,
+    )
+    return r.reshape(q.shape[:-1] + (3, 3))
 
 
 def matrix_to_quat(m: torch.Tensor) -> torch.Tensor:
@@ -41,6 +61,34 @@ def matrix_to_quat(m: torch.Tensor) -> torch.Tensor:
     return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
 
 
+def pose_from_quat_trans(q: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """(quat [..., 4], trans [..., 3]) -> homogeneous pose [..., 4, 4]."""
+    return pose_from_rot_trans(quat_to_matrix(q), t)
+
+
+def pose_from_rot_trans(rot: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """(rotation [..., 3, 3], trans [..., 3]) -> pose [..., 4, 4], broadcast."""
+    batch = torch.broadcast_shapes(rot.shape[:-2], t.shape[:-1])
+    rot = rot.expand(batch + (3, 3))
+    t = t.expand(batch + (3,))
+    top = torch.cat([rot, t[..., :, None]], dim=-1)
+    bottom = top.new_zeros(batch + (1, 4))  # filled on the device: no host copy
+    bottom[..., 3] = 1.0
+    return torch.cat([top, bottom], dim=-2)
+
+
+def invert_pose(pose: torch.Tensor) -> torch.Tensor:
+    """Rigid inverse: [R|t]^-1 = [R^T | -R^T t] (utilities.cpp:303-329)."""
+    rot_t = pose[..., :3, :3].transpose(-1, -2)
+    t_new = -torch.einsum("...ij,...j->...i", rot_t, pose[..., :3, 3])
+    return pose_from_rot_trans(rot_t, t_new)
+
+
+def compose(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Pose composition a @ b with broadcasting."""
+    return a @ b
+
+
 def to_world(pose_cam: torch.Tensor, cam_pose: torch.Tensor) -> torch.Tensor:
     """Camera-frame object pose -> world frame."""
     return cam_pose @ pose_cam
@@ -51,6 +99,16 @@ def transform_points(pose: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     rot = pose[..., :3, :3]
     t = pose[..., :3, 3]
     return torch.einsum("...ij,...nj->...ni", rot, points) + t[..., None, :]
+
+
+def rotate_vectors(pose: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
+    """Apply only the rotation of pose [..., 4, 4] to vectors [..., N, 3]."""
+    return torch.einsum("...ij,...nj->...ni", pose[..., :3, :3], vecs)
+
+
+def to_camera(pose_world: torch.Tensor, cam_pose: torch.Tensor) -> torch.Tensor:
+    """World-frame object pose -> camera frame (utilities.cpp:332-338)."""
+    return compose(invert_pose(cam_pose), pose_world)
 
 
 def quat_to_euler_xyz(q: torch.Tensor) -> torch.Tensor:

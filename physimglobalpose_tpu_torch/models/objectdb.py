@@ -4,9 +4,10 @@ Reference: GlobalCfg loads obj_config.yml and builds an Objects entry per
 object (GlobalCfg.cpp:30-62), each loading a sparse matching cloud, a dense
 LCP cloud, a render mesh and a PPFMap.txt (Objects.cpp:8-49). Here the same
 content is derived from one mesh (models/assets.py, ops/ppf.py) and cached to
-an .npz whose name and layout are those of the JAX package, so one cache
-serves both packages. The clouds stay numpy on the host; the PPF table lives
-on the device the caller names.
+an .npz laid out as the JAX package's. Its name carries the port's own salt, so
+the port never reads a file the JAX package wrote, even in a shared directory:
+what the port loads, the port built. The clouds stay numpy on the host; the
+PPF table lives on the device the caller names.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import os
+import tempfile
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -29,6 +31,14 @@ _CACHE_KEYS = (
     "hull_pts", "hull_mask", "hull_eqs", "presence", "offsets", "counts", "pairs",
     "diameter",
 )
+# Ends the cache tag: the JAX package's tags end in ":v2".
+_CACHE_SALT = "v2:torch"
+
+
+def default_cache_dir() -> str:
+    """The command lines' asset cache: the port's own directory under the
+    temporary directory (TMPDIR honoured)."""
+    return os.path.join(tempfile.gettempdir(), "physimglobalpose_tpu_torch_cache")
 
 
 @dataclasses.dataclass
@@ -115,7 +125,7 @@ def prepare_object(
             f"{mesh_path}:{os.path.getmtime(mesh_path)}:{model_discretization}:"
             f"{config.max_model_points}:{config.max_validation_points}:"
             f"{config.max_hull_points}:{config.stocs.trans_disc_mm}:"
-            f"{config.stocs.rot_disc_deg}:{config.stocs.max_ppf_dist_mm}:v2".encode()
+            f"{config.stocs.rot_disc_deg}:{config.stocs.max_ppf_dist_mm}:{_CACHE_SALT}".encode()
         ).hexdigest()[:16]
         cache_file = os.path.join(cache_dir, f"{name}_{tag}.npz")
 

@@ -12,7 +12,8 @@ trim_fraction of in-range matches. Hypotheses run in chunks of h_chunk, so
 the [h_chunk, Ns, Nm] distance block is the largest tensor built.
 
 Three refiners:
-- refine_icp: plain PyTorch, every option (the final polish of estimate_pose);
+- refine_icp: plain PyTorch, every option (the final polish of estimate_pose;
+  icp_single is its loop for one pose without the finite guard);
 - refine_icp_segside: point-to-plane with Welsch weights only, in the
   segment-centred frame, one correspondence pass per iteration that returns
   just the 6x6 normal equations per hypothesis. On the card the pass is the
@@ -159,6 +160,17 @@ def _icp_chunk(tf, model_pts, model_nrm, seg_pts, seg_mask, iters, trim_fraction
             tf = solve(tf, *corr)
             done += 1
     return tf
+
+
+def icp_single(transform, model_pts, model_nrm, seg_pts, seg_mask, iters, trim_fraction,
+               max_corr_dist, point_to_plane, exact_trim=False, nn_refresh=1):
+    """Refine one pose [4, 4] with no finite guard: the counterpart of the JAX
+    package's ops/icp._icp_single, which the MCTS TrICP final pass calls and
+    guards itself."""
+    return _icp_chunk(
+        transform[None], model_pts, model_nrm, seg_pts, seg_mask, iters, trim_fraction,
+        max_corr_dist, point_to_plane, exact_trim, nn_refresh,
+    )[0]
 
 
 def refine_icp(

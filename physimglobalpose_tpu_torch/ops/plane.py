@@ -3,7 +3,9 @@
 Reference: SceneCfg::removeTable (SceneCfg.cpp:38-82) fits the dominant plane
 with PCL MSAC at a 5 mm threshold and zeroes every depth pixel within 5 mm of
 it. All RANSAC trials are scored at once as one [N, iters] distance block,
-then the best plane gets one least-squares refinement over its inliers.
+then the best plane gets one least-squares refinement over its inliers. The
+table frame for physics is then refined by ICP of a canonical table-top
+cloud against the plane inliers (SceneCfg.cpp:87-157).
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from physimglobalpose_tpu_torch import _torchcfg  # noqa: F401  (precision setup)
+from physimglobalpose_tpu_torch.ops import icp as icp_mod
 
 
 def fit_plane_ransac(
@@ -92,3 +95,43 @@ def table_pose_from_plane(plane: torch.Tensor, anchor: torch.Tensor) -> torch.Te
     pose[:3, :3] = torch.stack([x, y, z], dim=-1)
     pose[:3, 3] = anchor - (torch.dot(z, anchor) + plane[3]) * z
     return pose
+
+
+def canonical_table_cloud(
+    half_extents: tuple[float, float, float], grid: int = 12, device=None
+) -> torch.Tensor:
+    """Top-face grid [grid^2, 3] of the table box in the surface frame (z = 0).
+
+    The in-memory replacement for the reference's canonical `table.ply`
+    (SceneCfg.cpp:109): a regular grid over the top face of the same
+    0.8 x 0.8 m box the physics stage uses (PhySim.cpp:22-48).
+    """
+    hx, hy, _ = half_extents
+    xs = torch.linspace(-hx, hx, grid, device=device)
+    ys = torch.linspace(-hy, hy, grid, device=device)
+    gx, gy = torch.meshgrid(xs, ys, indexing="ij")
+    return torch.stack([gx.reshape(-1), gy.reshape(-1), torch.zeros_like(gx).reshape(-1)], dim=-1)
+
+
+def refine_table_pose(
+    table_pose: torch.Tensor,  # [4, 4] initial surface frame (z = plane normal)
+    scene_pts: torch.Tensor,  # [N, 3] scene points (same frame as table_pose)
+    scene_mask: torch.Tensor,  # [N] bool
+    plane4: torch.Tensor,  # [4] fitted plane
+    half_extents: tuple[float, float, float],
+    threshold: float = 0.005,
+    iters: int = 50,
+    max_corr_dist: float = 0.01,
+) -> torch.Tensor:
+    """getTableParams parity (SceneCfg.cpp:87-157): refine the table frame by
+    point-to-point ICP of the canonical table-top cloud against the plane
+    inliers (50 iterations, 1 cm correspondence cap in the reference). A
+    planar model constrains tilt and height, what the settle depends on."""
+    dist = torch.abs(scene_pts @ plane4[:3] + plane4[3])
+    inl = scene_mask & (dist < threshold)
+    cloud = canonical_table_cloud(half_extents, device=scene_pts.device)
+    refined = icp_mod.refine_icp(
+        table_pose[None], cloud, torch.zeros_like(cloud), scene_pts, inl,
+        iters=iters, trim_fraction=0.8, max_corr_dist=max_corr_dist, point_to_plane=False,
+    )
+    return refined[0]

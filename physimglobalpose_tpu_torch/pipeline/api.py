@@ -5,8 +5,8 @@ SceneFiles, SegmentationMode, HypothesisGenerationMode,
 HypothesisVerificationMode) and returns per-object label+pose, also writing
 result.txt (main.cpp:86-171). Here the same contract is a plain function:
 scene in, per-object camera- and world-frame poses out, result.txt in the
-reference's format. The GT / PCS / LCP request is ported; the other modes
-raise NotImplementedError.
+reference's format. GT segmentation with PCS hypotheses and the LCP, MCTS or
+GREEDY verification is ported; the other modes raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ from physimglobalpose_tpu_torch.config import PipelineConfig, DEFAULT_CONFIG
 from physimglobalpose_tpu_torch.geometry import se3
 from physimglobalpose_tpu_torch.models.objectdb import ObjectDB
 from physimglobalpose_tpu_torch.ops import icp as icp_mod
-from physimglobalpose_tpu_torch.pipeline import hypothesis, scene as scene_mod, segmentation
+from physimglobalpose_tpu_torch.pipeline import hypothesis, mcts, scene as scene_mod, segmentation
 from physimglobalpose_tpu_torch.pipeline.selection import lcp_select
 from physimglobalpose_tpu_torch.utils.tracing import trace_span, get_tracer
 
@@ -69,6 +69,26 @@ def _refine_final_batch(
     world = se3.to_world(refined, cam_pose)
     k = poses.shape[0]
     return torch.cat([refined.reshape(k, 16), world.reshape(k, 16)], dim=1)
+
+
+def _physics_table_pose(depth, intr, plane4, table_pose, cam_pose, cfg, gen) -> np.ndarray:
+    """The table box for the settle, in the world frame, on the host.
+
+    The table frame is ICP-refined against the raw depth's plane inliers
+    (getTableParams parity, SceneCfg.cpp:87-157). remove_table fits it in the
+    camera frame; physics needs it in the world frame (gravity along world
+    -z) with its local z up (the contact model's top face is local +z), and
+    the box is centred on its pose (PhySim.cpp:22-48), so its origin moves
+    down by the half extent from the surface."""
+    refined = scene_mod.refine_table_pose_from_depth(
+        depth, intr, plane4, table_pose, cfg, generator=gen
+    )
+    world = se3.to_world(refined, cam_pose).cpu().numpy()
+    if world[2, 2] < 0:
+        world[:3, 1] *= -1.0  # flip y and z columns:
+        world[:3, 2] *= -1.0  # still right-handed
+    world[:3, 3] -= cfg.physics.table_half_extents[2] * world[:3, 2]
+    return world
 
 
 @dataclasses.dataclass
@@ -145,16 +165,19 @@ def estimate_pose(
     """Estimate 6D poses for every object in a scene.
 
     Mirrors estimatePose (main.cpp:86-171): load scene -> remove table ->
-    segment -> per-object hypothesis generation -> selection -> world frame,
-    plus a point-to-plane ICP polish of each selected pose (refine_final).
+    segment -> per-object hypothesis generation -> selection -> world frame.
+    LCP selects each object's best-scoring hypothesis, plus a point-to-plane
+    ICP polish of each selected pose (refine_final). MCTS and GREEDY search
+    placements of the top hypotheses by physics settle, depth render and
+    pixel cost (pipeline/mcts.py) and install the settled poses; the polish
+    is skipped there. Timings then hold search_s, and in MCTS mode the
+    tree's search_expansions, search_budget and search_deadline_cut.
     Runs on the card unless device="cpu"; one torch.Generator seeded with
     `seed` drives every random draw, so a seed gives one result per device.
     """
     if debug_dir is not None:
         raise NotImplementedError("debug_dir dumps are not ported yet")
-    if verification_mode in ("MCTS", "GREEDY"):
-        raise NotImplementedError(f"verification mode {verification_mode!r} is not ported yet")
-    if verification_mode != "LCP":
+    if verification_mode not in ("LCP", "MCTS", "GREEDY"):
         raise ValueError(f"unknown verification mode {verification_mode!r}")
     if hypothesis_mode in _UNPORTED_GEN_MODES:
         raise NotImplementedError(f"hypothesis mode {hypothesis_mode!r} is not ported yet")
@@ -173,9 +196,8 @@ def estimate_pose(
     with trace_span(tracer, "remove_table"):
         intr = torch.as_tensor(sc.intrinsics, dtype=torch.float32, device=dev)
         cam_pose = torch.as_tensor(sc.cam_pose, dtype=torch.float32, device=dev)
-        depth_clean, _plane, _table_pose = scene_mod.remove_table(
-            torch.as_tensor(sc.depth, dtype=torch.float32, device=dev), intr, cfg, generator=gen
-        )
+        depth = torch.as_tensor(sc.depth, dtype=torch.float32, device=dev)
+        depth_clean, plane4, table_pose = scene_mod.remove_table(depth, intr, cfg, generator=gen)
         _torchcfg.synchronize(dev)
     timings["preprocess_s"] = time.perf_counter() - t0
 
@@ -256,7 +278,11 @@ def estimate_pose(
     _torchcfg.synchronize(dev)
     timings["hypothesis_s"] = time.perf_counter() - t_hyp
 
-    if refine_final:
+    # The searches take the hypotheses and overwrite the poses with the
+    # settled chosen assignment, so a polish of the best-LCP pose would be
+    # dead work there (the reference feeds raw hypotheses to UCT too,
+    # UCTSearch.cpp:56-88).
+    if refine_final and verification_mode == "LCP":
         with trace_span(tracer, "icp_refine"):
             t_icp = time.perf_counter()
             live = [i for i, est in enumerate(estimates) if est.score > 0]
@@ -280,6 +306,22 @@ def estimate_pose(
                     )
             _torchcfg.synchronize(dev)
             timings["icp_refine_s"] = time.perf_counter() - t_icp
+
+    if verification_mode in ("MCTS", "GREEDY"):
+        table_world = _physics_table_pose(depth, intr, plane4, table_pose, cam_pose, cfg, gen)
+        t_mcts = time.perf_counter()
+        with trace_span(tracer, "mcts"):
+            estimates = mcts.mcts_select(
+                estimates, sc, db, table_world, depth_clean, cfg, seed=seed,
+                search="greedy" if verification_mode == "GREEDY" else "uct",
+                # The per-object 3D segments enable the final-pass TrICP
+                # refinement (cfg.mcts.tricp_final).
+                segs=[segs_by_name[e.name] for e in estimates], device=dev,
+                # MCTS adds search_expansions, search_budget, search_deadline_cut.
+                stats=timings,
+            )
+            _torchcfg.synchronize(dev)
+        timings["search_s"] = time.perf_counter() - t_mcts
 
     timings["total_s"] = time.perf_counter() - t0
     result = PoseEstimationResult(objects=estimates, timings=timings)

@@ -149,6 +149,31 @@ def remove_table(
     return cleaned, pl4, plane.table_pose_from_plane(pl4, anchor)
 
 
+def refine_table_pose_from_depth(
+    depth: torch.Tensor,
+    intrinsics: torch.Tensor,
+    plane4: torch.Tensor,
+    table_pose: torch.Tensor,
+    cfg: PipelineConfig = DEFAULT_CONFIG,
+    generator: torch.Generator | None = None,
+    priority: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """getTableParams parity (SceneCfg.cpp:87-157): ICP-refine the table
+    frame against up to 4,096 of the raw depth's plane-inlier points (camera
+    frame). priority is the optional injected draw of the subsample (see
+    compact_mask_indices); it comes from `generator` when not given."""
+    pre = cfg.preprocess
+    pts, valid = pointcloud.backproject(depth, intrinsics, pre.depth_min, pre.depth_max)
+    flat_pts = pts.reshape(-1, 3)
+    dist = torch.abs(flat_pts @ plane4[:3] + plane4[3])
+    inl = valid.reshape(-1) & (dist < pre.plane_dist_threshold)
+    sub, sub_mask = pointcloud.compact_masked_points(flat_pts, inl, 4096, generator, priority)
+    return plane.refine_table_pose(
+        table_pose, sub, sub_mask, plane4, cfg.physics.table_half_extents,
+        threshold=pre.plane_dist_threshold,
+    )
+
+
 def scene_from_arrays(
     color: np.ndarray,
     depth: np.ndarray,

@@ -1,4 +1,4 @@
-"""Port parity: models/assets, ops/ppf, models/objectdb (same .npz cache)."""
+"""Port parity: models/assets, ops/ppf, models/objectdb (the .npz cache, apart from the JAX package's)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -89,13 +89,21 @@ def test_npz_cache_shared_with_jax(box_ply, tmp_path):
     cache = str(tmp_path / "cache")
     want = jobjectdb.prepare_object("box", box_ply, 3, [0, 0, 0], config=JCfg(**SMALL),
                                     cache_dir=cache)
-    got = objectdb.prepare_object("box", box_ply, 3, [0, 0, 0], config=PipelineConfig(**SMALL),
-                                  cache_dir=cache, device="cpu")
     import os
 
-    assert len(os.listdir(cache)) == 1  # the JAX package's file was read, not rebuilt
-    np.testing.assert_array_equal(got.validation_pts, want.validation_pts)
-    np.testing.assert_array_equal(n(got.ppf_table.pairs), np.asarray(want.ppf_table.pairs))
+    # A directory shared with the JAX package: the port writes its own file
+    # beside the JAX package's and never reads that one; its second call
+    # reads its own file back.
+    built = objectdb.prepare_object("box", box_ply, 3, [0, 0, 0], config=PipelineConfig(**SMALL),
+                                    cache_dir=cache, device="cpu")
+    assert len(os.listdir(cache)) == 2
+    stamps = {f: os.stat(os.path.join(cache, f)).st_mtime_ns for f in os.listdir(cache)}
+    got = objectdb.prepare_object("box", box_ply, 3, [0, 0, 0], config=PipelineConfig(**SMALL),
+                                  cache_dir=cache, device="cpu")
+    assert {f: os.stat(os.path.join(cache, f)).st_mtime_ns for f in os.listdir(cache)} == stamps
+    for model in (built, got):
+        np.testing.assert_array_equal(model.validation_pts, want.validation_pts)
+        np.testing.assert_array_equal(n(model.ppf_table.pairs), np.asarray(want.ppf_table.pairs))
 
 
 def test_from_numpy_carries_jax_assets(box_ply):

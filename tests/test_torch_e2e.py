@@ -1,14 +1,17 @@
-"""End-to-end: the port's estimate_pose (GT / PCS / LCP) on the CPU against
-the JAX package's, on a procedural two-box scene rendered with the JAX
-triangle rasterizer. No draws are injected end to end (the packages' random
-streams differ), so this holds outcomes: the same objects, each port pose
-within ADD-S 1 cm of ground truth and within 5 mm of the JAX translation.
-Exact parity is held module by module in the other test_torch_* files.
+"""End-to-end: the port's estimate_pose (GT / PCS / LCP, and the MCTS and
+GREEDY searches) on the CPU against the JAX package's, on a procedural
+two-box scene rendered with the JAX triangle rasterizer. No draws are
+injected end to end (the packages' random streams differ), so this holds
+outcomes: the same objects, each port pose within ADD-S 1 cm of ground truth
+and, for LCP, within 5 mm of the JAX translation. Exact parity is held
+module by module in the other test_torch_* files.
 
 Both packages have one rare failure mode on this scene: over seeds 10-21,
 about 1 in 20 (object, seed) draws of either package settles ~13 mm along
 a box face (ADD-S still < 1 cm). The 5 mm bar to JAX therefore holds per
 seed, not for every seed; seed 0 is a typical one for both."""
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -158,11 +161,53 @@ def test_estimate_pose_with_large_segments_matches_jax(setup):
         assert est.score > 0.1
 
 
+@pytest.mark.parametrize("mode", ["MCTS", "GREEDY"])
+def test_search_modes_match_jax_on_box_scene(setup, mode):
+    # The physics-aware search at a small budget (leaf batch 8, 4 hypotheses
+    # an object, 40 expansions; GREEDY expands up to 300 nodes of 4
+    # children), then the TrICP final pass. Outcome bars: the same objects as
+    # JAX, each settled pose within ADD-S 1 cm of the truth in both packages,
+    # a result.txt row per object.
+    s = setup
+    names = [b[0] for b in BOXES]
+
+    def cfg_of(mod):
+        return dataclasses.replace(
+            _cfg(mod), render=mod.RenderConfig(width=W, height=H),
+            mcts=mod.MCTSConfig(leaf_batch=8, branching=4, max_expansions=40))
+
+    jdb = jobjectdb.ObjectDB(s["jobjs"], {o.class_id: n for n, o in s["jobjs"].items()})
+    tobjs = {n: objectdb.from_numpy(jax_object_fields(o), cfg_of(tconfig), device="cpu")
+             for n, o in s["jobjs"].items()}
+    tdb = objectdb.ObjectDB(tobjs, {o.class_id: n for n, o in tobjs.items()})
+    kw = dict(color=np.zeros((H, W, 3), np.uint8), depth=s["depth"], intrinsics=INTR,
+              cam_pose=s["cam"], object_names=names, class_mask=s["label"])
+    want = japi.estimate_pose("<memory>", jdb, scene=jscene.scene_from_arrays(**kw),
+                              cfg=cfg_of(jconfig), seed=0, verification_mode=mode,
+                              write_result=False)
+    result_path = str(s["tmp"] / f"result_{mode}.txt")
+    got = api.estimate_pose("<memory>", tdb, scene=scene.scene_from_arrays(**kw),
+                            cfg=cfg_of(tconfig), seed=0, verification_mode=mode,
+                            result_path=result_path, device="cpu")
+    assert [o.name for o in got.objects] == [o.name for o in want.objects] == names
+    for est, jest in zip(got.objects, want.objects):
+        pts = s["jobjs"][est.name].validation_pts[::2]
+        assert _adds(est.pose_cam, s["gt"][est.name], pts) < 0.01, est.name
+        assert _adds(jest.pose_cam, s["gt"][est.name], pts) < 0.01, est.name
+        np.testing.assert_allclose(est.pose_world, s["cam"] @ est.pose_cam, atol=1e-5)
+    assert "search_s" in got.timings and "icp_refine_s" not in got.timings
+    if mode == "MCTS":
+        assert 0 < got.timings["search_expansions"] <= got.timings["search_budget"] <= 40
+        assert got.timings["search_deadline_cut"] is False
+    rows = [r.split() for r in open(result_path).read().splitlines()]
+    assert [r[0] for r in rows] == names and all(len(r) == 8 for r in rows)
+
+
 def test_unported_modes_raise(setup):
     s = setup
     tdb = objectdb.ObjectDB({}, {})
     sc = scene.scene_from_arrays(np.zeros((H, W, 3), np.uint8), s["depth"], INTR, s["cam"], [])
-    for kw in (dict(verification_mode="MCTS"), dict(segmentation_mode="FCN"),
+    for kw in (dict(segmentation_mode="FCN"),
                dict(hypothesis_mode="SUPER4PCS"), dict(debug_dir="/nonexistent")):
         with pytest.raises(NotImplementedError):
             api.estimate_pose("<memory>", tdb, scene=sc, device="cpu", write_result=False, **kw)
@@ -198,3 +243,37 @@ def test_cli_drives_a_cam_scene_on_the_cpu(setup, capsys):
     t_world = np.array([float(x) for x in rows[0].split()[1:4]])
     want = (s["cam"] @ s["gt"][name])[:3, 3]
     assert np.linalg.norm(t_world - want) < 0.01
+
+
+def test_cli_drives_mcts_on_the_cpu(tmp_path, capsys):
+    # `cli --verification MCTS` on chip_smoke.py's ray-cast 640x480 scene (the
+    # search renders at the configured 640x480 / render_scale), one box, the
+    # small preset: one padded leaf batch of 128 covers the 26-expansion
+    # budget of one object with 25 hypotheses.
+    from chip_smoke import BOXES as SMOKE_BOXES, INTRINSICS, render_scene
+    from physimglobalpose_tpu_torch import cli
+
+    cam = camera_pose()
+    depth, label = render_scene(cam)
+    name, cls, size, xy, yaw = SMOKE_BOXES[0]
+    write_box_ply(str(tmp_path / f"{name}.ply"), size)
+    np.savez(tmp_path / "scene.npz", color=np.zeros(depth.shape + (3,), np.uint8), depth=depth,
+             intrinsics=INTRINSICS, cam_pose=cam, object_names=np.array([name]),
+             class_mask=np.where(label == cls, cls, 0))
+    (tmp_path / "obj_config.yml").write_text(
+        "objects:\n  num_objects: 1\n  modelDiscretization: 0.01\n"
+        f"  object_1:\n    name: {name}\n    classId: {cls}\n    symmetry: [180, 180, 180]\n"
+    )
+    rc = cli.main([
+        "--dataset", "CAM", "--scene", str(tmp_path / "scene.npz"), "--obj-config",
+        str(tmp_path / "obj_config.yml"), "--model-dir", str(tmp_path), "--cache-dir",
+        str(tmp_path / "cache"), "--preset", "small", "--device", "cpu", "--verification", "MCTS",
+        "--result", str(tmp_path / "result.txt"),
+    ])
+    assert rc == 0
+    out = capsys.readouterr().out
+    assert out.startswith(f"{name}: t=(") and '"search_s"' in out
+    rows = (tmp_path / "result.txt").read_text().splitlines()
+    assert len(rows) == 1 and rows[0].split()[0] == name
+    t_world = np.array([float(x) for x in rows[0].split()[1:4]])
+    assert np.linalg.norm(t_world - box_pose_world(size, xy, yaw)[:3, 3]) < 0.01

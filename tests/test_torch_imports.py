@@ -40,7 +40,12 @@ def test_port_imports_no_jax():
     names = {str(p.relative_to(ROOT)) for p in files}
     assert {"physimglobalpose_tpu_torch/ops/scoring.py", "physimglobalpose_tpu_torch/ops/icp.py",
             "physimglobalpose_tpu_torch/ops/lcp.py", "physimglobalpose_tpu_torch/geometry/metrics.py",
-            "physimglobalpose_tpu_torch/bench_inputs.py"} <= names
+            "physimglobalpose_tpu_torch/bench_inputs.py",
+            "physimglobalpose_tpu_torch/ops/raster.py", "physimglobalpose_tpu_torch/ops/cost.py",
+            "physimglobalpose_tpu_torch/ops/physics.py",
+            "physimglobalpose_tpu_torch/pipeline/mcts.py",
+            "physimglobalpose_tpu_torch/pipeline/greedy_search.py",
+            "physimglobalpose_tpu_torch/pipeline/evaluate.py"} <= names
     offenders = {str(p.relative_to(ROOT)): b for p in files if (b := _forbidden_imports(p))}
     assert offenders == {}
 
@@ -80,7 +85,8 @@ def test_importing_the_port_builds_and_loads_no_kernel():
         ".".join(p.relative_to(ROOT).with_suffix("").parts)
         for p in (ROOT / "physimglobalpose_tpu_torch").rglob("*.py") if p.name != "__init__.py"
     )
-    assert "physimglobalpose_tpu_torch.ops.scoring" in modules
+    assert {"physimglobalpose_tpu_torch.ops.scoring", "physimglobalpose_tpu_torch.pipeline.mcts",
+            "physimglobalpose_tpu_torch.pipeline.evaluate"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
