@@ -48,7 +48,18 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    then its warm time, launches and device-idle share; [mcts] and [greedy]
    estimate_pose in MCTS and GREEDY mode, every object within ADD-S 1 cm,
    the LCP stage's lcp_segside launched, the search's time and expansions;
-8. one JSON line describing every kernel, the card line, and last a JSON
+8. the other modes of estimate_pose on the three-box scene (ray-cast, and
+   coloured as the networks' training renders are), after [greedy]: [fcn]
+   the shipped FCN checkpoints ("small" at the 640x640 canvas, "prior" with
+   TTA) and [detect] the shipped detection network, each on the card against
+   the same network on the CPU, with their frame times; [e2e-modes] the
+   SUPER4PCS, V4PCS and PPF_VOTING generators (GT masks, LCP), every object
+   within the ADD-S bar taken from the JAX package on the same scene,
+   lcp_segside launched once an object; [e2e-neural] the FCN, FCNThreshold,
+   RCNN and RCNNThreshold segmentations with the shipped networks, the
+   card's probability images against the CPU's (poses not held: the
+   networks were trained on other meshes);
+9. one JSON line describing every kernel, the card line, and last a JSON
    line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX. Exits non-zero without a CUDA device.
@@ -182,6 +193,38 @@ def render_scene(cam_pose: np.ndarray):
             label = np.where(ok, cls, label)
     depth = np.where(np.isfinite(best), best, 0.0).reshape(HEIGHT, WIDTH).astype(np.float32)
     return depth, label.reshape(HEIGHT, WIDTH)
+
+
+def class_color(class_id: int) -> np.ndarray:
+    """The per-class RGB (0-1) of the synthetic renders the shipped FCN and
+    detector were trained on (a copy of the JAX package's
+    utils/synthdata.class_color)."""
+    rng = np.random.default_rng(1000 + class_id)
+    hue = rng.uniform(0.0, 1.0)
+    i = int(hue * 6) % 6
+    f = hue * 6 - int(hue * 6)
+    v, s = 0.85, 0.75
+    p, q, t = v * (1 - s), v * (1 - f * s), v * (1 - (1 - f) * s)
+    rgb = [(v, t, p), (q, v, p), (p, v, t), (p, q, v), (t, p, v), (v, p, q)][i]
+    return np.asarray(rgb, np.float32)
+
+
+def shade_scene(depth: np.ndarray, label: np.ndarray, seed: int = 0) -> np.ndarray:
+    """A uint8 [H, W, 3] color image of the ray-cast scene: each box in its
+    class color, shaded darker with depth, on a grey table, with sensor noise
+    (the appearance model of the training renders, utils/synthdata.py's
+    colorize_from_label_depth without domain randomization)."""
+    rng = np.random.default_rng(seed)
+    obj = label > 0
+    color = np.full(label.shape + (3,), rng.uniform(0.1, 0.5), np.float32)
+    color += rng.normal(scale=0.05, size=color.shape)
+    shade = np.where(obj, 1.0 - 0.5 * (depth - depth[obj].min()), 1.0)
+    for c in np.unique(label[obj]):
+        sel = label == c
+        color[sel] = class_color(int(c)) * shade[sel, None]
+    color += rng.normal(scale=0.03, size=color.shape)
+    color *= rng.uniform(0.8, 1.2)
+    return (np.clip(color, 0.0, 1.0) * 255).astype(np.uint8)
 
 
 def write_box_ply(path: str, size):
@@ -1585,10 +1628,35 @@ def scene_setup(device, workdir: str) -> dict:
     log(f"[e2e] scene + assets in {time.perf_counter() - t0:.2f} s "
         f"({WIDTH}x{HEIGHT}, {int((depth > 0).sum())} depth pixels)")
     sc = scene_mod.scene_from_arrays(
-        color=np.zeros((HEIGHT, WIDTH, 3), np.uint8), depth=depth, intrinsics=INTRINSICS,
+        color=shade_scene(depth, label), depth=depth, intrinsics=INTRINSICS,
         cam_pose=cam_pose, object_names=[b[0] for b in BOXES], class_mask=label,
     )
     return dict(cam_pose=cam_pose, objects=objects, db=db, scene=sc, label=label)
+
+
+def _check_objects(tag, result, setup, bar, device) -> dict:
+    """Every object of the three-box scene back, in order, with a finite pose
+    within `bar` ADD-S of the truth (no bar when bar is None). Returns the
+    ADD-S by name."""
+    from physimglobalpose_tpu_torch.geometry import metrics
+
+    if [o.name for o in result.objects] != [b[0] for b in BOXES]:
+        fail(f"{tag} estimate_pose returned another object list")
+    inv_cam = np.linalg.inv(setup["cam_pose"])
+    as_t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)  # noqa: E731
+    adds_all = {}
+    for (name, _cls, size, xy, yaw), est in zip(BOXES, result.objects):
+        if not np.isfinite(est.pose_cam).all():
+            fail(f"{tag} {name}: non-finite pose")
+        gt_cam = inv_cam @ box_pose_world(size, xy, yaw)
+        adds = float(metrics.adds_error(as_t(est.pose_cam), as_t(gt_cam),
+                                        as_t(setup["objects"][name].validation_pts)))
+        adds_all[name] = adds
+        log(f"{tag} {name}: score={est.score:.4f} ADD-S={adds * 1000:.2f} mm "
+            f"t_world={np.round(est.pose_world[:3, 3], 4).tolist()}")
+        if bar is not None and not adds < bar:
+            fail(f"{tag} {name}: ADD-S {adds * 1000:.2f} mm >= {bar * 1000:.1f} mm")
+    return adds_all
 
 
 def phase_e2e(device, workdir: str, setup: dict, large: bool = False) -> tuple[dict, dict]:
@@ -1597,7 +1665,6 @@ def phase_e2e(device, workdir: str, setup: dict, large: bool = False) -> tuple[d
     configuration, whose LCP calls take lcp_segside; large=True:
     max_segment_points = 4096, whose LCP calls take lcp_stream."""
     from physimglobalpose_tpu_torch.config import DEFAULT_CONFIG
-    from physimglobalpose_tpu_torch.geometry import metrics
     from physimglobalpose_tpu_torch.ops import lcp
     from physimglobalpose_tpu_torch.pipeline import api
 
@@ -1606,7 +1673,6 @@ def phase_e2e(device, workdir: str, setup: dict, large: bool = False) -> tuple[d
     if large:
         cfg = dataclasses.replace(cfg, preprocess=dataclasses.replace(
             cfg.preprocess, max_segment_points=4096))
-    cam_pose, objects = setup["cam_pose"], setup["objects"]
     result_path = os.path.join(workdir, "result_large.txt" if large else "result.txt")
     run = lambda: api.estimate_pose(
         "<memory>", setup["db"], segmentation_mode="GT", hypothesis_mode="PCS",
@@ -1637,20 +1703,7 @@ def phase_e2e(device, workdir: str, setup: dict, large: bool = False) -> tuple[d
         {"lcp_segside": len(BOXES), "lcp_stream": 0}
     if launches != want:
         fail(f"{tag} launches {launches}, expected {want}")
-    if [o.name for o in result.objects] != [b[0] for b in BOXES]:
-        fail("estimate_pose returned another object list")
-    inv_cam = np.linalg.inv(cam_pose)
-    as_t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
-    for (name, _cls, size, xy, yaw), est in zip(BOXES, result.objects):
-        gt_cam = inv_cam @ box_pose_world(size, xy, yaw)
-        if not np.isfinite(est.pose_cam).all() or est.pose_cam.shape != (4, 4):
-            fail(f"{name}: non-finite pose")
-        adds = float(metrics.adds_error(as_t(est.pose_cam), as_t(gt_cam),
-                                        as_t(objects[name].validation_pts)))
-        log(f"{tag} {name}: score={est.score:.4f} ADD-S={adds * 1000:.2f} mm "
-            f"t_world={np.round(est.pose_world[:3, 3], 4).tolist()}")
-        if not adds < 0.01:
-            fail(f"{name}: ADD-S {adds * 1000:.2f} mm >= 10 mm")
+    _check_objects(tag, result, setup, 0.01, device)
     with open(result_path) as fh:
         rows = [r.split() for r in fh.read().splitlines()]
     if len(rows) != 3 or any(len(r) != 8 for r in rows):
@@ -1794,7 +1847,6 @@ def phase_search(device, workdir: str, setup: dict, mode: str) -> dict:
     default configuration (top_k 25, branching 25, 1,200 expansions, the
     TrICP final pass), on the card; every object within SEARCH_ADDS_BAR."""
     from physimglobalpose_tpu_torch.config import DEFAULT_CONFIG
-    from physimglobalpose_tpu_torch.geometry import metrics
     from physimglobalpose_tpu_torch.ops import lcp
     from physimglobalpose_tpu_torch.pipeline import api
 
@@ -1820,26 +1872,204 @@ def phase_search(device, workdir: str, setup: dict, mode: str) -> dict:
     log(f"{tag} timings {json.dumps(timings)}; lcp_segside launches {launches}")
     if launches < 1:
         fail(f"{tag} the run launched no lcp_segside")
-    if [o.name for o in result.objects] != [b[0] for b in BOXES]:
-        fail(f"{tag} estimate_pose returned another object list")
-    inv_cam = np.linalg.inv(setup["cam_pose"])
-    as_t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
-    adds_all = {}
-    for (name, _cls, size, xy, yaw), est in zip(BOXES, result.objects):
-        gt_cam = inv_cam @ box_pose_world(size, xy, yaw)
-        if not np.isfinite(est.pose_cam).all():
-            fail(f"{tag} {name}: non-finite pose")
-        adds = float(metrics.adds_error(as_t(est.pose_cam), as_t(gt_cam),
-                                        as_t(setup["objects"][name].validation_pts)))
-        adds_all[name] = adds
-        log(f"{tag} {name}: score={est.score:.4f} ADD-S={adds * 1000:.2f} mm "
-            f"t_world={np.round(est.pose_world[:3, 3], 4).tolist()}")
-        if not adds < SEARCH_ADDS_BAR:
-            fail(f"{tag} {name}: ADD-S {adds * 1000:.2f} mm >= {SEARCH_ADDS_BAR * 1000:.0f} mm")
+    out["adds_m"] = _check_objects(tag, result, setup, SEARCH_ADDS_BAR, device)
     with open(result_path) as fh:
         if len(fh.read().splitlines()) != len(BOXES):
             fail(f"{tag} result.txt does not have a row per object")
-    out["adds_m"] = adds_all
+    return out
+
+
+# [fcn] and [detect]: the card's networks against the same networks on the
+# CPU, with the CPU tests' bars (tests/test_torch_fcn.py, test_torch_detect.py).
+TOL_FCN_MAPS = 2e-2  # the float16 maps and the background map
+MIN_FCN_LABEL_AGREEMENT = 0.99  # share of pixels with the same argmax class
+TOL_BOX_PX = 1.0  # the top box of a class whose score is >= MIN_BOX_SCORE
+TOL_BOX_SCORE = 1e-2  # each class's top score
+MIN_BOX_SCORE = 0.05
+# [e2e-neural]: each object's probability image, card against CPU.
+MIN_PROB_IMAGE_AGREEMENT = 0.99
+
+
+def phase_fcn(device, setup: dict) -> dict:
+    """[fcn] The shipped "small" predictor at its 640x640 serving canvas on the
+    scene's 480x640 colour frame, then "prior" with TTA (0.5, 0.75, 1.0): the
+    card (bf16 convolutions on cuDNN, as the Flax modules) against the same
+    predictor on the CPU; warm frame time (CUDA events around the whole
+    predictor call: upload, forward, readback) and launches a frame."""
+    from physimglobalpose_tpu_torch.models import fcn
+
+    img = setup["scene"].color
+    ids = [b[1] for b in BOXES]
+    out = {}
+    for variant, tta in (("small", (1.0,)), ("prior", (0.5, 0.75, 1.0))):
+        tag = variant if len(tta) == 1 else f"{variant}+tta"
+        pred = fcn.load_shipped_predictor(variant=variant, tta_scales=tta, device=device)
+        pred_cpu = fcn.load_shipped_predictor(variant=variant, tta_scales=tta, device="cpu")
+        got, want = pred(img, ids), pred_cpu(img, ids)
+        keys = ids + [fcn.PREDICTOR_BACKGROUND_KEY]
+        map_err = max(float(np.abs(got[k] - want[k]).max()) for k in keys)
+        label = got[fcn.PREDICTOR_LABEL_KEY]
+        agree = float((label == want[fcn.PREDICTOR_LABEL_KEY]).mean())
+        iou = {}
+        for _name, cls, *_ in BOXES:
+            a, b = label == cls, setup["label"] == cls
+            iou[cls] = float((a & b).sum() / max((a | b).sum(), 1))
+        ms = cuda_time_ms(lambda: pred(img, ids), reps=10, warmup=2)
+        prof = profile_scene(lambda: pred(img, ids), label=f"fcn {tag} frame") or {}
+        log(f"[fcn] {tag}: card vs CPU max map error {map_err:.2e}, label agreement "
+            f"{agree:.5f}; warm frame {ms:.2f} ms (CUDA events); IoU with the scene's masks "
+            f"{json.dumps({k: round(v, 3) for k, v in iou.items()})} (not held: trained on "
+            f"other meshes)")
+        if not all(np.isfinite(got[k]).all() for k in keys):
+            fail(f"[fcn] {tag}: non-finite maps")
+        if map_err > TOL_FCN_MAPS or agree < MIN_FCN_LABEL_AGREEMENT:
+            fail(f"[fcn] {tag}: the card and the CPU disagree beyond {TOL_FCN_MAPS} / "
+                 f"{MIN_FCN_LABEL_AGREEMENT} label agreement")
+        out[tag] = {"frame_ms": ms, "map_err": map_err, "label_agreement": agree,
+                    "launches": prof.get("launches"), "device_busy_ms": prof.get("busy_ms"),
+                    "iou": iou}
+    return out
+
+
+def phase_detect(device, setup: dict) -> dict:
+    """[detect] The shipped detection network (CenterNet, input 240x320) on the
+    scene's 480x640 colour frame, card against CPU: the same top box per class
+    within TOL_BOX_PX wherever the score is at least MIN_BOX_SCORE; warm frame
+    time; then the learned detector callable on the card (the "prior" FCN with
+    TTA for the classes it misses)."""
+    from physimglobalpose_tpu_torch.models import detect
+    from physimglobalpose_tpu_torch.pipeline import detector as detector_mod
+
+    img = setup["scene"].color
+    bp = detect.load_shipped_box_predictor(device=device)
+    boxes, scores = bp(img)
+    cboxes, cscores = detect.load_shipped_box_predictor(device="cpu")(img)
+    fired = cscores[:, 0] >= MIN_BOX_SCORE
+    box_err = float(np.abs(boxes[fired, 0] - cboxes[fired, 0]).max()) if fired.any() else 0.0
+    score_err = float(np.abs(scores[:, 0] - cscores[:, 0]).max())  # each class's top score
+    ms = cuda_time_ms(lambda: bp(img), reps=10, warmup=2)
+    prof = profile_scene(lambda: bp(img), label="detector frame") or {}
+    learned = detector_mod.make_learned_detector(device=device)(img, [b[1] for b in BOXES])
+    log(f"[detect] classes at score >= {MIN_BOX_SCORE}: {(np.nonzero(fired)[0] + 1).tolist()}; "
+        f"card vs CPU top box {box_err:.3f} px, top scores {score_err:.2e}; warm frame {ms:.2f} ms "
+        f"(CUDA events); learned detector boxes {json.dumps(learned)}")
+    if not fired.any():
+        fail("[detect] no class reached the score bar on the CPU: nothing to compare")
+    if box_err > TOL_BOX_PX or score_err > TOL_BOX_SCORE:
+        fail(f"[detect] the card and the CPU disagree beyond {TOL_BOX_PX} px / {TOL_BOX_SCORE}")
+    return {"frame_ms": ms, "box_err_px": box_err, "score_err": score_err,
+            "classes_fired": int(fired.sum()), "launches": prof.get("launches"),
+            "device_busy_ms": prof.get("busy_ms")}
+
+
+# [e2e-modes]: the ADD-S bar of each hypothesis mode, from the JAX package on
+# the same scene at seed 0 on the CPU (scripts/jax_scene_modes_bar.py): 1 cm
+# where JAX puts every object within 1 cm, else JAX's worst ADD-S plus 1 cm.
+MODE_ADDS_BAR = {"SUPER4PCS": 0.01, "V4PCS": 0.01, "PPF_VOTING": 0.01}
+
+
+def phase_modes(device, workdir: str, setup: dict) -> dict:
+    """[e2e-modes] estimate_pose on the three-box scene at the default
+    configuration with GT segmentation, LCP verification and each of the
+    SUPER4PCS, V4PCS (uniform bases, distance pair lists, 10,000 hypotheses an
+    object, batched) and PPF_VOTING (256 voted poses an object) generators: a
+    warm-up call, then a timed one with lcp_segside's count read around it
+    (one launch an object); every object within MODE_ADDS_BAR."""
+    from physimglobalpose_tpu_torch.config import DEFAULT_CONFIG
+    from physimglobalpose_tpu_torch.ops import lcp
+    from physimglobalpose_tpu_torch.pipeline import api
+
+    out = {}
+    for mode, bar in MODE_ADDS_BAR.items():
+        tag = f"[e2e-modes] {mode}:"
+        result_path = os.path.join(workdir, f"result_{mode}.txt")
+        run = lambda: api.estimate_pose(  # noqa: E731
+            "<memory>", setup["db"], hypothesis_mode=mode, cfg=DEFAULT_CONFIG, seed=0,
+            scene=setup["scene"], result_path=result_path, device=device)
+        run()
+        lcp.lcp_segside.launches, lcp.lcp_segside.tier_launches = 0, [0, 0, 0]
+        t0 = time.perf_counter()
+        result = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = lcp.lcp_segside.tier_launches[0]
+        timings = {k: v for k, v in result.timings.items() if k != "result_path"}
+        timings["wall_s"] = wall
+        log(f"{tag} timings {json.dumps(timings)}; lcp_segside launches {launches}")
+        if launches != len(BOXES):
+            fail(f"{tag} lcp_segside launched {launches} times, expected {len(BOXES)}")
+        adds = _check_objects(tag, result, setup, bar, device)
+        with open(result_path) as fh:
+            if len(fh.read().splitlines()) != len(BOXES):
+                fail(f"{tag} result.txt does not have a row per object")
+        out[mode] = {"timings": timings, "lcp_segside_launches": launches, "adds_m": adds,
+                     "bar_m": bar}
+    return out
+
+
+def phase_neural(device, workdir: str, setup: dict) -> dict:
+    """[e2e-neural] estimate_pose on the three-box scene's colour frame in
+    FCN, FCNThreshold, RCNN and RCNNThreshold mode with the shipped networks
+    (the "small" FCN; the detection network, with the "prior" FCN for classes
+    it misses), PCS / LCP at the default configuration, on the card: a
+    warm-up call, then a timed one. The probability images the card's call
+    builds (caught at segmentation.build_prob_images) are held against the
+    same networks' on the CPU: at least MIN_PROB_IMAGE_AGREEMENT of the pixels
+    of each object's image. Every object comes back with a finite pose, the
+    identity where its image is empty (the JAX package's bail on a degenerate
+    segment). The poses are not held to the truth: the shipped networks were
+    trained on renders of the reference's meshes, which this repo lacks, not
+    on these boxes."""
+    from physimglobalpose_tpu_torch.config import DEFAULT_CONFIG
+    from physimglobalpose_tpu_torch.models import fcn
+    from physimglobalpose_tpu_torch.ops import lcp
+    from physimglobalpose_tpu_torch.pipeline import api, detector as detector_mod
+    from physimglobalpose_tpu_torch.pipeline import segmentation
+
+    sc = setup["scene"]
+    ids = [b[1] for b in BOXES]
+    cpu_nets = dict(nn_predictor=fcn.load_shipped_predictor(device="cpu"),
+                    detector=detector_mod.make_learned_detector(device="cpu"))
+    real = segmentation.build_prob_images
+    seen = {}
+
+    def spy(*a, **k):
+        seen["card"] = real(*a, **k)
+        return seen["card"]
+
+    out = {}
+    for mode in ("FCN", "FCNThreshold", "RCNN", "RCNNThreshold"):
+        tag = f"[e2e-neural] {mode}:"
+        run = lambda: api.estimate_pose(  # noqa: E731
+            "<memory>", setup["db"], segmentation_mode=mode, cfg=DEFAULT_CONFIG, seed=0,
+            scene=sc, write_result=False, device=device)
+        run()
+        segmentation.build_prob_images = spy
+        try:
+            lcp.lcp_segside.launches, lcp.lcp_segside.tier_launches = 0, [0, 0, 0]
+            t0 = time.perf_counter()
+            result = run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            segmentation.build_prob_images = real
+        cpu_images = real(mode, ids, color=sc.color, threshold=DEFAULT_CONFIG.preprocess.background_prob,
+                          **cpu_nets)
+        agree = {c: float((seen["card"][c] == cpu_images[c]).mean()) for c in ids}
+        pixels = {c: int((seen["card"][c] > 0).sum()) for c in ids}
+        timings = {k: v for k, v in result.timings.items() if k != "result_path"}
+        timings["wall_s"] = wall
+        log(f"{tag} timings {json.dumps(timings)}; mask pixels {json.dumps(pixels)}; card vs CPU "
+            f"image agreement {json.dumps({c: round(a, 5) for c, a in agree.items()})}; "
+            f"lcp_segside launches {lcp.lcp_segside.tier_launches[0]}")
+        if min(agree.values()) < MIN_PROB_IMAGE_AGREEMENT:
+            fail(f"{tag} the card's probability images differ from the CPU's")
+        adds = _check_objects(tag, result, setup, None, device)
+        for (_name, cls, *_), est in zip(BOXES, result.objects):
+            if pixels[cls] == 0 and not (np.allclose(est.pose_cam, np.eye(4)) and est.score == 0):
+                fail(f"{tag} class {cls}: an empty mask must give the identity pose")
+        out[mode] = {"timings": timings, "mask_pixels": pixels, "image_agreement": agree,
+                     "adds_m_not_held": adds, "lcp_segside_launches": lcp.lcp_segside.tier_launches[0]}
     return out
 
 
@@ -1867,6 +2097,10 @@ def main() -> int:
         leaf_stats = phase_leaf(device, setup)
         mcts_stats = phase_search(device, workdir, setup, "MCTS")
         greedy_stats = phase_search(device, workdir, setup, "GREEDY")
+        fcn_stats = phase_fcn(device, setup)
+        detect_stats = phase_detect(device, setup)
+        modes_stats = phase_modes(device, workdir, setup)
+        neural_stats = phase_neural(device, workdir, setup)
         _scoring_stats, scoring_launches = phase_scoring(device)
         _scoring_stats, scoring_large_launches = phase_scoring(device, large=True)
 
@@ -1898,7 +2132,9 @@ def main() -> int:
               lcp_scores_ms=lcp_stats["lcp_scores_ms"],
               # The LCP stage ahead of the searches launches it too.
               launches_mcts=mcts_stats["lcp_segside_launches"],
-              launches_greedy=greedy_stats["lcp_segside_launches"]),
+              launches_greedy=greedy_stats["lcp_segside_launches"],
+              # The other hypothesis modes' LCP stage, one launch an object.
+              launches_modes={m: st["lcp_segside_launches"] for m, st in modes_stats.items()}),
         entry("lcp_segside/default", lcp_src, "physimglobalpose_tpu/ops/lcp.py:420",
               "ops/lcp.py::_lcp_kernel_segside (default tier)",
               scoring_launches["lcp_segside/default"], tier_stats["default"],
@@ -1948,6 +2184,8 @@ def main() -> int:
         if k["launches"] <= 0:
             fail(f"kernel {k['name']} was not launched on its main path")
     log("[search] " + json.dumps({"leaf": leaf_stats, "mcts": mcts_stats, "greedy": greedy_stats}))
+    log("[modes] " + json.dumps({"fcn": fcn_stats, "detect": detect_stats, "e2e_modes": modes_stats,
+                                 "e2e_neural": neural_stats}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -8,9 +8,10 @@ Here:
       --obj-config <obj_config.yml> --model-dir <meshes> [--device cpu]
 
 Runs on the card (--device cuda, the default) unless asked for the CPU. The
-flags match the JAX package's CLI; --verification takes LCP, MCTS or GREEDY
-(the physics-aware searches); the segmentation and hypothesis modes that are
-not ported yet raise NotImplementedError.
+flags match the JAX package's CLI: every segmentation, hypothesis and
+verification mode runs; the FCN modes serve the shipped checkpoint of
+--fcn-variant, the RCNN modes the shipped detection network, both on the
+chosen device. --debug-dir raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -28,9 +29,10 @@ def main(argv=None):
     p.add_argument("--scene", required=True,
                    help="scene directory (frame-000000.*), or .npz for CAM")
     p.add_argument("--fcn-variant", default="small", choices=["small", "prior"],
-                   help="FCN checkpoint for the FCN modes (not ported yet)")
+                   help="shipped FCN checkpoint for the FCN modes: small (synthetic "
+                        "domain) or prior (trained with product-appearance priors)")
     p.add_argument("--fcn-tta", action="store_true",
-                   help="FCN test-time augmentation (FCN modes, not ported yet)")
+                   help="multi-scale (0.5/0.75/1.0) FCN test-time augmentation")
     p.add_argument("--segmentation", default="GT",
                    choices=["GT", "FCN", "FCNThreshold", "RCNN", "RCNNThreshold"])
     p.add_argument("--hypothesis", default="PCS", choices=["PCS", "SUPER4PCS", "V4PCS", "PPF_VOTING"])
@@ -108,6 +110,8 @@ def main(argv=None):
             scene=scene_obj,
             write_result=args.dataset != "CAM" or args.result is not None,
             device=args.device,
+            fcn_variant=args.fcn_variant,
+            fcn_tta=args.fcn_tta,
         )
         if args.repeat > 1:
             print(f"[rep {rep}] scene time: {time.perf_counter() - t0:.3f}s")

@@ -204,6 +204,27 @@ def refine_icp(
 
 # Largest model the kernel takes: it holds the d2 operands in shared memory (16
 # bytes a point; 144 KB with its other arrays at 8,192 points).
+def icp_fitness(
+    transforms: torch.Tensor,  # [H, 4, 4]
+    model_pts: torch.Tensor,  # [Nm, 3]
+    seg_pts: torch.Tensor,  # [Ns, 3]
+    seg_mask: torch.Tensor,  # [Ns]
+    inlier_dist: float = 0.01,
+) -> torch.Tensor:
+    """Fraction of segment points within inlier_dist of the transformed model
+    [H] (the squared distance expanded as |s|^2 + |u|^2 - 2 s.u, as the JAX
+    package's _nn_model does). No code of the package calls it."""
+    tm = model_pts @ transforms[:, :3, :3].transpose(-1, -2) + transforms[:, None, :3, 3]
+    d2 = (
+        torch.sum(seg_pts * seg_pts, dim=-1)[None, :, None]
+        + torch.sum(tm * tm, dim=-1)[:, None, :]
+        - 2.0 * (seg_pts @ tm.transpose(-1, -2))
+    )  # [H, Ns, Nm]
+    mind2 = torch.where(seg_mask, torch.amin(d2, dim=-1), torch.inf)
+    ok = seg_mask & (mind2 <= inlier_dist * inlier_dist)
+    return torch.sum(ok, dim=-1) / torch.clamp(torch.sum(seg_mask), min=1)
+
+
 MAX_SEGSIDE_MODEL_POINTS = 8192
 # matmul_precision -> the kernel's tier argument (no "high3" tier here).
 ICP_TIERS = {None: 0, "highest": 0, "default": 1}

@@ -1,4 +1,4 @@
-"""StoCS weighted base sampling - all bases drawn in parallel.
+"""Base sampling - all bases drawn in parallel: StoCS and classic Super4PCS.
 
 Reference semantics (SelectQuadrilateralStoCS, match4pcsBase.cc:600-792):
 four sequential categorical draws over the segment points; after each draw
@@ -12,6 +12,10 @@ B bases are drawn at once: each draw is a Gumbel-argmax categorical over
 invalid rather than re-drawn. Two deliberate fixes over the reference, as in
 the JAX package: the inner-angle gate normalizes before the angle test, and
 coplanarity uses the true point-plane distance.
+
+sample_bases_uniform is the probability-free base selection of classic
+Super4PCS (the SUPER4PCS and V4PCS modes): four uniform picks per base,
+gated on distinctness and a minimum pairwise spread.
 """
 
 from __future__ import annotations
@@ -39,6 +43,13 @@ def gumbel_noise(shape, generator: torch.Generator | None, device) -> torch.Tens
     u = torch.rand(shape, generator=generator, device=device)
     u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
     return -torch.log(-torch.log(u))
+
+
+def _categorical_rows(log_w: torch.Tensor, gumbel: torch.Tensor) -> torch.Tensor:
+    """One categorical draw per row of [B, N] log-weights (Gumbel-argmax;
+    gumbel holds [B, N] standard Gumbel draws). Ties take the first index,
+    as jnp.argmax does."""
+    return torch.argmax(log_w + gumbel, dim=-1)
 
 
 def _unit(x: torch.Tensor) -> torch.Tensor:
@@ -78,7 +89,7 @@ def sample_bases(
     log0 = torch.where(base_w > 0, torch.log(torch.clamp(base_w, min=1e-30)), NEG_INF)
 
     def draw(i, logw):
-        return torch.argmax(logw + gumbel[i], dim=-1)
+        return _categorical_rows(logw, gumbel[i])
 
     def edge_log(prev_idx):
         """log edge factor [B, N]: 0 where PPF(prev, i) present, -inf else."""
@@ -138,5 +149,46 @@ def sample_bases(
 
     raw_idx = torch.stack([b1, b2, b3, b4], dim=-1)  # [B, 4]
     perm, inv1, inv2 = rigid_fit.try_quadrilateral(seg_pts[raw_idx])
+    idx = torch.gather(raw_idx, -1, perm)
+    return BaseSet(indices=idx, invariant1=inv1, invariant2=inv2, valid=valid)
+
+
+def sample_bases_uniform(
+    seg_pts: torch.Tensor,
+    seg_mask: torch.Tensor,
+    num_bases: int,
+    min_spread: float = 0.01,
+    generator: torch.Generator | None = None,
+    gumbel: torch.Tensor | None = None,
+) -> BaseSet:
+    """Classic Super4PCS base selection: uniform random wide 4-point bases.
+
+    The probability-free analogue of the reference's SelectQuadrilateral
+    (match4pcsBase.cc:470-577): four independent uniform picks per base over
+    the unmasked points, then distinctness and a minimum pairwise spread,
+    reordered by TryQuadrilateral. Bases failing the gates are flagged
+    invalid (callers oversample).
+
+    gumbel: optional injected [4, B, N] Gumbel noise, one slice per pick.
+    """
+    n = seg_pts.shape[0]
+    b = num_bases
+    dev = seg_pts.device
+    if gumbel is None:
+        gumbel = gumbel_noise((4, b, n), generator, dev)
+    logw = torch.where(seg_mask, 0.0, NEG_INF)[None].expand(b, n)
+    raw_idx = torch.stack([_categorical_rows(logw, gumbel[i]) for i in range(4)], dim=-1)
+
+    pts = seg_pts[raw_idx]  # [B, 4, 3]
+    diff = pts[:, :, None, :] - pts[:, None, :, :]
+    dist = torch.sqrt(torch.sum(diff * diff, dim=-1))  # [B, 4, 4]
+    eye = torch.eye(4, dtype=torch.bool, device=dev)[None]
+    spread_ok = ((dist >= min_spread) | eye).flatten(1).all(dim=1)
+    same = raw_idx[:, :, None] == raw_idx[:, None, :]
+    distinct = ~(same & ~eye).flatten(1).any(dim=1)
+    picked_valid = seg_mask[raw_idx].all(dim=-1)
+    valid = spread_ok & distinct & picked_valid
+
+    perm, inv1, inv2 = rigid_fit.try_quadrilateral(pts)
     idx = torch.gather(raw_idx, -1, perm)
     return BaseSet(indices=idx, invariant1=inv1, invariant2=inv2, valid=valid)

@@ -5,8 +5,10 @@ SceneFiles, SegmentationMode, HypothesisGenerationMode,
 HypothesisVerificationMode) and returns per-object label+pose, also writing
 result.txt (main.cpp:86-171). Here the same contract is a plain function:
 scene in, per-object camera- and world-frame poses out, result.txt in the
-reference's format. GT segmentation with PCS hypotheses and the LCP, MCTS or
-GREEDY verification is ported; the other modes raise NotImplementedError.
+reference's format. Every segmentation mode (GT, FCN, FCNThreshold, RCNN,
+RCNNThreshold), hypothesis mode (PCS, SUPER4PCS, V4PCS, PPF_VOTING, Hough)
+and verification mode (LCP, MCTS, GREEDY) of the JAX package runs here for
+one scene; debug_dir dumps raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -28,8 +30,15 @@ from physimglobalpose_tpu_torch.pipeline import hypothesis, mcts, scene as scene
 from physimglobalpose_tpu_torch.pipeline.selection import lcp_select
 from physimglobalpose_tpu_torch.utils.tracing import trace_span, get_tracer
 
-_GEN_MODES = ("PCS", "CONGRUENT_SET_MATCHING")  # both are StoCS
-_UNPORTED_GEN_MODES = ("SUPER4PCS", "V4PCS", "PPF_VOTING", "Hough")
+# Congruent-set hypothesis modes and their generator mode; the voting modes
+# run per object (generate_hypotheses_voting).
+_GEN_MODES = {
+    "PCS": "stocs",
+    "CONGRUENT_SET_MATCHING": "stocs",
+    "SUPER4PCS": "super4pcs",
+    "V4PCS": "v4pcs",
+}
+_VOTING_MODES = ("PPF_VOTING", "Hough")
 
 
 def _finalize_hypotheses_batch(transforms, scores, best_transform, best_score, cam_pose, top_k):
@@ -161,6 +170,10 @@ def estimate_pose(
     debug_dir: Optional[str] = None,
     scene: Optional[scene_mod.Scene] = None,
     device=None,
+    nn_predictor=None,
+    detector=None,
+    fcn_variant: str = "small",
+    fcn_tta: bool = False,
 ) -> PoseEstimationResult:
     """Estimate 6D poses for every object in a scene.
 
@@ -172,6 +185,12 @@ def estimate_pose(
     pixel cost (pipeline/mcts.py) and install the settled poses; the polish
     is skipped there. Timings then hold search_s, and in MCTS mode the
     tree's search_expansions, search_budget and search_deadline_cut.
+
+    The FCN modes take nn_predictor(color, class_ids), by default the
+    shipped checkpoint `fcn_variant` ("small" or "prior"; fcn_tta averages
+    scales 0.5, 0.75 and 1.0); the RCNN modes take detector(color,
+    class_ids), by default the shipped detection network. Both are built on
+    the call's device.
     Runs on the card unless device="cpu"; one torch.Generator seeded with
     `seed` drives every random draw, so a seed gives one result per device.
     """
@@ -179,9 +198,7 @@ def estimate_pose(
         raise NotImplementedError("debug_dir dumps are not ported yet")
     if verification_mode not in ("LCP", "MCTS", "GREEDY"):
         raise ValueError(f"unknown verification mode {verification_mode!r}")
-    if hypothesis_mode in _UNPORTED_GEN_MODES:
-        raise NotImplementedError(f"hypothesis mode {hypothesis_mode!r} is not ported yet")
-    if hypothesis_mode not in _GEN_MODES:
+    if hypothesis_mode not in _GEN_MODES and hypothesis_mode not in _VOTING_MODES:
         raise ValueError(f"unknown hypothesis mode {hypothesis_mode!r}")
 
     dev = _torchcfg.resolve_device(device)
@@ -201,10 +218,30 @@ def estimate_pose(
         _torchcfg.synchronize(dev)
     timings["preprocess_s"] = time.perf_counter() - t0
 
+    if segmentation_mode in ("FCN", "FCNThreshold") and nn_predictor is None:
+        # The shipped checkpoint (the reference node loads apc_weights.hdf5,
+        # predict:59).
+        from physimglobalpose_tpu_torch.models import fcn as fcn_mod
+
+        nn_predictor = fcn_mod.load_shipped_predictor(
+            variant=fcn_variant, tta_scales=(0.5, 0.75, 1.0) if fcn_tta else (1.0,), device=dev,
+        )
+    if segmentation_mode in ("RCNN", "RCNNThreshold") and detector is None:
+        # The trained detection network when its checkpoint ships, else the
+        # shipped FCN as a region scorer.
+        from physimglobalpose_tpu_torch.models import detect as detect_mod
+        from physimglobalpose_tpu_torch.pipeline import detector as detector_mod
+
+        if os.path.exists(detect_mod.shipped_checkpoint_path()):
+            detector = detector_mod.make_learned_detector(device=dev)
+        else:
+            detector = detector_mod.make_fcn_detector(device=dev)
+
     with trace_span(tracer, "segmentation"):
         class_ids = [db.class_of(n) for n in sc.object_names]
         prob_images = segmentation.build_prob_images(
-            segmentation_mode, class_ids, class_mask=sc.class_mask
+            segmentation_mode, class_ids, class_mask=sc.class_mask, nn_predictor=nn_predictor,
+            color=sc.color, detector=detector, threshold=cfg.preprocess.background_prob,
         )
 
     def to_dev(a, dtype=torch.float32):
@@ -219,7 +256,8 @@ def estimate_pose(
     segs_by_name: Dict[str, segmentation.Segment3D] = {}
     t_hyp = time.perf_counter()
     batchable = (
-        len(sc.object_names) > 1
+        hypothesis_mode in _GEN_MODES
+        and len(sc.object_names) > 1
         and len({db[n].validation_pts.shape for n in sc.object_names}) == 1
         and len({db[n].search_pts.shape for n in sc.object_names}) == 1
     )
@@ -237,7 +275,7 @@ def estimate_pose(
                 hypothesis.stack_object_tables([o.ppf_table for o in objs]),
                 torch.stack([to_dev(o.validation_pts) for o in objs]),
                 torch.stack([to_dev(o.validation_nrm) for o in objs]),
-                cfg, generator=gen,
+                cfg, generator=gen, mode=_GEN_MODES[hypothesis_mode],
             )
             flat = _finalize_hypotheses_batch(
                 res_b.transforms, res_b.scores, res_b.best_transform,
@@ -260,11 +298,18 @@ def estimate_pose(
             obj = db[name]
             with trace_span(tracer, f"object:{name}"):
                 seg = segs_by_name[name] = segment_of(obj)
-                res = hypothesis.generate_hypotheses(
-                    seg, to_dev(obj.search_pts), to_dev(obj.search_mask, torch.bool),
-                    obj.ppf_table, to_dev(obj.validation_pts), to_dev(obj.validation_nrm),
-                    cfg, generator=gen,
-                )
+                if hypothesis_mode in _VOTING_MODES:
+                    res = hypothesis.generate_hypotheses_voting(
+                        seg, to_dev(obj.search_pts), to_dev(obj.search_nrm),
+                        to_dev(obj.search_mask, torch.bool), obj.ppf_table,
+                        to_dev(obj.validation_pts), to_dev(obj.validation_nrm), cfg, generator=gen,
+                    )
+                else:
+                    res = hypothesis.generate_hypotheses(
+                        seg, to_dev(obj.search_pts), to_dev(obj.search_mask, torch.bool),
+                        obj.ppf_table, to_dev(obj.validation_pts), to_dev(obj.validation_nrm),
+                        cfg, generator=gen, mode=_GEN_MODES[hypothesis_mode],
+                    )
                 top_tf, top_scores = hypothesis.top_k_hypotheses(res, top_k)
                 pose_cam = lcp_select(res.best_transform, res.best_score)
                 estimates.append(ObjectPoseEstimate(

@@ -1,12 +1,16 @@
-"""Hypothesis generation: the StoCS pipeline for one object.
+"""Hypothesis generation for one object: congruent sets or PPF voting.
 
 Reference flow (CongruentSetMatching::generate + Perform_N_steps,
 ObjectPoseCandidateSet.cpp:23-70, match4pcsBase.cc:1822-1925): sample 100
 bases, extract congruent sets per base (<=100 each), fit a rigid transform
 per congruent quad, score every transform with weighted LCP, keep the best.
-Here base sampling, congruent extraction, B*Q rigid fits and the H-way LCP
-scoring (one CUDA kernel launch on the card) run back to back on the device,
-with no host round trip in between.
+Three congruent-set modes, as in the JAX package: "stocs" (segmentation-prior
+weighted bases + PPF-table pair lists, operMode 1), "super4pcs" (uniform
+bases + geometric distance pairs, operMode 0) and "v4pcs" (tetrahedron
+bases matched on all six distances, operMode 2); generate_hypotheses_voting
+is the PPF Hough-voting generator. Base sampling, congruent extraction, the
+rigid fits and the H-way LCP scoring (one CUDA kernel launch on the card) run
+back to back on the device, with no host round trip in between.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ import torch
 
 from physimglobalpose_tpu_torch import _torchcfg  # noqa: F401  (precision setup)
 from physimglobalpose_tpu_torch.config import PipelineConfig, DEFAULT_CONFIG
-from physimglobalpose_tpu_torch.ops import congruent, lcp, ppf, sampling
+from physimglobalpose_tpu_torch.ops import congruent, lcp, ppf, ppf_voting, sampling
 from physimglobalpose_tpu_torch.pipeline.segmentation import Segment3D
 
 
@@ -28,6 +32,30 @@ class HypothesisResult(NamedTuple):
     best_transform: torch.Tensor  # [4, 4]
     best_score: torch.Tensor  # []
     enough_points: torch.Tensor  # [] bool - segment had > min_segment_points
+
+
+GEN_MODES = ("stocs", "super4pcs", "v4pcs")
+
+
+def _score_and_pick(transforms, hyp_valid, enough, seg, model_validation_pts,
+                    model_validation_nrm, cfg) -> HypothesisResult:
+    """Weighted-LCP verification of every hypothesis, then the best one
+    (identity when no hypothesis scores above 0)."""
+    scores = lcp.lcp_scores(
+        transforms, model_validation_pts, model_validation_nrm,
+        seg.pts, seg.nrm, seg.prob, seg.mask,
+        delta=cfg.lcp.delta, normal_gate_deg=cfg.lcp.normal_gate_deg, weighted=True,
+    )
+    valid = hyp_valid & enough
+    scores = torch.where(valid, scores, 0.0)
+    best = torch.argmax(scores)
+    best_score = scores[best]
+    eye = torch.eye(4, device=scores.device)
+    best_tf = torch.where(best_score > 0, transforms[best], eye)
+    return HypothesisResult(
+        transforms=transforms, scores=scores, valid=valid,
+        best_transform=best_tf, best_score=best_score, enough_points=enough,
+    )
 
 
 def generate_hypotheses(
@@ -41,52 +69,85 @@ def generate_hypotheses(
     generator: torch.Generator | None = None,
     gumbel: torch.Tensor | None = None,
     quad_priority: torch.Tensor | None = None,
+    mode: str = "stocs",
+    pair_priority: torch.Tensor | None = None,
 ) -> HypothesisResult:
-    """StoCS generation (the JAX package's mode="stocs") + weighted-LCP
+    """Congruent-set generation in `mode` (one of GEN_MODES) + weighted-LCP
     verification for one object segment.
 
-    gumbel ([4, B, N]) and quad_priority ([B, K*K]) are the optional injected
-    draws of sampling.sample_bases and congruent.extract_congruent_quads;
-    they come from `generator` when not given.
+    The optional injected draws (else drawn from `generator`): gumbel
+    [4, B, N] for the base sampler, quad_priority [B, K*K] for the congruent
+    selection, and in the super4pcs and v4pcs modes pair_priority
+    [2, B, Nm*Nm] for the two distance-matched pair lists.
     """
     st = cfg.stocs
+    dist_threshold = st.distance_factor * st.delta
 
     # Degenerate-segment bail (<= 30 points -> identity pose): the kernels
     # still run, the validity is zeroed.
     enough = torch.sum(seg.mask) > cfg.preprocess.min_segment_points
 
-    bases = sampling.sample_bases(
-        seg.pts, seg.nrm, seg.prob, seg.mask, table, num_bases=st.num_bases,
-        min_base_angle_deg=st.min_base_angle_deg,
-        coplanarity_threshold=st.coplanarity_threshold,
-        min_point_spacing=st.min_point_spacing,
-        generator=generator, gumbel=gumbel,
-    )
-    quads, quads_valid = congruent.extract_congruent_quads(
-        bases, seg.pts, seg.nrm, model_search_pts, table,
-        max_pairs=st.max_pairs_per_ppf, max_quads_per_base=st.max_quads_per_base,
-        dist_threshold=st.distance_factor * st.delta,
-        generator=generator, priority=quad_priority,
-    )
+    if mode == "stocs":
+        bases = sampling.sample_bases(
+            seg.pts, seg.nrm, seg.prob, seg.mask, table, num_bases=st.num_bases,
+            min_base_angle_deg=st.min_base_angle_deg,
+            coplanarity_threshold=st.coplanarity_threshold,
+            min_point_spacing=st.min_point_spacing,
+            generator=generator, gumbel=gumbel,
+        )
+        quads, quads_valid = congruent.extract_congruent_quads(
+            bases, seg.pts, seg.nrm, model_search_pts, table,
+            max_pairs=st.max_pairs_per_ppf, max_quads_per_base=st.max_quads_per_base,
+            dist_threshold=dist_threshold, generator=generator, priority=quad_priority,
+        )
+    elif mode in ("super4pcs", "v4pcs"):
+        bases = sampling.sample_bases_uniform(
+            seg.pts, seg.mask, num_bases=st.num_bases, min_spread=st.min_point_spacing,
+            generator=generator, gumbel=gumbel,
+        )
+        extract = (congruent.extract_congruent_quads_classic if mode == "super4pcs"
+                   else congruent.extract_congruent_quads_tetra)
+        quads, quads_valid = extract(
+            bases, seg.pts, model_search_pts, model_search_mask,
+            max_pairs=st.max_pairs_per_ppf, max_quads_per_base=st.max_quads_per_base,
+            dist_threshold=dist_threshold, generator=generator,
+            pair_priority=pair_priority, priority=quad_priority,
+        )
+    else:
+        raise ValueError(f"unknown generation mode {mode!r}")
     # Congruent pairs referencing padded model rows are invalid.
     quads_valid = quads_valid & torch.all(model_search_mask[quads], dim=-1)
     hyps = congruent.hypotheses_from_quads(bases, quads, quads_valid, seg.pts, model_search_pts)
+    return _score_and_pick(hyps.transforms, hyps.valid, enough, seg, model_validation_pts,
+                           model_validation_nrm, cfg)
 
-    scores = lcp.lcp_scores(
-        hyps.transforms, model_validation_pts, model_validation_nrm,
-        seg.pts, seg.nrm, seg.prob, seg.mask,
-        delta=cfg.lcp.delta, normal_gate_deg=cfg.lcp.normal_gate_deg, weighted=True,
+
+def generate_hypotheses_voting(
+    seg: Segment3D,
+    model_search_pts: torch.Tensor,
+    model_search_nrm: torch.Tensor,
+    model_search_mask: torch.Tensor,
+    table: ppf.PPFTable,
+    model_validation_pts: torch.Tensor,
+    model_validation_nrm: torch.Tensor,
+    cfg: PipelineConfig = DEFAULT_CONFIG,
+    generator: torch.Generator | None = None,
+    gumbel: torch.Tensor | None = None,
+) -> HypothesisResult:
+    """PPF Hough-voting generation (ops/ppf_voting.py: 64 reference points,
+    32 pairs a PPF bin, the top min(max_hypotheses, 256) poses) + weighted-LCP
+    verification; the working realization of the reference's PPFVoting
+    strategy (ObjectPoseCandidateSet.cpp:108-115 stub). gumbel: the optional
+    injected [64, N] draw of the reference points."""
+    enough = torch.sum(seg.mask) > cfg.preprocess.min_segment_points
+    res = ppf_voting.ppf_vote(
+        seg.pts, seg.nrm, seg.mask,
+        model_search_pts, model_search_nrm, model_search_mask, table,
+        n_ref=64, max_pairs=32, top_poses=min(cfg.stocs.max_hypotheses, 256),
+        generator=generator, gumbel=gumbel,
     )
-    valid = hyps.valid & enough
-    scores = torch.where(valid, scores, 0.0)
-    best = torch.argmax(scores)
-    best_score = scores[best]
-    eye = torch.eye(4, device=scores.device)
-    best_tf = torch.where(best_score > 0, hyps.transforms[best], eye)
-    return HypothesisResult(
-        transforms=hyps.transforms, scores=scores, valid=valid,
-        best_transform=best_tf, best_score=best_score, enough_points=enough,
-    )
+    return _score_and_pick(res.transforms, res.valid, enough, seg, model_validation_pts,
+                           model_validation_nrm, cfg)
 
 
 def top_k_hypotheses(result: HypothesisResult, k: int):
@@ -126,13 +187,19 @@ def generate_hypotheses_batch(
     generator: torch.Generator | None = None,
     gumbel: torch.Tensor | None = None,
     quad_priority: torch.Tensor | None = None,
+    mode: str = "stocs",
+    pair_priority: torch.Tensor | None = None,
 ) -> HypothesisResult:
-    """All K objects' generation + verification; fields stacked [K, ...].
+    """All K objects' generation in `mode` + verification; fields stacked [K, ...].
 
     Objects run one after another (one LCP kernel launch each); the result
     for object i equals generate_hypotheses on object i with the same draws
-    (gumbel [K, 4, B, N], quad_priority [K, B, K*K] when injected).
+    (gumbel [K, 4, B, N], quad_priority [K, B, K*K], pair_priority
+    [K, 2, B, Nm*Nm] when injected).
     """
+    def pick(draws, i):
+        return None if draws is None else draws[i]
+
     results = []
     for i in range(model_search_pts.shape[0]):
         table_i = ppf.PPFTable(
@@ -145,7 +212,7 @@ def generate_hypotheses_batch(
             Segment3D(*(x[i] for x in segs)),
             model_search_pts[i], model_search_mask[i], table_i,
             model_validation_pts[i], model_validation_nrm[i], cfg, generator=generator,
-            gumbel=None if gumbel is None else gumbel[i],
-            quad_priority=None if quad_priority is None else quad_priority[i],
+            gumbel=pick(gumbel, i), quad_priority=pick(quad_priority, i), mode=mode,
+            pair_priority=pick(pair_priority, i),
         ))
     return HypothesisResult(*(torch.stack(f) for f in zip(*results)))

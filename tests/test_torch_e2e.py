@@ -1,6 +1,8 @@
 """End-to-end: the port's estimate_pose (GT / PCS / LCP, and the MCTS and
 GREEDY searches) on the CPU against the JAX package's, on a procedural
-two-box scene rendered with the JAX triangle rasterizer. No draws are
+two-box scene rendered with the JAX triangle rasterizer
+(test_torch_e2e_modes.py runs the other hypothesis and segmentation modes
+on the same scene). No draws are
 injected end to end (the packages' random streams differ), so this holds
 outcomes: the same objects, each port pose within ADD-S 1 cm of ground truth
 and, for LCP, within 5 mm of the JAX translation. Exact parity is held
@@ -204,15 +206,29 @@ def test_search_modes_match_jax_on_box_scene(setup, mode):
 
 
 def test_unported_modes_raise(setup):
+    # Every segmentation and hypothesis mode of the JAX package runs (here on
+    # a scene with no objects, so the networks run once and nothing else);
+    # only debug dumps are not ported.
     s = setup
     tdb = objectdb.ObjectDB({}, {})
-    sc = scene.scene_from_arrays(np.zeros((H, W, 3), np.uint8), s["depth"], INTR, s["cam"], [])
-    for kw in (dict(segmentation_mode="FCN"),
-               dict(hypothesis_mode="SUPER4PCS"), dict(debug_dir="/nonexistent")):
-        with pytest.raises(NotImplementedError):
-            api.estimate_pose("<memory>", tdb, scene=sc, device="cpu", write_result=False, **kw)
-    with pytest.raises(ValueError):
-        api.estimate_pose("<memory>", tdb, scene=sc, device="cpu", verification_mode="BOGUS")
+    sc = scene.scene_from_arrays(np.zeros((H, W, 3), np.uint8), s["depth"], INTR, s["cam"], [],
+                                 class_mask=np.zeros((H, W), np.int32))
+    with pytest.raises(NotImplementedError):
+        api.estimate_pose("<memory>", tdb, scene=sc, device="cpu", write_result=False,
+                          debug_dir="/nonexistent")
+    for kw in (dict(segmentation_mode="FCN"), dict(segmentation_mode="FCNThreshold", fcn_tta=True),
+               dict(segmentation_mode="RCNN"), dict(hypothesis_mode="SUPER4PCS"),
+               dict(hypothesis_mode="V4PCS"), dict(hypothesis_mode="PPF_VOTING"),
+               dict(hypothesis_mode="Hough")):
+        res = api.estimate_pose("<memory>", tdb, scene=sc, device="cpu", write_result=False, **kw)
+        assert res.objects == [] and "total_s" in res.timings
+    for kw in (dict(verification_mode="BOGUS"), dict(hypothesis_mode="BOGUS"),
+               dict(segmentation_mode="BOGUS")):
+        with pytest.raises(ValueError):
+            api.estimate_pose("<memory>", tdb, scene=sc, device="cpu", **kw)
+    with pytest.raises(FileNotFoundError):
+        api.estimate_pose("<memory>", tdb, scene=sc, device="cpu", write_result=False,
+                          segmentation_mode="FCN", fcn_variant="full")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             api.estimate_pose("<memory>", tdb, scene=sc, write_result=False)

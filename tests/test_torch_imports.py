@@ -45,7 +45,12 @@ def test_port_imports_no_jax():
             "physimglobalpose_tpu_torch/ops/physics.py",
             "physimglobalpose_tpu_torch/pipeline/mcts.py",
             "physimglobalpose_tpu_torch/pipeline/greedy_search.py",
-            "physimglobalpose_tpu_torch/pipeline/evaluate.py"} <= names
+            "physimglobalpose_tpu_torch/pipeline/evaluate.py",
+            "physimglobalpose_tpu_torch/ops/ppf_voting.py",
+            "physimglobalpose_tpu_torch/models/fcn.py",
+            "physimglobalpose_tpu_torch/models/detect.py",
+            "physimglobalpose_tpu_torch/pipeline/detector.py",
+            "physimglobalpose_tpu_torch/pipeline/selection.py"} <= names
     offenders = {str(p.relative_to(ROOT)): b for p in files if (b := _forbidden_imports(p))}
     assert offenders == {}
 
@@ -86,7 +91,9 @@ def test_importing_the_port_builds_and_loads_no_kernel():
         for p in (ROOT / "physimglobalpose_tpu_torch").rglob("*.py") if p.name != "__init__.py"
     )
     assert {"physimglobalpose_tpu_torch.ops.scoring", "physimglobalpose_tpu_torch.pipeline.mcts",
-            "physimglobalpose_tpu_torch.pipeline.evaluate"} <= set(modules)
+            "physimglobalpose_tpu_torch.pipeline.evaluate", "physimglobalpose_tpu_torch.models.fcn",
+            "physimglobalpose_tpu_torch.models.detect",
+            "physimglobalpose_tpu_torch.pipeline.detector"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"

@@ -141,7 +141,9 @@ def test_gt_prob_images_and_strategy_dispatch():
         np.testing.assert_array_equal(got[c], want[c])
     import pytest
 
-    with pytest.raises(NotImplementedError):
-        segmentation.build_prob_images("FCN", [1], class_mask=mask)
-    with pytest.raises(ValueError):
-        segmentation.build_prob_images("BOGUS", [1], class_mask=mask)
+    # The network strategies run (tests/test_torch_segmentation.py); without
+    # their predictor or detector both packages raise ValueError.
+    for strategy in ("FCN", "RCNN", "BOGUS"):
+        for build in (segmentation.build_prob_images, jseg.build_prob_images):
+            with pytest.raises(ValueError):
+                build(strategy, [1], class_mask=mask)
