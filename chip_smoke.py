@@ -59,7 +59,19 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    RCNN and RCNNThreshold segmentations with the shipped networks, the
    card's probability images against the CPU's (poses not held: the
    networks were trained on other meshes);
-9. one JSON line describing every kernel, the card line, and last a JSON
+9. the multi-scene paths, after [e2e-neural]: [sweep] scene_sweep.sweep_scenes
+   over four scene directories of the three boxes (moved and turned per
+   scene, written in the reference layout) at the default configuration, its
+   job axis over every card of make_mesh(): each scene against serial
+   estimate_pose and within ADD-S 1 cm, unchunked and pipelined, lcp_segside
+   launched once a job, no host synchronisation while a batch is queued;
+   [sweep-mcts] mcts_select_multi on three of them (1,200 expansions a
+   scene, equal to one mcts_select a scene, within ADD-S 1 cm), one shared
+   batch's launches a leaf against [leaf]'s, and the sweep's own MCTS mode;
+   [serve] the /pose_estimation service booted warm on a local port: three
+   requests against direct estimate_pose calls, then 503 + Retry-After beside
+   a request in flight with max_queue=0;
+10. one JSON line describing every kernel, the card line, and last a JSON
    line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX. Exits non-zero without a CUDA device.
@@ -163,7 +175,7 @@ def box_pose_world(size, xy, yaw) -> np.ndarray:
     return pose
 
 
-def render_scene(cam_pose: np.ndarray):
+def render_scene(cam_pose: np.ndarray, boxes=BOXES):
     """Ray-cast the boxes and the table top: (depth [H, W] m, class mask [H, W])."""
     fx, fy, cx, cy = INTRINSICS[0, 0], INTRINSICS[1, 1], INTRINSICS[0, 2], INTRINSICS[1, 2]
     vv, uu = np.meshgrid(np.arange(HEIGHT), np.arange(WIDTH), indexing="ij")
@@ -178,7 +190,7 @@ def render_scene(cam_pose: np.ndarray):
         hit = eye[None, :2] + t_tab[:, None] * d_w[:, :2]
         ok = (t_tab > 0) & (np.abs(hit) < TABLE_HALF).all(-1)
         best = np.where(ok, t_tab, best)
-        for _name, cls, size, xy, yaw in BOXES:
+        for _name, cls, size, xy, yaw in boxes:
             pose = box_pose_world(size, xy, yaw)
             rb, cb = pose[:3, :3], pose[:3, 3]
             o = rb.T @ (eye - cb)
@@ -250,6 +262,49 @@ def write_box_ply(path: str, size):
         for t in tris:
             fh.write(f"3 {t[0]} {t[1]} {t[2]}\n")
     return verts.astype(np.float32), np.asarray(tris, np.int32)
+
+
+# The sweep's scenes: each box of BOXES shifted by (dx, dy) m and turned by a
+# yaw (deg), per scene.
+SWEEP_MOVES = (((0.0, 0.0), 0.0), ((0.012, -0.01), 10.0), ((-0.01, 0.014), -15.0),
+               ((0.015, 0.012), 25.0))
+
+
+def moved_boxes(move) -> list:
+    (dx, dy), turn = move
+    return [(name, cls, size, (xy[0] + dx, xy[1] + dy), yaw + turn)
+            for name, cls, size, xy, yaw in BOXES]
+
+
+def _tq(pose: np.ndarray) -> list:
+    """gt_info.yml's pose format: [x y z qw qx qy qz]."""
+    from physimglobalpose_tpu_torch.geometry import se3
+
+    q = se3.matrix_to_quat(torch.as_tensor(pose[:3, :3], dtype=torch.float64)).tolist()
+    return [float(v) for v in pose[:3, 3]] + q
+
+
+def write_scene_dir(path: str, cam_pose: np.ndarray, boxes) -> dict:
+    """A scene directory in the reference layout (APC: gt_info.yml with the
+    camera and the boxes' poses, frame-000000.{depth,mask,color}.png) of the
+    ray-cast `boxes`. Returns {name: world pose}."""
+    from PIL import Image
+
+    from physimglobalpose_tpu_torch.geometry import depthio
+
+    os.makedirs(path)
+    depth, label = render_scene(cam_pose, boxes)
+    depthio.write_depth_png(os.path.join(path, "frame-000000.depth.png"), depth, bit_rotated=True)
+    Image.fromarray(label.astype(np.uint8)).save(os.path.join(path, "frame-000000.mask.png"))
+    Image.fromarray(shade_scene(depth, label)).save(os.path.join(path, "frame-000000.color.png"))
+    gt = {name: box_pose_world(size, xy, yaw) for name, _cls, size, xy, yaw in boxes}
+    info = {"camera": {"camera_intrinsics": INTRINSICS.tolist(), "camera_pose": _tq(cam_pose)},
+            "scene": {"num_objects": len(boxes),
+                      **{f"object_{i + 1}": {"name": name, "pose": _tq(gt[name])}
+                         for i, name in enumerate(gt)}}}
+    with open(os.path.join(path, "gt_info.yml"), "w") as fh:
+        json.dump(info, fh)  # JSON is YAML
+    return gt
 
 
 # ----------------------------------------------------------------- LCP inputs
@@ -2073,6 +2128,364 @@ def phase_neural(device, workdir: str, setup: dict) -> dict:
     return out
 
 
+# [sweep]: each scene of the sweep against serial estimate_pose on the card,
+# with the JAX package's sweep test bars (tests/test_scene_sweep.py): the
+# card's voxel grid sums with atomics (ops/voxel.py), so the two agree to the
+# last bits of a segment, not bit for bit.
+SWEEP_TOL_SCORE = 3e-3
+SWEEP_TOL_POSE = 5e-4
+
+
+def _adds_m(setup, name, pose_cam, gt_world, device) -> float:
+    from physimglobalpose_tpu_torch.geometry import metrics
+
+    as_t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)  # noqa: E731
+    gt_cam = np.linalg.inv(setup["cam_pose"]) @ gt_world
+    return float(metrics.adds_error(as_t(pose_cam), as_t(gt_cam),
+                                    as_t(setup["objects"][name].validation_pts)))
+
+
+def _check_against(tag, got, want, gt, setup, device, bar=SEARCH_ADDS_BAR, pose_tol=SWEEP_TOL_POSE,
+                   score_tol=SWEEP_TOL_SCORE) -> dict:
+    """One scene's objects against a reference result (same names, scores
+    within score_tol, pose_cam within pose_tol) and within `bar` ADD-S of the
+    truth. Returns the worst differences and the ADD-S by name."""
+    if [o.name for o in got] != [o.name for o in want] or [o.name for o in got] != list(gt):
+        fail(f"{tag} another object list")
+    score_err = max(abs(a.score - b.score) for a, b in zip(got, want))
+    pose_err = max(float(np.abs(a.pose_cam - b.pose_cam).max()) for a, b in zip(got, want))
+    adds = {o.name: _adds_m(setup, o.name, o.pose_cam, gt[o.name], device) for o in got}
+    if not all(np.isfinite(o.pose_cam).all() for o in got):
+        fail(f"{tag} a non-finite pose")
+    if score_err > score_tol or pose_err > pose_tol:
+        fail(f"{tag} score differs by {score_err:.2e} (bar {score_tol}), pose_cam by "
+             f"{pose_err:.2e} (bar {pose_tol}); ADD-S mm "
+             f"{ {k: round(v * 1000, 2) for k, v in adds.items()} } against "
+             f"{ {o.name: round(_adds_m(setup, o.name, o.pose_cam, gt[o.name], device) * 1000, 2) for o in want} }")
+    if bar is not None and max(adds.values()) >= bar:
+        fail(f"{tag} ADD-S {max(adds.values()) * 1000:.2f} mm >= {bar * 1000:.1f} mm")
+    return {"score_err": score_err, "pose_err": pose_err, "adds_m": adds}
+
+
+def phase_sweep(device, workdir: str, setup: dict) -> dict:
+    """[sweep] scene_sweep.sweep_scenes over four scene directories of the
+    three boxes (moved and turned per scene, SWEEP_MOVES; ray-cast, written
+    in the reference layout) at the default configuration, its job axis over
+    every card make_mesh() finds: each scene against serial estimate_pose
+    on the card and within ADD-S 1 cm of the truth, unchunked and with
+    pipeline_chunks=2; lcp_segside launched once a job; _dispatch_jobs
+    queues its batch with no host synchronisation; scenes a second, the
+    host's preprocessing time, the device's busy and idle share. With more
+    than one card, the sharded run against a one-card run."""
+    from physimglobalpose_tpu_torch.config import DEFAULT_CONFIG
+    from physimglobalpose_tpu_torch.ops import lcp
+    from physimglobalpose_tpu_torch.parallel import mesh as mesh_mod, scene_sweep
+    from physimglobalpose_tpu_torch.pipeline import api
+
+    cfg, db = DEFAULT_CONFIG, setup["db"]
+    dirs, gts = [], []
+    for i, move in enumerate(SWEEP_MOVES):
+        dirs.append(os.path.join(workdir, f"sweep_scene_{i}"))
+        gts.append(write_scene_dir(dirs[-1], setup["cam_pose"], moved_boxes(move)))
+    mesh = mesh_mod.make_mesh()
+    cards = mesh.size
+    jobs = len(dirs) * len(BOXES)
+    log(f"[sweep] {len(dirs)} scenes x {len(BOXES)} objects ({jobs} jobs) over {cards} card(s) "
+        f"{[str(d) for d in mesh.device_list]}; more than one card exercised: {cards > 1}")
+    serial = [api.estimate_pose(d, db, cfg=cfg, seed=0, write_result=False, device=device)
+              for d in dirs]
+    # A seed gives one result on the card: the segments' voxel sums are a
+    # segmented reduction in a fixed order (ops/voxel.py), not float atomics.
+    again = api.estimate_pose(dirs[0], db, cfg=cfg, seed=0, write_result=False, device=device)
+    for a, b in zip(again.objects, serial[0].objects):
+        if a.score != b.score or not np.array_equal(a.pose_cam, b.pose_cam):
+            fail(f"[sweep] serial estimate_pose gave {a.name} another result on a second run")
+    log("[sweep] serial estimate_pose twice on scene 0: the same bits")
+    sweep = lambda m=mesh, **kw: scene_sweep.sweep_scenes(m, dirs, db, cfg=cfg, seed=0, **kw)  # noqa: E731
+    sweep()  # warm-up
+    # Queueing a batch must not wait for the card.
+    prepared = scene_sweep.prepare_scenes(dirs, db, cfg=cfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state = scene_sweep._dispatch_jobs(mesh, prepared, db, cfg, "stocs", 25, True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    scene_sweep._finalize_jobs(state)
+    log("[sweep] _dispatch_jobs queued a job batch with no host synchronisation")
+
+    lcp.lcp_segside.launches, lcp.lcp_segside.tier_launches = 0, [0, 0, 0]
+    t0 = time.perf_counter()
+    swept = sweep()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = lcp.lcp_segside.tier_launches[0]
+    want = mesh_mod.padded_length(jobs, mesh)
+    log(f"[sweep] lcp_segside launches {launches} for {jobs} jobs (padded to {want})")
+    if launches != want:
+        fail(f"[sweep] lcp_segside launched {launches} times, expected {want}")
+    piped = sweep(pipeline_chunks=2)
+    checks = {}
+    for i, d in enumerate(dirs):
+        checks[f"scene_{i}"] = _check_against(f"[sweep] scene {i}:", swept[d].objects,
+                                              serial[i].objects, gts[i], setup, device)
+        checks[f"scene_{i}_pipelined"] = _check_against(
+            f"[sweep] scene {i} pipelined:", piped[d].objects, serial[i].objects, gts[i], setup,
+            device)
+        log(f"[sweep] scene {i}: against serial score {checks[f'scene_{i}']['score_err']:.1e}, "
+            f"pose {checks[f'scene_{i}']['pose_err']:.1e}; ADD-S mm "
+            f"{json.dumps({k: round(v * 1000, 2) for k, v in checks[f'scene_{i}']['adds_m'].items()})}")
+    t_sw, t_pi = swept[dirs[0]].timings, piped[dirs[0]].timings
+    log(f"[sweep] unchunked {json.dumps(t_sw)} (wall {wall:.3f} s); pipeline_chunks=2 "
+        f"{json.dumps(t_pi)}; serial total_s per scene "
+        f"{json.dumps([round(r.timings['total_s'], 4) for r in serial])}")
+    prof = profile_scene(sweep, label=f"sweep of {len(dirs)} scenes") or {}
+    out = {"dirs": dirs, "gts": gts, "cards": cards, "jobs": jobs, "lcp_segside_launches": launches,
+           "wall_s": wall, "timings": t_sw, "timings_pipelined": t_pi,
+           "serial_total_s": [r.timings["total_s"] for r in serial],
+           "device_busy_ms": prof.get("busy_ms"), "launches_profiled": prof.get("launches"),
+           "checks": checks}
+    if cards > 1:
+        one = sweep(mesh_mod.make_mesh(1))
+        for i, d in enumerate(dirs):
+            _check_against(f"[sweep] scene {i} {cards} cards vs one:", swept[d].objects,
+                           one[d].objects, gts[i], setup, device)
+        log(f"[sweep] the {cards}-card sweep equals the one-card sweep")
+    return out
+
+
+def _same_estimates(a, b) -> bool:
+    return all(x.name == y.name and x.score == y.score and np.array_equal(x.pose_world, y.pose_world)
+               for x, y in zip(a, b)) and len(a) == len(b)
+
+
+def phase_sweep_mcts(device, setup: dict, sweep_info: dict, leaf_stats: dict) -> dict:
+    """[sweep-mcts] the search over three of [sweep]'s scenes at once, fed
+    what the serial MCTS path gives mcts_select (its LCP-stage estimates, the
+    world-frame table box refined from the raw depth, the cleaned depth, the
+    segments; caught there):
+    - one shared batch (512 rows, each scene's 128 random placements and
+      padding) against each scene's own evaluator: the same costs and
+      settled poses, to the bit;
+    - mcts_select_multi at the default MCTS configuration: 1,200 of 1,200
+      expansions a scene and every object within ADD-S 1 cm, beside one
+      mcts_select a scene (tree s seeded with s, as in the shared search;
+      also within ADD-S 1 cm). The shared search splits its batch over the
+      live trees (512 // 3 rows a tree against 128), so a tree's virtual-loss
+      batches and its path can differ: the scenes with the same result are
+      counted, not required;
+    - with branching 4 (a tree of 85 nodes, enumerated in one batch),
+      mcts_select_multi equal to one mcts_select a scene, to the bit;
+    - one shared batch's launches a leaf against [leaf]'s;
+    - sweep_scenes(verification_mode="MCTS") once, its poses logged beside the
+      JAX sweep's table-pose finding (not held: that sweep hands the search
+      remove_table's camera-frame table pose)."""
+    from physimglobalpose_tpu_torch.config import DEFAULT_CONFIG
+    from physimglobalpose_tpu_torch.parallel import mesh as mesh_mod, scene_sweep
+    from physimglobalpose_tpu_torch.pipeline import api, mcts
+
+    cfg, db = DEFAULT_CONFIG, setup["db"]
+    dirs, gts = sweep_info["dirs"][:3], sweep_info["gts"][:3]
+    mesh = mesh_mod.make_mesh()
+    real, rows = mcts.mcts_select, []
+
+    def catch(estimates, sc, db_, table_pose, depth_clean, cfg_, seed=0, segs=None, **kw):
+        rows.append((estimates, sc, table_pose, depth_clean, segs))
+        return estimates
+
+    mcts.mcts_select = catch
+    try:
+        for d in dirs:
+            api.estimate_pose(d, db, verification_mode="MCTS", cfg=cfg, seed=0, write_result=False,
+                              device=device)
+    finally:
+        mcts.mcts_select = real
+
+    # One shared batch against each scene's own evaluator.
+    evs = []
+    for est, sc, tp, dc, _segs in rows:
+        hw, _hs, hulls = mcts._scene_search_inputs(est, sc, db, cfg)
+        evs.append(mcts.BatchedLeafEvaluator(hulls, hw, dc, sc.intrinsics, sc.cam_pose, tp, cfg,
+                                             device=device))
+    msev = mcts.MultiSceneLeafEvaluator(evs, mesh=mesh)
+    b, k = max(cfg.mcts.leaf_batch, cfg.mcts.leaf_batch_multi), msev.k_max
+    rng = np.random.default_rng(0)
+    per = min(cfg.mcts.leaf_batch, b // len(evs))
+    choices = rng.integers(0, evs[0].num_hyp, (b, k))
+    choices[np.arange(k)[None, :] >= rng.integers(1, k + 1, b)[:, None]] = -1
+    scene_idx = np.minimum(np.arange(b) // per, len(evs) - 1)
+    costs, settled = msev.evaluate(scene_idx, choices, choices >= 0)
+    for si, ev in enumerate(evs):
+        sel = slice(si * per, (si + 1) * per)
+        c1, s1 = ev.evaluate(choices[sel], choices[sel] >= 0)
+        if not (np.array_equal(costs[sel], c1) and np.array_equal(settled[sel], s1)):
+            fail(f"[sweep-mcts] scene {si}: the shared batch's rows differ from the scene's own "
+                 f"evaluator (costs {np.abs(costs[sel] - c1).max()}, poses "
+                 f"{np.abs(settled[sel] - s1).max():.2e})")
+    log(f"[sweep-mcts] a shared batch of {b} rows: each scene's {per} rows equal its own "
+        f"evaluator's, costs and settled poses to the bit")
+
+    def searches(cfg_):
+        singles = [mcts.mcts_select(est, sc, db, tp, dc, cfg_, seed=si, segs=segs, device=device)
+                   for si, (est, sc, tp, dc, segs) in enumerate(rows)]
+        stats = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        multi = mcts.mcts_select_multi([r[:4] for r in rows], db, cfg_, seed=0, mesh=mesh,
+                                       segs_list=[r[4] for r in rows], device=device, stats=stats)
+        torch.cuda.synchronize()
+        return singles, multi, stats, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    singles, multi, stats, search_s = searches(cfg)
+    single_s = time.perf_counter() - t0 - search_s
+    log(f"[sweep-mcts] {len(rows)} scenes: search_s {search_s:.3f} (one mcts_select a scene: "
+        f"{single_s:.3f} s in all); expansions {stats['search_expansions']} of "
+        f"{stats['search_budget']}; {stats['shared_batches']} shared batches, "
+        f"{stats['leaves']} leaves")
+    if stats["search_expansions"] != stats["search_budget"] or min(stats["search_budget"]) < 1200:
+        fail(f"[sweep-mcts] expansions {stats['search_expansions']} short of the budget")
+    adds, same = {}, 0
+    for si in range(len(rows)):
+        for tag, result in (("shared", multi[si]), ("single", singles[si])):
+            adds[f"scene_{si}_{tag}"] = a = {o.name: _adds_m(setup, o.name, o.pose_cam,
+                                                             gts[si][o.name], device)
+                                             for o in result}
+            if max(a.values()) >= SEARCH_ADDS_BAR:
+                fail(f"[sweep-mcts] scene {si} ({tag} search): ADD-S "
+                     f"{max(a.values()) * 1000:.2f} mm >= {SEARCH_ADDS_BAR * 1000:.1f} mm")
+        same += _same_estimates(multi[si], singles[si])
+    log(f"[sweep-mcts] ADD-S mm {json.dumps({k: {n: round(v * 1000, 2) for n, v in a.items()} for k, a in adds.items()})}; "
+        f"the shared search gave the single search's result in {same} of {len(rows)} scenes")
+
+    small = dataclasses.replace(cfg, mcts=dataclasses.replace(cfg.mcts, branching=4))
+    s_singles, s_multi, s_stats, _ = searches(small)
+    for si in range(len(rows)):
+        if not _same_estimates(s_multi[si], s_singles[si]):
+            fail(f"[sweep-mcts] branching 4, scene {si}: mcts_select_multi differs from mcts_select")
+    log(f"[sweep-mcts] branching 4 (trees of {s_stats['search_budget']} nodes, expansions "
+        f"{s_stats['search_expansions']}): mcts_select_multi equals one mcts_select a scene, to "
+        f"the bit")
+
+    # Launches a leaf: one shared batch of the search's width, profiled.
+    batch_ms = cuda_time_ms(lambda: msev.evaluate_async(scene_idx, choices, choices >= 0), reps=3,
+                            warmup=1)
+    prof = profile_scene(lambda: msev.evaluate(scene_idx, choices, choices >= 0),
+                         label=f"shared batch of {b} over {len(evs)} scenes") or {}
+    per_leaf = prof["launches"] / b if prof.get("launches") else None
+    single_per_leaf = (leaf_stats["launches"] / cfg.mcts.leaf_batch
+                       if leaf_stats.get("launches") else None)
+    log(f"[sweep-mcts] shared batch of {b}: {batch_ms:.2f} ms warm (CUDA events), launches "
+        f"{prof.get('launches')}, {per_leaf} a leaf against [leaf]'s {leaf_stats.get('launches')} "
+        f"/ {cfg.mcts.leaf_batch} = {single_per_leaf} a leaf")
+
+    # The sweep's own MCTS mode (the JAX sweep's table pose), poses not held.
+    t0 = time.perf_counter()
+    swept = scene_sweep.sweep_scenes(mesh, dirs, db, cfg=cfg, seed=0, verification_mode="MCTS")
+    torch.cuda.synchronize()
+    sweep_mcts_s = time.perf_counter() - t0
+    sweep_adds = {f"scene_{i}": {o.name: round(_adds_m(setup, o.name, o.pose_cam, gts[i][o.name],
+                                                       device) * 1000, 2)
+                                 for o in swept[d].objects}
+                  for i, d in enumerate(dirs)}
+    log(f"[sweep-mcts] sweep_scenes(MCTS), remove_table's camera-frame table pose as in the JAX "
+        f"sweep: {sweep_mcts_s:.3f} s, ADD-S mm (not held) {json.dumps(sweep_adds)}")
+    return {"search_s": search_s, "single_s": single_s, "stats": stats, "adds_m": adds,
+            "same_as_single": same, "shared_batch": b, "shared_batch_ms": batch_ms,
+            "shared_batch_launches": prof.get("launches"), "launches_per_leaf": per_leaf,
+            "leaf_launches_per_leaf": single_per_leaf, "sweep_mcts_s": sweep_mcts_s,
+            "sweep_mcts_adds_mm": sweep_adds}
+
+
+def phase_serve(device, setup: dict, sweep_info: dict) -> dict:
+    """[serve] the /pose_estimation service in a thread on a free local port,
+    booted warm: boot, warm-up and first-pass-minus-second seconds; three
+    sequential requests on [sweep]'s scenes, their latencies, their poses
+    against a direct estimate_pose (the [sweep] bars); then with max_queue=0,
+    a request in flight (an MCTS one) and a second beside it: one 200 and
+    one 503 with Retry-After."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from physimglobalpose_tpu_torch.config import DEFAULT_CONFIG
+    from physimglobalpose_tpu_torch.pipeline import api, server
+
+    cfg, db = DEFAULT_CONFIG, setup["db"]
+
+    def post(url, payload):
+        req = urllib.request.Request(url, data=json.dumps(payload).encode(), method="POST")
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, dict(r.headers), json.loads(r.read())
+
+    def start(srv):
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        return f"http://127.0.0.1:{srv.server_address[1]}"
+
+    t0 = time.perf_counter()
+    srv = server.serve(db, cfg, port=0, warm=True, device=device)
+    boot_s = time.perf_counter() - t0
+    url = start(srv)
+    latencies, checks = [], {}
+    try:
+        for i, d in enumerate(sweep_info["dirs"][:3]):
+            t0 = time.perf_counter()
+            status, _headers, body = post(url + "/pose_estimation", {"scene_dir": d})
+            latencies.append(time.perf_counter() - t0)
+            if status != 200:
+                fail(f"[serve] request {i} answered {status}")
+            direct = api.estimate_pose(d, db, cfg=cfg, seed=0, write_result=False, device=device)
+            got = [api.ObjectPoseEstimate(name=o["name"], pose_cam=np.asarray(o["pose_cam"]),
+                                          pose_world=np.asarray(o["pose_world"]), score=o["score"])
+                   for o in body["objects"]]
+            checks[f"request_{i}"] = _check_against(f"[serve] request {i}:", got, direct.objects,
+                                                    sweep_info["gts"][i], setup, device)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    log(f"[serve] boot {boot_s:.3f} s (warm-up {srv.warmup_s:.3f} s: first pass minus second "
+        f"{srv.warmup_compile_s:.3f} s, second {srv.warmup_run_s:.3f} s); request latencies s "
+        f"{json.dumps([round(x, 4) for x in latencies])}")
+
+    srv = server.serve(db, cfg, port=0, max_queue=0, device=device)
+    url = start(srv)
+    first = {}
+
+    def in_flight():
+        first["reply"] = post(url + "/pose_estimation",
+                              {"scene_dir": sweep_info["dirs"][0], "verification_mode": "MCTS"})
+
+    thread = threading.Thread(target=in_flight)
+    try:
+        thread.start()
+        deadline = time.monotonic() + 60.0
+        while time.monotonic() < deadline:
+            with urllib.request.urlopen(url + "/healthz", timeout=30) as r:
+                if json.loads(r.read())["queue_depth"] == 1:
+                    break
+            time.sleep(0.005)
+        else:
+            fail("[serve] the first request never became in flight")
+        try:
+            post(url + "/pose_estimation", {"scene_dir": sweep_info["dirs"][1]})
+            fail("[serve] the second request was admitted beside one in flight with max_queue=0")
+        except urllib.error.HTTPError as e:
+            retry = e.headers.get("Retry-After")
+            if e.code != 503 or not retry or int(retry) < 1:
+                fail(f"[serve] the second request got {e.code}, Retry-After {retry}")
+        thread.join(timeout=300)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    if first.get("reply", (None,))[0] != 200:
+        fail("[serve] the request in flight did not answer 200")
+    log(f"[serve] max_queue=0: the request in flight answered 200, the one beside it 503 with "
+        f"Retry-After {retry} s")
+    return {"boot_s": boot_s, "warmup_s": srv.warmup_s, "first_minus_second_s": srv.warmup_compile_s,
+            "warm_run_s": srv.warmup_run_s, "latencies_s": latencies, "checks": checks,
+            "retry_after_s": int(retry)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
@@ -2101,6 +2514,9 @@ def main() -> int:
         detect_stats = phase_detect(device, setup)
         modes_stats = phase_modes(device, workdir, setup)
         neural_stats = phase_neural(device, workdir, setup)
+        sweep_stats = phase_sweep(device, workdir, setup)
+        sweep_mcts_stats = phase_sweep_mcts(device, setup, sweep_stats, leaf_stats)
+        serve_stats = phase_serve(device, setup, sweep_stats)
         _scoring_stats, scoring_launches = phase_scoring(device)
         _scoring_stats, scoring_large_launches = phase_scoring(device, large=True)
 
@@ -2134,7 +2550,9 @@ def main() -> int:
               launches_mcts=mcts_stats["lcp_segside_launches"],
               launches_greedy=greedy_stats["lcp_segside_launches"],
               # The other hypothesis modes' LCP stage, one launch an object.
-              launches_modes={m: st["lcp_segside_launches"] for m, st in modes_stats.items()}),
+              launches_modes={m: st["lcp_segside_launches"] for m, st in modes_stats.items()},
+              # The multi-scene sweep's job batch, one launch a job.
+              launches_sweep=sweep_stats["lcp_segside_launches"]),
         entry("lcp_segside/default", lcp_src, "physimglobalpose_tpu/ops/lcp.py:420",
               "ops/lcp.py::_lcp_kernel_segside (default tier)",
               scoring_launches["lcp_segside/default"], tier_stats["default"],
@@ -2186,6 +2604,9 @@ def main() -> int:
     log("[search] " + json.dumps({"leaf": leaf_stats, "mcts": mcts_stats, "greedy": greedy_stats}))
     log("[modes] " + json.dumps({"fcn": fcn_stats, "detect": detect_stats, "e2e_modes": modes_stats,
                                  "e2e_neural": neural_stats}))
+    log("[sweeps] " + json.dumps({"sweep": {k: v for k, v in sweep_stats.items()
+                                            if k not in ("dirs", "gts")},
+                                  "sweep_mcts": sweep_mcts_stats, "serve": serve_stats}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -329,12 +329,13 @@ def icp_corr_segside(tr12, seg4, model_pts, model_nrm, max_corr_dist: float = 0.
             "shared memory; use refine_icp"
         )
     out = torch.empty((h, 42), dtype=torch.float32, device=dev)
-    rc = _icp_launcher()(
-        tr12.data_ptr(), seg4.data_ptr(), model_pts.data_ptr(), model_nrm.data_ptr(),
-        out.data_ptr(), h, ns, nm, max_corr_dist * max_corr_dist,
-        2.0 * (max_corr_dist * 0.5) ** 2, ICP_TIERS[matmul_precision],
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):  # launch in the tensors' own context
+        rc = _icp_launcher()(
+            tr12.data_ptr(), seg4.data_ptr(), model_pts.data_ptr(), model_nrm.data_ptr(),
+            out.data_ptr(), h, ns, nm, max_corr_dist * max_corr_dist,
+            2.0 * (max_corr_dist * 0.5) ** 2, ICP_TIERS[matmul_precision],
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     if rc != 0:
         raise RuntimeError(f"icp_corr_segside launch failed with CUDA error {rc}")
     icp_corr_segside.launches += 1
@@ -525,12 +526,13 @@ def icp_corr_stream(tr12, seg4, model_pts, model_nrm, max_corr_dist: float = 0.0
     # 27 sums per (hypothesis, segment group); the launcher's second kernel
     # adds the groups per hypothesis in index order.
     partial = torch.empty((h, -(-ns // _STREAM_SEG_CHUNK), 27), dtype=torch.float32, device=dev)
-    rc = _icp_stream_launcher()(
-        tr12.data_ptr(), seg4.data_ptr(), model_pts.data_ptr(), model_nrm.data_ptr(),
-        partial.data_ptr(), out.data_ptr(), h, ns, nm, min(int(nm_tile), nm),
-        max_corr_dist * max_corr_dist, 2.0 * (max_corr_dist * 0.5) ** 2,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):  # launch in the tensors' own context
+        rc = _icp_stream_launcher()(
+            tr12.data_ptr(), seg4.data_ptr(), model_pts.data_ptr(), model_nrm.data_ptr(),
+            partial.data_ptr(), out.data_ptr(), h, ns, nm, min(int(nm_tile), nm),
+            max_corr_dist * max_corr_dist, 2.0 * (max_corr_dist * 0.5) ** 2,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     if rc != 0:
         raise RuntimeError(f"icp_corr_stream launch failed with CUDA error {rc}")
     icp_corr_stream.launches += 1

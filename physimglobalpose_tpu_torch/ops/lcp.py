@@ -305,10 +305,13 @@ def _launch(wrapper, symbol, tr12, model_pts, model_nrm, segcat, delta2, cos_gat
     types = [ctypes.c_void_p] * len(head)
     if unit is not None:
         head, types = [unit] + head, [ctypes.c_int] + types
-    rc = _launcher(symbol, types)(
-        *head, h, nv, ns, delta2, cos_gate, int(weighted), tier,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    # The runtime launches on the host thread's current device: make it the
+    # tensors' own, so a shard on cuda:1 runs in cuda:1's context.
+    with torch.cuda.device(dev):
+        rc = _launcher(symbol, types)(
+            *head, h, nv, ns, delta2, cos_gate, int(weighted), tier,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     _count_launch(wrapper, rc, tier)
     return out
 
@@ -639,11 +642,12 @@ def _launch_stream(wrapper, symbol, model_tile, tr12, model_pts, model_nrm,
     # kernel adds them per hypothesis in tile order.
     n_tiles = -(-nv // model_tile)
     partial = torch.empty((h, n_tiles), dtype=torch.float32, device=dev)
-    rc = _stream_launcher(symbol)(
-        tr12.data_ptr(), model_pts.data_ptr(), model_nrm.data_ptr(), segcat.data_ptr(),
-        partial.data_ptr(), out.data_ptr(), h, nv, ns, int(ns_tile), delta2, cos_gate,
-        int(weighted), tier, torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):  # launch in the tensors' own context
+        rc = _stream_launcher(symbol)(
+            tr12.data_ptr(), model_pts.data_ptr(), model_nrm.data_ptr(), segcat.data_ptr(),
+            partial.data_ptr(), out.data_ptr(), h, nv, ns, int(ns_tile), delta2, cos_gate,
+            int(weighted), tier, torch.cuda.current_stream(dev).cuda_stream,
+        )
     _count_launch(wrapper, rc, tier)
     return out
 

@@ -323,11 +323,13 @@ def settle_single_dynamic(
 
     Rows: init_quat/init_pos/dyn_idx may carry a leading batch, and with it
     scene.hull_mask, scene.inv_mass and scene.body_active ([B, K, P],
-    [B, K], [B, K]); hull_pts, hull_eqs, inv_inertia and the table are
-    shared by every row.
+    [B, K], [B, K]). hull_pts, hull_eqs, inv_inertia and the table pose are
+    shared by every row, or carry the batch too ([B, K, P, 3], [B, K, F, 4],
+    [B, K, 3], [B, 4, 4]: rows of different scenes, the multi-scene leaf
+    batch).
     """
     batch = init_quat.shape[:-2]
-    k, p_max = scene.hull_pts.shape[:2]
+    k, p_max = scene.hull_pts.shape[-3:-1]
     f_max = max(scene.hull_eqs.shape[-2], 6)
     quat0 = init_quat.reshape(-1, k, 4)
     pos0 = init_pos.reshape(-1, k, 3)
@@ -342,8 +344,8 @@ def settle_single_dynamic(
     dyn = torch.clamp(dyn_idx, 0, k - 1).to(torch.int64)
 
     inv_mass_d = torch.where(has, inv_mass[rows, dyn], 0.0)  # [B]
-    inv_inertia_d = scene.inv_inertia[dyn]  # [B, 3]
-    hull_d = scene.hull_pts[dyn]  # [B, P, 3]
+    inv_inertia_d = scene.inv_inertia.expand(b, k, 3)[rows, dyn]  # [B, 3]
+    hull_d = scene.hull_pts.expand(b, k, p_max, 3)[rows, dyn]  # [B, P, 3]
     mask_d = hull_mask[rows, dyn]  # [B, P]
     active_d = has
     coll_ok = torch.arange(k, device=dev)[None, :] != dyn[:, None]  # [B, K]
@@ -358,12 +360,12 @@ def settle_single_dynamic(
         se3.quat_to_matrix(quat0), pos0, scene.hull_eqs
     )  # [B, K, F', 4]
     table_planes = _planes_to_world(
-        scene.table_pose[:3, :3], scene.table_pose[:3, 3],
+        scene.table_pose[..., :3, :3], scene.table_pose[..., :3, 3],
         _box_local_planes(scene.table_half_extents),
-    )  # [6, 4]
+    )  # [6, 4], or [B, 6, 4] with a table a row
+    table_planes = _pad_faces(table_planes, f_max).reshape(-1, 1, f_max, 4)
     planes_all = torch.cat(
-        [_pad_faces(eqs_world, f_max), _pad_faces(table_planes, f_max).expand(b, 1, f_max, 4)],
-        dim=1,
+        [_pad_faces(eqs_world, f_max), table_planes.expand(b, 1, f_max, 4)], dim=1,
     )  # [B, K+1, F, 4]
     pl3 = planes_all[..., :3].reshape(b, -1, 3).transpose(-1, -2)  # [B, 3, (K+1)F]
     pld = planes_all[..., 3].reshape(b, 1, -1)

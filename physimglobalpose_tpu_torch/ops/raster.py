@@ -24,7 +24,7 @@ from physimglobalpose_tpu_torch import _torchcfg  # noqa: F401  (precision setup
 def splat_depth(
     points: torch.Tensor,  # [..., N, 3] camera-frame
     valid: torch.Tensor,  # [..., N] bool
-    intrinsics: torch.Tensor,  # [3, 3]
+    intrinsics: torch.Tensor,  # [3, 3], or [..., 3, 3] one per image
     height: int,
     width: int,
     radius: int = 1,
@@ -34,7 +34,7 @@ def splat_depth(
     n = points.shape[-2]
     pts = points.reshape(-1, n, 3)
     b = pts.shape[0]
-    px = pts @ intrinsics.T
+    px = pts @ intrinsics.reshape(-1, 3, 3).transpose(-1, -2)
     z = px[..., 2]
     safe_z = torch.where(z == 0, 1.0, z)
     col = torch.floor(px[..., 0] / safe_z + 0.5).to(torch.int64)
@@ -98,9 +98,9 @@ def render_objects_batch(
 
 def render_scene_depth(
     poses: torch.Tensor,  # [..., K, 4, 4] camera-frame object poses
-    model_pts: torch.Tensor,  # [K, N, 3]
+    model_pts: torch.Tensor,  # [K, N, 3], or [..., K, N, 3] a scene each
     model_mask: torch.Tensor,  # [..., K, N] bool
-    intrinsics: torch.Tensor,
+    intrinsics: torch.Tensor,  # [3, 3], or [..., 3, 3] a scene each
     height: int,
     width: int,
     radius: int = 1,
@@ -110,13 +110,14 @@ def render_scene_depth(
 
     Equal to composite_min over per-object render_object_depth calls
     (scatter-min is associative); a leading batch of scenes shares the same
-    scatter."""
+    scatter, each with its own clouds and camera where those carry the
+    batch (the multi-scene leaf batch)."""
     pts = (
-        torch.einsum("...kij,knj->...kni", poses[..., :3, :3], model_pts)
+        torch.einsum("...kij,...knj->...kni", poses[..., :3, :3], model_pts)
         + poses[..., :, None, :3, 3]
     )
     batch = pts.shape[:-3]
-    k, n = model_pts.shape[:2]
+    k, n = model_pts.shape[-3:-1]
     mask = model_mask.expand(batch + (k, n))
     depth = splat_depth(
         pts.reshape(batch + (k * n, 3)), mask.reshape(batch + (k * n,)),

@@ -90,6 +90,13 @@ for _i in range(4):
         _l = next(x for x in range(4) if x not in (_i, _j, _k))
         _SPLITS.append((_i, _j, _k, _l))
 _SPLITS = tuple(_SPLITS)
+_SPLITS_ON: dict = {}  # the table on each device, uploaded once
+
+
+def _splits_on(device: torch.device) -> torch.Tensor:
+    if device not in _SPLITS_ON:
+        _SPLITS_ON[device] = torch.tensor(_SPLITS, dtype=torch.int64, device=device)
+    return _SPLITS_ON[device]
 
 
 def try_quadrilateral(base_pts: torch.Tensor):
@@ -97,7 +104,7 @@ def try_quadrilateral(base_pts: torch.Tensor):
 
     Returns (perm [..., 4] int64, invariant1 [...], invariant2 [...]).
     """
-    splits = torch.tensor(_SPLITS, dtype=torch.int64, device=base_pts.device)  # [12, 4]
+    splits = _splits_on(base_pts.device)  # [12, 4]
     p = base_pts[..., splits, :]  # [..., 12, 4, 3]
     dist, inv1, inv2 = seg_seg_invariants(
         p[..., 0, :], p[..., 1, :], p[..., 2, :], p[..., 3, :]

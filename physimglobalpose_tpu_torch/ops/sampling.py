@@ -106,7 +106,7 @@ def sample_bases(
 
     # Draw 2: edge-compatible with b1.
     logw2 = logw1 + edge_log(b1)
-    logw2[rows, b1] = NEG_INF
+    logw2.scatter_(1, b1[:, None], NEG_INF)  # a scatter: no host copy of the value
     b2 = draw(1, logw2)
 
     # Draw 3: edge-compatible with b2, inner angle >= threshold.
@@ -114,9 +114,9 @@ def sample_bases(
     v2u = _unit(seg_pts[None] - seg_pts[b1][:, None, :])  # [B, N, 3]
     cosang = torch.abs(torch.sum(v1u[:, None, :] * v2u, dim=-1))  # folded angle
     cos_min = torch.cos(torch.deg2rad(torch.tensor(min_base_angle_deg, dtype=torch.float32)))
-    angle_ok = cosang <= cos_min.to(dev)
+    angle_ok = cosang <= cos_min  # a CPU scalar: no copy to the device
     logw3 = logw2 + edge_log(b2) + torch.where(angle_ok, 0.0, NEG_INF)
-    logw3[rows, b2] = NEG_INF
+    logw3.scatter_(1, b2[:, None], NEG_INF)
     b3 = draw(2, logw3)
 
     # Draw 4: edge-compatible with b3, near-coplanar, min spacing.
@@ -136,7 +136,7 @@ def sample_bases(
 
     spacing_ok = far_from(p1) & far_from(p2) & far_from(p3)
     logw4 = logw3 + edge_log(b3) + torch.where(coplanar & spacing_ok, 0.0, NEG_INF)
-    logw4[rows, b3] = NEG_INF
+    logw4.scatter_(1, b3[:, None], NEG_INF)
     b4 = draw(3, logw4)
 
     # Validity: the chosen weight must be finite at every step.

@@ -3,6 +3,8 @@
 Replaces PCL VoxelGrid (5 mm for the scene, 1 cm for segments): one centroid
 per occupied voxel, computed by a stable sort on the voxel key and segment
 sums, compacted to the front of a fixed-size buffer with a validity mask.
+The sums are a segmented reduction over the sorted points, so they do not
+depend on the device or the run.
 """
 
 from __future__ import annotations
@@ -55,18 +57,22 @@ def voxel_downsample(
 
     num_seg = max_out + 1
     w = valid_s.to(torch.float32)
-    counts = torch.zeros(num_seg, device=points.device).index_add_(0, seg, w)
-    sums = torch.zeros(num_seg, 3, device=points.device).index_add_(
-        0, seg, pts_s * w[:, None]
-    )
+    # Per-voxel sums: seg is non-decreasing, so each voxel is a contiguous run
+    # of the sorted points, and a segmented reduction adds each run in order,
+    # the same order on the CPU and on the card (index_add_'s float atomics
+    # would add in another order each run on the card).
+    bounds = torch.searchsorted(seg, torch.arange(num_seg + 1, device=points.device))
+    cols = [pts_s * w[:, None], w[:, None]]
+    if extras is not None:
+        cols.append(extras[order] * w[:, None])
+    sums_all = torch.segment_reduce(torch.cat(cols, dim=1), "sum",
+                                    lengths=bounds[1:] - bounds[:-1], axis=0, unsafe=True)
+    sums, counts = sums_all[:, :3], sums_all[:, 3]
     denom = torch.clamp(counts, min=1.0)[:, None]
     out_mask = counts[:max_out] > 0
     cent = torch.where(out_mask[:, None], (sums / denom)[:max_out], 0.0)
 
     out_extras = None
     if extras is not None:
-        ex_sums = torch.zeros(num_seg, extras.shape[-1], device=points.device).index_add_(
-            0, seg, extras[order] * w[:, None]
-        )
-        out_extras = torch.where(out_mask[:, None], (ex_sums / denom)[:max_out], 0.0)
+        out_extras = torch.where(out_mask[:, None], (sums_all[:, 4:] / denom)[:max_out], 0.0)
     return cent, out_mask, out_extras

@@ -6,8 +6,10 @@ runs estimate_pose over many scene directories, scores against gt_info.yml
 object poses when present (ADD, ADD-S, folded rot/trans), appends one JSON
 line per scene, and skips scenes already in the log on restart.
 
-The sweep sharded over several devices (the JAX package's `mesh` /
-`--sharded`) is not ported yet.
+With a mesh (evaluate_scenes(mesh=...), the CLI's --sharded) the LCP and
+MCTS sweeps go through parallel/scene_sweep.sweep_scenes: every pending
+scene's (scene, object) jobs in one job batch split over the mesh's devices,
+and in MCTS mode the scenes' searches sharing leaf batches.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -85,24 +87,17 @@ def evaluate_scenes(
     whole log.
 
     Re-running with the same log_path resumes: scenes already logged are
-    skipped. Runs on the card unless device="cpu". mesh (the sweep sharded
-    over several devices) is not ported yet.
+    skipped. Runs on the card unless device="cpu". mesh: a
+    parallel/mesh.DeviceMesh; the LCP and MCTS sweeps then run all pending
+    scenes through scene_sweep.sweep_scenes (rows carry the batch's mean
+    time a scene, marked "sharded"); GREEDY runs scene by scene.
     """
-    if mesh is not None:
-        raise NotImplementedError("the sharded sweep (mesh) is not ported yet")
     done = completed_scenes(log_path)
-    for sd in (sd for sd in scene_dirs if sd not in done):
-        t0 = time.perf_counter()
-        result = api.estimate_pose(
-            sd, db, dataset=dataset,
-            segmentation_mode=segmentation_mode,
-            verification_mode=verification_mode,
-            hypothesis_mode=hypothesis_mode,
-            cfg=cfg, seed=seed, write_result=False, device=device,
-        )
-        seconds = time.perf_counter() - t0
+    pending = [sd for sd in scene_dirs if sd not in done]
+
+    def write_row(sd: str, result, seconds: float, extra: Optional[dict] = None):
         sc = scene_mod.load_scene(sd, dataset=dataset)
-        row = {"scene": sd, "seconds": seconds, "objects": {}}
+        row = {"scene": sd, "seconds": seconds, "objects": {}, **(extra or {})}
         for est in result.objects:
             entry: dict = {"score": est.score}
             if sc.gt_poses and est.name in sc.gt_poses:
@@ -111,6 +106,37 @@ def evaluate_scenes(
             row["objects"][est.name] = entry
         with open(log_path, "a") as fh:
             fh.write(json.dumps(row) + "\n")
+
+    if mesh is not None and verification_mode in ("LCP", "MCTS") and pending:
+        from physimglobalpose_tpu_torch.parallel import scene_sweep
+
+        t0 = time.perf_counter()
+        results = scene_sweep.sweep_scenes(
+            mesh, pending, db, dataset=dataset, segmentation_mode=segmentation_mode,
+            hypothesis_mode=hypothesis_mode, cfg=cfg, seed=seed,
+            verification_mode=verification_mode,
+        )
+        batch_total_s = time.perf_counter() - t0
+        for sd in pending:
+            # A sharded row carries the batch's mean time a scene, not the
+            # scene's own wall time: marked so a log that mixes both tells.
+            write_row(sd, results[sd], batch_total_s / len(pending), extra={
+                "scenes_per_sec": results[sd].timings.get("scenes_per_sec"),
+                "sharded": True, "batch_scenes": len(pending),
+                "seconds_batch_total": batch_total_s,
+            })
+        pending = []
+
+    for sd in pending:
+        t0 = time.perf_counter()
+        result = api.estimate_pose(
+            sd, db, dataset=dataset,
+            segmentation_mode=segmentation_mode,
+            verification_mode=verification_mode,
+            hypothesis_mode=hypothesis_mode,
+            cfg=cfg, seed=seed, write_result=False, device=device,
+        )
+        write_row(sd, result, time.perf_counter() - t0)
 
     all_rows = []
     with open(log_path) as fh:
@@ -165,7 +191,9 @@ def main(argv=None):
                         "under the temporary directory)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--sharded", action="store_true",
-                   help="shard the sweep over the devices (not ported yet)")
+                   help="run the (scene, object) jobs of all scenes as one batch split over "
+                        "every device of --device (every card, or 8 CPU entries); in MCTS "
+                        "mode the searches also share leaf batches")
     p.add_argument("--preset", default="default", choices=["default", "small"],
                    help="'small' shrinks the fixed-size caps (fast CPU runs)")
     p.add_argument("--emd-exact", action="store_true",
@@ -173,8 +201,6 @@ def main(argv=None):
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="run on the card (default) or on the CPU")
     args = p.parse_args(argv)
-    if args.sharded:
-        raise NotImplementedError("the sharded sweep (--sharded) is not ported yet")
 
     from physimglobalpose_tpu_torch.models import objectdb
 
@@ -196,12 +222,17 @@ def main(argv=None):
         cache_dir=args.cache_dir or objectdb.default_cache_dir(),
         only=sc0.object_names if len(dirs) == 1 else None, device=args.device,
     )
+    mesh = None
+    if args.sharded:
+        from physimglobalpose_tpu_torch.parallel import mesh as mesh_mod
+
+        mesh = mesh_mod.make_mesh(device=args.device)
     agg = evaluate_scenes(
         dirs, db, args.log, dataset=args.dataset,
         segmentation_mode=args.segmentation,
         verification_mode=args.verification,
         hypothesis_mode=args.hypothesis,
-        cfg=cfg, seed=args.seed, emd_exact=args.emd_exact, device=args.device,
+        cfg=cfg, seed=args.seed, mesh=mesh, emd_exact=args.emd_exact, device=args.device,
     )
     print(json.dumps(agg))
     return 0

@@ -48,10 +48,12 @@ def _score_and_pick(transforms, hyp_valid, enough, seg, model_validation_pts,
     )
     valid = hyp_valid & enough
     scores = torch.where(valid, scores, 0.0)
-    best = torch.argmax(scores)
-    best_score = scores[best]
+    # Gathers by a device index (indexing by a 0-dim tensor would read it
+    # back to the host).
+    best = torch.argmax(scores)[None]
+    best_score = scores.index_select(0, best)[0]
     eye = torch.eye(4, device=scores.device)
-    best_tf = torch.where(best_score > 0, transforms[best], eye)
+    best_tf = torch.where(best_score > 0, transforms.index_select(0, best)[0], eye)
     return HypothesisResult(
         transforms=transforms, scores=scores, valid=valid,
         best_transform=best_tf, best_score=best_score, enough_points=enough,
@@ -150,6 +152,29 @@ def generate_hypotheses_voting(
                            model_validation_nrm, cfg)
 
 
+def draw_generation(generator: torch.Generator, mode: str, n_seg: int, n_model: int,
+                    cfg: PipelineConfig = DEFAULT_CONFIG, device=None) -> dict:
+    """The random draws generate_hypotheses(generator=...) makes for one
+    object, drawn from `generator` with the same calls in the same order, as
+    the keyword arguments that inject them: gumbel [4, B, n_seg], in the
+    super4pcs and v4pcs modes pair_priority [2, B, n_model^2] (two draws),
+    then quad_priority [B, max_pairs^2]. Every shape is fixed by the config
+    and the padded cloud sizes, so a caller can draw ahead of the work and
+    run the work elsewhere (another device, a batch)."""
+    st = cfg.stocs
+    b, k = st.num_bases, st.max_pairs_per_ppf
+    dev = torch.device(device) if device is not None else generator.device
+    out = {"gumbel": sampling.gumbel_noise((4, b, n_seg), generator, dev)}
+    if mode in ("super4pcs", "v4pcs"):
+        out["pair_priority"] = torch.stack([
+            torch.rand((b, n_model * n_model), generator=generator, device=dev) for _ in range(2)
+        ])
+    elif mode != "stocs":
+        raise ValueError(f"unknown generation mode {mode!r}")
+    out["quad_priority"] = torch.rand((b, k * k), generator=generator, device=dev)
+    return out
+
+
 def top_k_hypotheses(result: HypothesisResult, k: int):
     """The k best-scoring hypotheses, ties in index order (the MCTS
     branching set; a superset of the reference's improving prefix)."""
@@ -197,11 +222,45 @@ def generate_hypotheses_batch(
     (gumbel [K, 4, B, N], quad_priority [K, B, K*K], pair_priority
     [K, 2, B, Nm*Nm] when injected).
     """
+    return generate_hypotheses_jobs(
+        segs, model_search_pts, model_search_mask, tables, model_validation_pts,
+        model_validation_nrm, cfg, generators=[generator] * model_search_pts.shape[0],
+        gumbel=gumbel, quad_priority=quad_priority, mode=mode, pair_priority=pair_priority,
+    )
+
+
+def generate_hypotheses_jobs(
+    segs: Segment3D,  # fields stacked with a leading job axis [J, ...]
+    model_search_pts: torch.Tensor,  # [J, Nm, 3]
+    model_search_mask: torch.Tensor,  # [J, Nm]
+    tables: ppf.PPFTable,  # stacked with a leading job axis
+    model_validation_pts: torch.Tensor,  # [J, Nv, 3]
+    model_validation_nrm: torch.Tensor,
+    cfg: PipelineConfig = DEFAULT_CONFIG,
+    generators: list | None = None,
+    gumbel: torch.Tensor | None = None,
+    quad_priority: torch.Tensor | None = None,
+    mode: str = "stocs",
+    pair_priority: torch.Tensor | None = None,
+) -> HypothesisResult:
+    """A flat (scene, object) job axis with per-job draws: generators[j]
+    (jobs of one scene may share its generator; jobs then draw in job
+    order), or gumbel / quad_priority / pair_priority with a leading job
+    axis (draw_generation's shapes). Row j equals generate_hypotheses on job
+    j with the same draws; jobs run one after another, one LCP launch each.
+    The scene sweep (parallel/scene_sweep.py) flattens many scenes' objects
+    into this axis."""
+    j = model_search_pts.shape[0]
+    if generators is None:
+        generators = [None] * j
+    if len(generators) != j:
+        raise ValueError(f"{len(generators)} generators for {j} jobs")
+
     def pick(draws, i):
         return None if draws is None else draws[i]
 
     results = []
-    for i in range(model_search_pts.shape[0]):
+    for i in range(j):
         table_i = ppf.PPFTable(
             presence=tables.presence[i], offsets=tables.offsets[i],
             counts=tables.counts[i], pairs=tables.pairs[i],
@@ -211,7 +270,7 @@ def generate_hypotheses_batch(
         results.append(generate_hypotheses(
             Segment3D(*(x[i] for x in segs)),
             model_search_pts[i], model_search_mask[i], table_i,
-            model_validation_pts[i], model_validation_nrm[i], cfg, generator=generator,
+            model_validation_pts[i], model_validation_nrm[i], cfg, generator=generators[i],
             gumbel=pick(gumbel, i), quad_priority=pick(quad_priority, i), mode=mode,
             pair_priority=pick(pair_priority, i),
         ))

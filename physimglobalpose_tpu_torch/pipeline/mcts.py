@@ -23,7 +23,11 @@ earlier ones; _backup fetches the oldest batch only once
 cfg.mcts.inflight_batches are queued.
 
 The search over many scenes at once (MultiSceneLeafEvaluator,
-uct_search_multi, mcts_select_multi) is not ported yet.
+uct_search_multi, mcts_select_multi) puts the pending leaves of every
+scene's tree into one shared batch: each row carries its scene's index and
+gathers that scene's constants (stacked and padded to the largest scene), so
+one batch's launches serve every scene. With a mesh (parallel/mesh.py) the
+batch's rows are split over its devices.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from physimglobalpose_tpu_torch.models import assets
 from physimglobalpose_tpu_torch.ops import cost as cost_mod
 from physimglobalpose_tpu_torch.ops import icp as icp_mod
 from physimglobalpose_tpu_torch.ops import physics, raster
+from physimglobalpose_tpu_torch.parallel import mesh as mesh_mod
 
 
 @dataclasses.dataclass
@@ -107,7 +112,7 @@ def _settle_render_cost(consts, cfg, h, w, radius, poses_w, active):
         # UCTState.cpp:208-270).
         return physics.PhysicsScene(
             hull_pts=consts["hull_pts"],
-            hull_mask=consts["hull_mask"][None] & placed[..., None],
+            hull_mask=consts["hull_mask"] & placed[..., None],
             hull_eqs=consts["hull_eqs"],
             inv_mass=inv_mass,
             inv_inertia=consts["inv_inertia"],
@@ -133,7 +138,7 @@ def _settle_render_cost(consts, cfg, h, w, radius, poses_w, active):
         # top of the previously settled ones (UCTSearch.cpp:140-194): the
         # object at placement position d dynamic, 0..d-1 static at their
         # settled poses, later objects absent.
-        for d in range(consts["hull_pts"].shape[0]):
+        for d in range(active.shape[-1]):
             is_dyn = active & (order_pos == d)
             placed = active & (order_pos <= d)
             inv_mass = torch.where(is_dyn, 1.0 / ph.object_mass, 0.0)
@@ -157,7 +162,10 @@ def _render_cost_of_poses(consts, cfg, h, w, radius, poses_w, active):
     reference's per-object min-composite, UCTState.cpp:62-68). The
     max_depth clamp is the reference's 1 m render cut (renderScene.cpp:70):
     objects pushed out of the workspace render as empty."""
-    poses_cam = consts["cam_pose_inv"] @ poses_w
+    cam_inv = consts["cam_pose_inv"]
+    if cam_inv.dim() == 3:  # a camera a row (the multi-scene leaf batch)
+        cam_inv = cam_inv[:, None]
+    poses_cam = cam_inv @ poses_w
     depth = raster.render_scene_depth(
         poses_cam, consts["render_pts"], consts["render_mask"] & active[..., None],
         consts["intr"], h, w, radius=radius, max_depth=cfg.render.max_render_depth,
@@ -785,3 +793,339 @@ def mcts_select(estimates, sc, db, table_pose, depth_clean, cfg, seed=0,
         _, settled = evaluator.evaluate_final(assign[None, :], np.ones((1, k), bool))
         settled_row = settled[0]
     return _install_assignment(estimates, assign, settled_row, sc.cam_pose)
+
+
+# ------------------------------------------------------------ many scenes
+
+# The constants that differ from scene to scene; a multi-scene row gathers
+# its scene's entry of each (the JAX package's _eval_batch_multi_jit gathers
+# the whole per-scene tree inside its vmap).
+_SCENE_KEYS = ("hull_pts", "hull_mask", "hull_eqs", "inv_inertia", "render_pts", "render_mask",
+               "hyp_world", "table_pose", "cam_pose_inv", "intr", "obs")
+
+
+def _leaf_eval_multi(consts, cfg, h, w, radius, scene_idx, choices, active):
+    """Evaluate B (scene, placement) rows: row b gathers scene scene_idx[b]'s
+    constants, then settle -> render -> pixel cost as _leaf_eval. Returns
+    (costs [B], settled world poses [B, K_max, 4, 4])."""
+    rows = {key: (v[scene_idx] if key in _SCENE_KEYS else v) for key, v in consts.items()}
+    num_hyp = rows["hyp_world"].shape[2]
+    safe_choice = torch.clamp(choices, 0, num_hyp - 1)
+    b = choices.shape[0]
+    poses_w = rows["hyp_world"][
+        torch.arange(b, device=choices.device)[:, None], rows["obj_idx"][None, :], safe_choice
+    ]
+    return _settle_render_cost(rows, cfg, h, w, radius, poses_w, active)
+
+
+def _scene_consts(consts, s: int) -> dict:
+    """Scene s's constants out of the stacked multi-scene ones."""
+    return {key: (v[s] if key in _SCENE_KEYS else v) for key, v in consts.items()}
+
+
+class MultiSceneLeafEvaluator:
+    """Evaluates (scene, leaf) rows of MANY scenes in one device batch.
+
+    Scene constants are padded to common (K, P, F, N, C) shapes and stacked
+    on a leading axis; each row gathers its scene's by index. All scenes
+    share the render resolution and cfg (true for a dataset sweep). With a
+    mesh (parallel/mesh.DeviceMesh) the row axis is padded to a multiple of
+    its size (repeating row 0) and split into contiguous chunks, each run on
+    its device against its copy of the constants, the results gathered on
+    the first device; callers read only the real prefix.
+    """
+
+    def __init__(self, evaluators: List[BatchedLeafEvaluator], mesh=None):
+        assert evaluators, "need at least one scene"
+        self.mesh = mesh
+        self.n_shards = mesh.size if mesh is not None else 1
+        self.device = dev = evaluators[0].device
+        self.cfg = evaluators[0].cfg
+        self.h, self.w = evaluators[0].h, evaluators[0].w
+        for ev in evaluators:
+            assert (ev.h, ev.w) == (self.h, self.w), "mixed render resolutions"
+        self.ks = [ev.k for ev in evaluators]
+        self.k_max = k_max = max(self.ks)
+        self.num_scenes = len(evaluators)
+        self.splat_radius = evaluators[0].splat_radius
+        assert all(ev.splat_radius == self.splat_radius for ev in evaluators)
+        n_max = max(ev.consts["render_pts"].shape[1] for ev in evaluators)
+        c_max = max(ev.consts["hyp_world"].shape[1] for ev in evaluators)
+
+        def pad_to(x, shape, fill=0):
+            out = torch.full(shape, fill, dtype=x.dtype, device=dev)
+            out[tuple(slice(0, n) for n in x.shape)] = x
+            return out
+
+        def stack_consts(scene_consts):
+            p_max = max(c["hull_pts"].shape[1] for c in scene_consts)
+            f_max = max(c["hull_eqs"].shape[1] for c in scene_consts)
+            far = torch.tensor([0.0, 0.0, 1.0, -1e9], device=dev)
+            out = {key: [] for key in _SCENE_KEYS}
+            for c in scene_consts:
+                k, f = c["hull_pts"].shape[0], c["hull_eqs"].shape[1]
+                out["hull_pts"].append(pad_to(c["hull_pts"], (k_max, p_max, 3)))
+                out["hull_mask"].append(pad_to(c["hull_mask"], (k_max, p_max)))
+                # Padded faces and objects take the far plane: never a contact.
+                eqs = far.expand(k_max, f_max, 4).clone()
+                eqs[:k, :f] = c["hull_eqs"]
+                out["hull_eqs"].append(eqs)
+                out["inv_inertia"].append(pad_to(c["inv_inertia"], (k_max, 3), fill=1.0))
+                out["render_pts"].append(pad_to(c["render_pts"], (k_max, n_max, 3)))
+                out["render_mask"].append(pad_to(c["render_mask"], (k_max, n_max)))
+                # Padded hypothesis slots repeat hypothesis 0; padded objects
+                # take the identity (never active).
+                hw = torch.eye(4, device=dev).expand(k_max, c_max, 4, 4).clone()
+                c_s = c["hyp_world"].shape[1]
+                hw[:k, :c_s] = c["hyp_world"]
+                hw[:k, c_s:] = c["hyp_world"][:, :1]
+                out["hyp_world"].append(hw)
+                for key in ("table_pose", "cam_pose_inv", "intr", "obs"):
+                    out[key].append(c[key])
+            stacked = {key: torch.stack(v) for key, v in out.items()}
+            stacked["obj_idx"] = torch.arange(k_max, device=dev)
+            stacked["table_half_extents"] = scene_consts[0]["table_half_extents"]
+            return stacked
+
+        self.consts = stack_consts([ev.consts for ev in evaluators])
+        self.consts_full = (
+            stack_consts([ev.consts_full for ev in evaluators])
+            if any(ev.consts_full is not ev.consts for ev in evaluators) else self.consts
+        )
+        # The final pass's TrICP inputs: cameras and the model normals aligned
+        # with consts["render_pts"].
+        self.cam_pose_stacked = torch.stack([ev.cam_pose for ev in evaluators])
+        self.render_nrm_stacked = torch.stack(
+            [pad_to(ev.render_nrm, (k_max, n_max, 3)) for ev in evaluators])
+        if mesh is not None:
+            copy = lambda consts: [{key: v.to(d, non_blocking=True) for key, v in consts.items()}
+                                   for d in mesh.device_list]
+            self._consts_on = copy(self.consts)
+            self._consts_full_on = (self._consts_on if self.consts_full is self.consts
+                                    else copy(self.consts_full))
+
+    def _run(self, which: str, scene_idx, choices, active):
+        """Queue the leaf batch on the constants `which` ("consts" or
+        "consts_full"), split over the mesh when there is one."""
+        if self.mesh is None:
+            return _leaf_eval_multi(
+                getattr(self, which), self.cfg, self.h, self.w, self.splat_radius,
+                _to_device(scene_idx, self.device, torch.int64),
+                _to_device(choices, self.device, torch.int64),
+                _to_device(active, self.device, torch.bool),
+            )
+        n = len(scene_idx)
+        pad = (-n) % self.n_shards
+        if pad:
+            scene_idx, choices, active = (np.concatenate([x, np.repeat(x[:1], pad, 0)])
+                                          for x in (scene_idx, choices, active))
+        per = (n + pad) // self.n_shards
+        consts_on = self._consts_on if which == "consts" else self._consts_full_on
+        parts = [
+            _leaf_eval_multi(
+                consts_on[i], self.cfg, self.h, self.w, self.splat_radius,
+                _to_device(scene_idx[i * per:(i + 1) * per], d, torch.int64),
+                _to_device(choices[i * per:(i + 1) * per], d, torch.int64),
+                _to_device(active[i * per:(i + 1) * per], d, torch.bool),
+            )
+            for i, d in enumerate(self.mesh.device_list)
+        ]
+        return tuple(mesh_mod.gather([p[j] for p in parts], self.device) for j in range(2))
+
+    def evaluate_async(self, scene_idx: np.ndarray, choices: np.ndarray, active: np.ndarray):
+        """Queue the batch without waiting for it: device (costs, settled).
+        With a mesh the rows may carry padding to a multiple of the device
+        count; read only the first len(scene_idx)."""
+        return self._run("consts", np.asarray(scene_idx), np.asarray(choices), np.asarray(active))
+
+    def evaluate(self, scene_idx: np.ndarray, choices: np.ndarray, active: np.ndarray):
+        costs, settled = self.evaluate_async(scene_idx, choices, active)
+        return costs.cpu().numpy(), settled.cpu().numpy()
+
+    def evaluate_final(self, scene_idx: np.ndarray, choices: np.ndarray, active: np.ndarray):
+        """Chosen-assignment settles with the FULL hulls; padding stripped."""
+        n_real = len(scene_idx)
+        costs, settled = self._run(
+            "consts_full", np.asarray(scene_idx), np.asarray(choices), np.asarray(active))
+        return costs[:n_real].cpu().numpy(), settled[:n_real].cpu().numpy()
+
+    def evaluate_final_tricp(self, choices: np.ndarray, active: np.ndarray, seg_pts, seg_mask):
+        """Final settles + TrICP refinement of every scene (FULL hulls).
+
+        choices/active: [S, k_max]; seg_pts [S, k_max, N, 3] / seg_mask
+        [S, k_max, N]. Returns numpy (costs [S, 3], settled [S, 3, k_max, 4,
+        4]), _tricp_final_core's rows per scene. The JAX package vmaps the
+        scenes in one program; here they run one after another (the TrICP
+        chain is a per-object loop of ICP solves, once a sweep)."""
+        seg_pts = torch.as_tensor(seg_pts, dtype=torch.float32, device=self.device)
+        seg_mask = torch.as_tensor(seg_mask, dtype=torch.bool, device=self.device)
+        choices_t = _to_device(np.asarray(choices), self.device, torch.int64)
+        active_t = _to_device(np.asarray(active), self.device, torch.bool)
+        out = [
+            _tricp_final_core(
+                _scene_consts(self.consts_full, s), self.cam_pose_stacked[s],
+                self.render_nrm_stacked[s], seg_pts[s], seg_mask[s], self.cfg, self.h,
+                self.w, self.splat_radius, choices_t[s], active_t[s],
+            )
+            for s in range(len(choices_t))
+        ]
+        return (torch.stack([c for c, _ in out]).cpu().numpy(),
+                torch.stack([st for _, st in out]).cpu().numpy())
+
+
+def uct_search_multi(
+    msev: MultiSceneLeafEvaluator,
+    hyp_scores_list: List[np.ndarray],  # per scene [K_s, C_s]
+    cfg: PipelineConfig = DEFAULT_CONFIG,
+    seed: int = 0,
+    max_iterations: Optional[int] = None,
+    stats: Optional[dict] = None,
+) -> List[tuple[np.ndarray, float]]:
+    """S concurrent UCT searches sharing one leaf batch a round.
+
+    Each round splits max(leaf_batch, leaf_batch_multi) rows (rounded up to
+    the mesh size) across the still-running trees, collects their pending
+    leaves with virtual loss, evaluates all of them in one batch padded to
+    that fixed size (repeating the first row), and backs up per tree; up to
+    cfg.mcts.inflight_batches rounds are queued before the oldest is read.
+    Tree s is seeded with seed + s. Returns per scene (best assignment
+    [K_s], best cost). stats: a dict that receives search_expansions (per
+    scene), search_budget (per scene), shared_batches and leaves (rows
+    evaluated, padding not counted).
+    """
+    mc = cfg.mcts
+    trees: List[_Tree] = []
+    for si, hs in enumerate(hyp_scores_list):
+        k = msev.ks[si]
+        c = min(mc.branching, hs.shape[1])
+        budget = _search_budget(k, c, max_iterations or mc.max_expansions)
+        trees.append(_make_tree(hs, k, c, budget, seed + si))
+    deadline = time.monotonic() + mc.max_search_seconds
+    k_max = msev.k_max
+    batch = max(mc.leaf_batch, mc.leaf_batch_multi)
+    batch += (-batch) % msev.n_shards
+    counts = {"shared_batches": 0, "leaves": 0}
+    empty_round = object()  # a round of cached-terminal backups only
+
+    def collect_round():
+        live = [si for si, t in enumerate(trees) if not (t.done or t.root.exhausted)]
+        if not live:
+            return None
+        quota = max(1, batch // len(live))
+        rows_scene: List[int] = []
+        rows_choices: List[np.ndarray] = []
+        pend_per_scene: List[tuple] = []
+        for si in live:
+            pend = _collect_batch(trees[si], mc.alpha, quota)
+            pend_per_scene.append((si, pend))
+            for _, choices in pend:
+                row = np.full(k_max, -1, np.int64)
+                row[: trees[si].k] = choices
+                rows_scene.append(si)
+                rows_choices.append(row)
+        if not rows_choices:
+            return empty_round
+        counts["shared_batches"] += 1
+        counts["leaves"] += len(rows_choices)
+        pad = (-len(rows_choices)) % batch  # fixed batch-size multiples
+        rows_scene += [rows_scene[0]] * pad
+        rows_choices += [rows_choices[0]] * pad
+        choices_arr = np.stack(rows_choices)
+        costs_dev, _settled = msev.evaluate_async(np.asarray(rows_scene), choices_arr,
+                                                  choices_arr >= 0)
+        return pend_per_scene, costs_dev
+
+    def backup_round(round_result):
+        pend_per_scene, costs_dev = round_result
+        costs = costs_dev.cpu().numpy()
+        ofs = 0
+        for si, pend in pend_per_scene:
+            _backup(trees[si], pend, costs[ofs: ofs + len(pend)])
+            ofs += len(pend)
+
+    depth = max(1, mc.inflight_batches)
+    inflight = []  # queued rounds, oldest first
+    while time.monotonic() < deadline:
+        nxt = collect_round()
+        if nxt is not None and nxt is not empty_round:
+            inflight.append(nxt)
+        if len(inflight) > depth or (nxt in (None, empty_round) and inflight):
+            backup_round(inflight.pop(0))
+        if nxt is empty_round:
+            continue
+        if nxt is None and not inflight:
+            break
+    # A deadline exit: back up the queued rounds (their work is done).
+    for r in inflight:
+        backup_round(r)
+    if stats is not None:
+        stats.update(search_expansions=[t.expansions for t in trees],
+                     search_budget=[t.budget for t in trees], **counts)
+    return [(t.best_assign, t.best_cost) for t in trees]
+
+
+def mcts_select_multi(scene_rows, db, cfg, seed=0, mesh=None, segs_list=None, device=None,
+                      stats=None):
+    """Physics-aware MCTS selection for MANY scenes in shared batches.
+
+    scene_rows: (estimates, sc, table_pose, depth_clean) per scene, the
+    inputs mcts_select takes. Every search runs concurrently through one
+    MultiSceneLeafEvaluator, and the final chosen-assignment settles of all
+    scenes run as one batch. segs_list: optional per-scene segments aligned
+    with scene_rows; with cfg.mcts.tricp_final they add the TrICP final pass
+    per scene. mesh: split every leaf batch's rows over its devices (the
+    host trees are unchanged, so the results are the unsplit ones). Runs on
+    the mesh's first device, else on `device` (the card unless "cpu").
+    stats: receives uct_search_multi's counts. Returns the per-scene
+    refined estimate lists, in input order.
+    """
+    live = [(i, row) for i, row in enumerate(scene_rows) if len(row[0]) > 0]
+    out: List[list] = [row[0] for row in scene_rows]
+    if not live:
+        return out
+    dev = mesh.device_list[0] if mesh is not None else device
+
+    def make_evaluator(row, scale=None):
+        estimates, sc, table_pose, depth_clean = row
+        hyp_world, hyp_scores, obj_hulls = _scene_search_inputs(estimates, sc, db, cfg)
+        ev = BatchedLeafEvaluator(obj_hulls, hyp_world, depth_clean, sc.intrinsics, sc.cam_pose,
+                                  table_pose, cfg, render_scale=scale, device=dev)
+        return ev, hyp_scores
+
+    built = [make_evaluator(row) for _i, row in live]
+    evaluators = [ev for ev, _hs in built]
+    msev = MultiSceneLeafEvaluator(evaluators, mesh=mesh)
+    results = uct_search_multi(msev, [hs for _ev, hs in built], cfg, seed=seed, stats=stats)
+
+    # Final pass: every scene's chosen assignment in one batch, with the FULL
+    # hulls; with segments, the TrICP refinement per scene as well.
+    s = len(live)
+    choices = np.full((s, msev.k_max), -1, np.int64)
+    active = np.zeros((s, msev.k_max), bool)
+    for si, (assign, _cost) in enumerate(results):
+        choices[si, : len(assign)] = assign
+        active[si, : len(assign)] = True
+    if cfg.mcts.tricp_final and segs_list is not None:
+        seg_rows = [_segs_to_arrays(segs_list[orig_i], msev.k_max) for orig_i, _row in live]
+        costs3, settled3 = msev.evaluate_final_tricp(
+            choices, active, torch.stack([r[0].to(msev.device) for r in seg_rows]),
+            torch.stack([r[1].to(msev.device) for r in seg_rows]),
+        )
+        settled = settled3[np.arange(s), [_tricp_pick(costs3[si]) for si in range(s)]]
+        if cfg.mcts.final_polish_rounds > 0:
+            # Each scene's polish through its own evaluator at the polish
+            # scale (the k_max padding rows stay as they are).
+            for si in range(s):
+                k_s = evaluators[si].k
+                pev = evaluators[si]
+                if cfg.mcts.final_polish_scale != cfg.mcts.render_scale:
+                    pev, _hs = make_evaluator(live[si][1], cfg.mcts.final_polish_scale)
+                settled[si, :k_s], _c = _final_polish(
+                    pev, settled[si, :k_s], np.ones(k_s, bool), cfg, seed=seed + si)
+    else:
+        _, settled = msev.evaluate_final(np.arange(s), choices, active)
+
+    for si, (orig_i, (estimates, sc, _tp, _dc)) in enumerate(live):
+        out[orig_i] = _install_assignment(
+            estimates, results[si][0], settled[si, : len(estimates)], sc.cam_pose)
+    return out

@@ -52,3 +52,59 @@ def scoring_inputs(arrays):
     packages score the same inputs."""
     *floats, mask = arrays
     return tuple(t(a) for a in floats) + (tb(mask),)
+
+
+def write_scene_dir(scene_dir, cam, boxes, tmp):
+    """A scene directory in the reference layout (gt_info.yml with the camera
+    and the objects' ground-truth poses, frame-000000.{depth,mask,color}.png)
+    of test_torch_e2e.py's ray-cast camera: `boxes` (name, class id, full
+    extents, centre (x, y) on the table, yaw deg) on a 0.8 m table, each
+    box's PLY written to tmp. Returns {name: world pose}."""
+    import json
+
+    from PIL import Image
+    from scipy.spatial.transform import Rotation
+
+    from chip_smoke import box_pose_world, write_box_ply
+    from physimglobalpose_tpu_torch.geometry import depthio
+    from test_torch_e2e import H, INTR, W, _render
+
+    def tq(pose):  # gt_info.yml pose format: [x y z qw qx qy qz]
+        x, y, z, w = Rotation.from_matrix(pose[:3, :3]).as_quat()
+        return [float(v) for v in pose[:3, 3]] + [float(w), float(x), float(y), float(z)]
+
+    scene_dir.mkdir()
+    inv = np.linalg.inv(cam)
+    table_v = np.array([[-0.4, -0.4, 0], [0.4, -0.4, 0], [0.4, 0.4, 0], [-0.4, 0.4, 0]], np.float32)
+    layers = [(_render(inv, table_v, np.array([[0, 1, 2], [0, 2, 3]], np.int32)), 0)]
+    gt, objects = {}, {}
+    for i, (name, cls, size, xy, yaw) in enumerate(boxes):
+        gt[name] = box_pose_world(size, xy, yaw)
+        verts, faces = write_box_ply(str(tmp / f"{name}.ply"), size)
+        layers.append((_render(inv @ gt[name], verts, faces), cls))
+        objects[f"object_{i + 1}"] = {"name": name, "pose": tq(gt[name])}
+    stack = np.stack([np.where(d > 0, d, np.inf) for d, _ in layers])
+    depth = stack.min(0)
+    label = np.asarray([c for _, c in layers])[stack.argmin(0)]
+    label = np.where(np.isfinite(depth), label, 0)
+    depth = np.where(np.isfinite(depth), depth, 0.0).astype(np.float32)
+    depthio.write_depth_png(str(scene_dir / "frame-000000.depth.png"), depth, bit_rotated=True)
+    Image.fromarray(label.astype(np.uint8)).save(scene_dir / "frame-000000.mask.png")
+    Image.fromarray(np.zeros((H, W, 3), np.uint8)).save(scene_dir / "frame-000000.color.png")
+    info = {
+        "camera": {"camera_intrinsics": INTR.tolist(), "camera_pose": tq(cam)},
+        "scene": {"num_objects": len(boxes), **objects},
+    }
+    (scene_dir / "gt_info.yml").write_text(json.dumps(info))  # JSON is YAML
+    return gt
+
+
+def write_obj_config(tmp, boxes):
+    """obj_config.yml for `boxes` (their PLYs in tmp); returns its path."""
+    lines = "".join(
+        f"  object_{i + 1}:\n    name: {name}\n    classId: {cls}\n    symmetry: [180, 180, 180]\n"
+        for i, (name, cls, *_rest) in enumerate(boxes)
+    )
+    path = tmp / "obj_config.yml"
+    path.write_text(f"objects:\n  num_objects: {len(boxes)}\n  modelDiscretization: 0.01\n{lines}")
+    return path

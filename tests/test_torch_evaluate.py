@@ -13,41 +13,11 @@ import numpy as np
 import pytest
 from scipy.spatial.transform import Rotation
 
-from chip_smoke import box_pose_world, camera_pose, write_box_ply
+from _torch_common import write_obj_config, write_scene_dir
+from chip_smoke import camera_pose
 from physimglobalpose_tpu.pipeline import evaluate as jevaluate
-from physimglobalpose_tpu_torch.geometry import depthio
 from physimglobalpose_tpu_torch.pipeline import evaluate
-from test_torch_e2e import BOXES, H, INTR, W, _render
-
-
-def _tq(pose):
-    """gt_info.yml pose format: [x y z qw qx qy qz]."""
-    x, y, z, w = Rotation.from_matrix(pose[:3, :3]).as_quat()
-    return [float(v) for v in pose[:3, 3]] + [float(w), float(x), float(y), float(z)]
-
-
-def _write_scene(scene_dir, cam, box, tmp):
-    from PIL import Image
-
-    name, cls, size, xy, yaw = box
-    scene_dir.mkdir()
-    inv = np.linalg.inv(cam)
-    gt_world = box_pose_world(size, xy, yaw)
-    verts, faces = write_box_ply(str(tmp / f"{name}.ply"), size)
-    table_v = np.array([[-0.4, -0.4, 0], [0.4, -0.4, 0], [0.4, 0.4, 0], [-0.4, 0.4, 0]], np.float32)
-    table = _render(inv, table_v, np.array([[0, 1, 2], [0, 2, 3]], np.int32))
-    obj = _render(inv @ gt_world, verts, faces)
-    near = (obj > 0) & ((table == 0) | (obj < table))
-    depth = np.where(near, obj, table).astype(np.float32)
-    depthio.write_depth_png(str(scene_dir / "frame-000000.depth.png"), depth, bit_rotated=True)
-    Image.fromarray(np.where(near, cls, 0).astype(np.uint8)).save(scene_dir / "frame-000000.mask.png")
-    Image.fromarray(np.zeros((H, W, 3), np.uint8)).save(scene_dir / "frame-000000.color.png")
-    info = {
-        "camera": {"camera_intrinsics": INTR.tolist(), "camera_pose": _tq(cam)},
-        "scene": {"num_objects": 1, "object_1": {"name": name, "pose": _tq(gt_world)}},
-    }
-    (scene_dir / "gt_info.yml").write_text(json.dumps(info))  # JSON is YAML
-    return gt_world
+from test_torch_e2e import BOXES
 
 
 @pytest.fixture(scope="module")
@@ -57,14 +27,9 @@ def sweep(tmp_path_factory):
     dirs, gt = [], {}
     for i, box in enumerate(BOXES):
         d = tmp / f"scene_{i}"
-        gt[box[0]] = _write_scene(d, cam, box, tmp)
+        gt.update(write_scene_dir(d, cam, [box], tmp))
         dirs.append(str(d))
-    lines = "".join(
-        f"  object_{i + 1}:\n    name: {name}\n    classId: {cls}\n    symmetry: [180, 180, 180]\n"
-        for i, (name, cls, *_rest) in enumerate(BOXES)
-    )
-    (tmp / "obj_config.yml").write_text(
-        f"objects:\n  num_objects: {len(BOXES)}\n  modelDiscretization: 0.01\n{lines}")
+    write_obj_config(tmp, BOXES)
     return dict(tmp=tmp, dirs=dirs, gt=gt, log=str(tmp / "eval.jsonl"))
 
 
@@ -126,9 +91,37 @@ def test_metrics_for_matches_jax():
         assert got["emd_bins"] == pytest.approx(want["emd_bins"], abs=1e-6)
 
 
-def test_sharded_sweep_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError):
-        evaluate.evaluate_scenes([], None, str(tmp_path / "log.jsonl"), mesh=object())
-    with pytest.raises(NotImplementedError):
-        evaluate.main(["--scenes", "x", "--log", str(tmp_path / "l"), "--obj-config", "c",
-                       "--model-dir", "m", "--sharded", "--device", "cpu"])
+def test_sharded_sweep_is_not_ported(sweep, capsys, monkeypatch):
+    """Named for what it checked before the sharded sweep was ported; it now
+    holds the counterpart of test_scene_sweep.py::test_evaluate_scenes_sharded_logs:
+    `--sharded --device cpu` sweeps both scenes through
+    scene_sweep.sweep_scenes over an 8-entry CPU device list, logs one row a
+    scene (marked sharded, every object within ADD-S 1 cm), and
+    evaluate_scenes(mesh=...) on the same log resumes without running."""
+    from physimglobalpose_tpu_torch.models import objectdb
+    from physimglobalpose_tpu_torch.parallel import mesh as mesh_mod, scene_sweep
+
+    s, tmp = sweep, sweep["tmp"]
+    log = str(tmp / "sharded.jsonl")
+    argv = ["--scenes", str(tmp / "scene_*"), "--log", log, "--obj-config",
+            str(tmp / "obj_config.yml"), "--model-dir", str(tmp), "--cache-dir",
+            str(tmp / "cache"), "--preset", "small", "--device", "cpu", "--sharded"]
+    assert evaluate.main(argv) == 0
+    agg = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    rows = [json.loads(r) for r in open(log).read().splitlines()]
+    assert [r["scene"] for r in rows] == s["dirs"]
+    for row, (name, *_rest) in zip(rows, BOXES):
+        assert row["sharded"] is True and row["batch_scenes"] == 2
+        assert row["scenes_per_sec"] > 0 and row["seconds"] > 0
+        assert list(row["objects"]) == [name] and row["objects"][name]["adds_m"] < 0.01
+    assert agg["scenes"] == 2.0 and agg["adds_within_2cm"] == 1.0
+
+    def no_run(*a, **k):
+        raise AssertionError("a logged scene ran again")
+
+    monkeypatch.setattr(scene_sweep, "sweep_scenes", no_run)
+    monkeypatch.setattr(evaluate.api, "estimate_pose", no_run)
+    mesh = mesh_mod.make_mesh(8, device="cpu")
+    assert evaluate.evaluate_scenes(s["dirs"], objectdb.ObjectDB({}, {}), log, mesh=mesh,
+                                    device="cpu") == agg
+    assert len(open(log).read().splitlines()) == 2

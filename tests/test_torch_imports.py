@@ -50,7 +50,11 @@ def test_port_imports_no_jax():
             "physimglobalpose_tpu_torch/models/fcn.py",
             "physimglobalpose_tpu_torch/models/detect.py",
             "physimglobalpose_tpu_torch/pipeline/detector.py",
-            "physimglobalpose_tpu_torch/pipeline/selection.py"} <= names
+            "physimglobalpose_tpu_torch/pipeline/selection.py",
+            "physimglobalpose_tpu_torch/pipeline/server.py",
+            "physimglobalpose_tpu_torch/parallel/mesh.py",
+            "physimglobalpose_tpu_torch/parallel/sharding.py",
+            "physimglobalpose_tpu_torch/parallel/scene_sweep.py"} <= names
     offenders = {str(p.relative_to(ROOT)): b for p in files if (b := _forbidden_imports(p))}
     assert offenders == {}
 
@@ -93,7 +97,9 @@ def test_importing_the_port_builds_and_loads_no_kernel():
     assert {"physimglobalpose_tpu_torch.ops.scoring", "physimglobalpose_tpu_torch.pipeline.mcts",
             "physimglobalpose_tpu_torch.pipeline.evaluate", "physimglobalpose_tpu_torch.models.fcn",
             "physimglobalpose_tpu_torch.models.detect",
-            "physimglobalpose_tpu_torch.pipeline.detector"} <= set(modules)
+            "physimglobalpose_tpu_torch.pipeline.detector",
+            "physimglobalpose_tpu_torch.pipeline.server",
+            "physimglobalpose_tpu_torch.parallel.scene_sweep"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
