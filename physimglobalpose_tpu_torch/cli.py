@@ -11,7 +11,8 @@ Runs on the card (--device cuda, the default) unless asked for the CPU. The
 flags match the JAX package's CLI: every segmentation, hypothesis and
 verification mode runs; the FCN modes serve the shipped checkpoint of
 --fcn-variant, the RCNN modes the shipped detection network, both on the
-chosen device. --debug-dir raises NotImplementedError.
+chosen device. --debug-dir dumps the JAX package's debug artifacts
+(utils/debug.py).
 """
 
 from __future__ import annotations
@@ -51,7 +52,8 @@ def main(argv=None):
     p.add_argument("--result", default=None,
                    help="result.txt path (default: scene dir, or cwd if read-only)")
     p.add_argument("--debug-dir", default=None,
-                   help="dump per-object debug artifacts (not ported yet)")
+                   help="dump per-object debug artifacts (prob images, hypotheses, "
+                        "depth, final overlay) into this directory")
     p.add_argument("--preset", default="default", choices=["default", "small"],
                    help="'small' shrinks the fixed-size caps (fast CPU runs)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],

@@ -4,6 +4,7 @@ Reference semantics (utilities.cpp):
 - readDepthImage: 16-bit PNG, APC datasets store depth bit-rotated; decode is
   d = rot16(d_raw, left=13) / 10000 meters (a full 16-bit circular shift).
 - writeDepthImage: meters * 10000 -> uint16, no rotation.
+- readProbImage: 16-bit PNG / 10000 -> [0, 1] float probability.
 
 PIL is imported inside the PNG readers and writers only, so the in-memory
 path (scene_from_arrays) works without it.
@@ -62,6 +63,15 @@ def read_depth_png(path: str, bit_rotated: bool = True) -> np.ndarray:
 
 def write_depth_png(path: str, depth_m: np.ndarray, bit_rotated: bool = False) -> None:
     _image_module().fromarray(encode_depth(depth_m, bit_rotated=bit_rotated)).save(path)
+
+
+def read_prob_png(path: str) -> np.ndarray:
+    """16-bit probability PNG -> float32 in [0, ~6.5] (nominally [0, 1])."""
+    return np.array(_image_module().open(path)).astype(np.float32) / DEPTH_SCALE
+
+
+def write_prob_png(path: str, prob: np.ndarray) -> None:
+    _image_module().fromarray((prob * DEPTH_SCALE).astype(np.uint16)).save(path)
 
 
 def read_class_mask_png(path: str) -> np.ndarray:

@@ -153,7 +153,13 @@ def load_obj(path: str) -> Mesh:
 
 
 def load_mesh(path: str) -> Mesh:
-    """Load a .obj or .ply mesh with the numpy parsers."""
+    """Load a .obj or .ply mesh, preferring the native C++ parser (runtime/)
+    when it builds; the numpy parsers otherwise."""
+    from physimglobalpose_tpu_torch.runtime import load_mesh_native
+
+    nat = load_mesh_native(path)
+    if nat is not None:
+        return Mesh(vertices=nat[0], faces=nat[1])
     if path.endswith(".obj"):
         return load_obj(path)
     return load_ply(path)
@@ -275,3 +281,40 @@ def convex_hull_points(vertices: np.ndarray, max_points: int = 64, seed: int = 0
         chosen.append(nxt)
         d = np.minimum(d, np.linalg.norm(pts - pts[nxt], axis=1))
     return pts[chosen].astype(np.float32)
+
+
+def decimate_vertex_clustering(mesh: Mesh, cell: float) -> Mesh:
+    """Vertex-clustering decimation: weld vertices per grid cell.
+
+    Standard coarse decimator (cells -> centroid vertices; faces collapsing
+    to fewer than 3 distinct cells are dropped). Bounds the face count for
+    the O(F x pixels) triangle rasterizer (ops/raster_tri.py).
+    """
+    if len(mesh.faces) == 0:
+        return mesh
+    ijk = np.floor(mesh.vertices / cell).astype(np.int64)
+    key = (ijk[:, 0] + 4096) * 8192 * 8192 + (ijk[:, 1] + 4096) * 8192 + (ijk[:, 2] + 4096)
+    uniq, inverse = np.unique(key, return_inverse=True)
+    new_verts = np.zeros((len(uniq), 3), np.float64)
+    counts = np.zeros(len(uniq), np.int64)
+    np.add.at(new_verts, inverse, mesh.vertices.astype(np.float64))
+    np.add.at(counts, inverse, 1)
+    new_verts /= counts[:, None]
+    nf = inverse[mesh.faces]
+    keep = (nf[:, 0] != nf[:, 1]) & (nf[:, 1] != nf[:, 2]) & (nf[:, 0] != nf[:, 2])
+    return Mesh(new_verts.astype(np.float32), nf[keep].astype(np.int32))
+
+
+def decimate_to_max_faces(mesh: Mesh, max_faces: int) -> Mesh:
+    """Decimate until the face count fits, growing the cell size as needed."""
+    if len(mesh.faces) <= max_faces:
+        return mesh
+    ext = float(np.max(mesh.vertices.max(0) - mesh.vertices.min(0)))
+    cell = ext / 64.0
+    out = mesh
+    for _ in range(8):
+        out = decimate_vertex_clustering(mesh, cell)
+        if len(out.faces) <= max_faces:
+            break
+        cell *= 1.6
+    return out

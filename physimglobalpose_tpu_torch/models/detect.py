@@ -9,7 +9,8 @@ max-pool peak test, a top-k per class); this is its port, with the shipped
 weights carried across by models/fcn.flax_to_state_dict and the numerics of
 models/fcn.py (bf16 convs, float32 GroupNorm and heads, lax's SAME padding:
 three of the eight blocks are stride-2 and pad (0, 1) on even inputs).
-Training stays with the JAX package for now.
+Training is ported too: make_targets (numpy), detector_loss and an Adam
+train step; checkpoints are the FCN zoo's flat .npz (models/fcn.py).
 """
 
 from __future__ import annotations
@@ -22,8 +23,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from physimglobalpose_tpu_torch import _torchcfg
-from physimglobalpose_tpu_torch.models.fcn import (
+from physimglobalpose_tpu_torch.models.fcn import (  # noqa: F401  (one checkpoint format)
     WEIGHTS_DIR, Conv, GroupNorm, load_flax_params, load_params_npz, resize_bilinear,
+    save_params_npz,
 )
 
 STRIDE = 8
@@ -67,6 +69,86 @@ class CenterNetDetector(nn.Module):
         for i in range(self.n_blocks):
             x = getattr(self, f"ConvBlock_{i}")(x)
         return self.heat(x), self.size(x)
+
+
+# ------------------------------------------------------------------ targets
+
+
+def make_targets(label: np.ndarray, num_classes: int):
+    """Training targets from a GT class-id mask [H, W].
+
+    Returns (heat [H/8, W/8, num_classes] gaussian center map,
+    size [H/8, W/8, 2] log stride-unit sizes, pos [H/8, W/8] center mask).
+    One box per class present (the scenes place one instance per class, as
+    the reference's APC setting does - Segmentation.cpp keeps one box per
+    class too). A numpy copy of the JAX package's function.
+    """
+    h, w = label.shape
+    gh, gw = h // STRIDE, w // STRIDE
+    heat = np.zeros((gh, gw, num_classes), np.float32)
+    size = np.zeros((gh, gw, 2), np.float32)
+    pos = np.zeros((gh, gw), bool)
+    for cid in np.unique(label):
+        if cid == 0 or cid > num_classes:
+            continue
+        ys, xs = np.nonzero(label == cid)
+        if len(ys) < 8:
+            continue
+        x1, x2, y1, y2 = xs.min(), xs.max(), ys.min(), ys.max()
+        bw, bh = (x2 - x1 + 1) / STRIDE, (y2 - y1 + 1) / STRIDE
+        cx = min(int((x1 + x2) / 2 / STRIDE), gw - 1)
+        cy = min(int((y1 + y2) / 2 / STRIDE), gh - 1)
+        # CenterNet gaussian: radius ~ box size / 3.
+        sigma = max(1.0, min(bw, bh) / 3.0)
+        yy, xx = np.mgrid[0:gh, 0:gw]
+        g = np.exp(-((xx - cx) ** 2 + (yy - cy) ** 2) / (2 * sigma ** 2))
+        heat[:, :, cid - 1] = np.maximum(heat[:, :, cid - 1], g)
+        size[cy, cx] = [np.log(max(bw, 1e-3)), np.log(max(bh, 1e-3))]
+        pos[cy, cx] = True
+    return heat, size, pos
+
+
+def detector_loss(heat_logits, size_pred, heat_tgt, size_tgt, pos_mask) -> torch.Tensor:
+    """CenterNet penalty-reduced focal loss + 0.5 L1 size loss at centers.
+
+    All in the JAX layout, channels last: heat_logits and heat_tgt
+    [B, gh, gw, C], size_pred and size_tgt [B, gh, gw, 2], pos_mask
+    [B, gh, gw] bool."""
+    p = torch.sigmoid(heat_logits)
+    eps = 1e-6
+    is_center = heat_tgt >= 0.999
+    pos_loss = -torch.log(p + eps) * (1 - p) ** 2 * is_center
+    neg_loss = -torch.log(1 - p + eps) * p ** 2 * (1 - heat_tgt) ** 4 * ~is_center
+    n_pos = torch.clamp(torch.sum(is_center), min=1).to(torch.float32)
+    heat_loss = (torch.sum(pos_loss) + torch.sum(neg_loss)) / n_pos
+    pos = pos_mask.to(torch.float32)
+    size_loss = torch.sum(torch.abs(size_pred - size_tgt) * pos[..., None]) / torch.clamp(
+        torch.sum(pos), min=1.0)
+    return heat_loss + 0.5 * size_loss
+
+
+def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer):
+    """Returns train_step(images [B, H, W, 3], heat_tgt, size_tgt, pos_mask)
+    -> the batch's loss before the update, taking one optimizer step. The
+    inputs are in the JAX layout (channels last, as make_targets gives them)
+    and go to the model's device."""
+
+    def train_step(images, heat_tgt, size_tgt, pos_mask):
+        dev = next(model.parameters()).device
+        as_dev = lambda a, dt=torch.float32: torch.as_tensor(a).to(dev, dt)  # noqa: E731
+        x = as_dev(images).permute(0, 3, 1, 2)
+        optimizer.zero_grad(set_to_none=True)
+        heat, size = model(x)
+        loss = detector_loss(heat.permute(0, 2, 3, 1), size.permute(0, 2, 3, 1),
+                             as_dev(heat_tgt), as_dev(size_tgt), as_dev(pos_mask, torch.bool))
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return train_step
+
+
+# ------------------------------------------------------------------ decoding
 
 
 def decode_boxes(heat_logits: torch.Tensor, size_pred: torch.Tensor, top: int = 9):

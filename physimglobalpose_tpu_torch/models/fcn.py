@@ -4,8 +4,9 @@ Reference: fcn_segmentation_package/models.py defines FCN_Vgg16_32s
 (:41-92), AtrousFCN_Vgg16_16s (:93-144), FCN_Resnet50_32s (:145-189) and
 AtrousFCN_Resnet50_16s (:190-227), served at 640x640 with 12 (APC) classes by
 the `predict` ROS node, which normalizes each class probability map to max 1
-(predict:64-155). This is the port of the JAX package's Flax zoo, serving
-only (training stays with the JAX package for now).
+(predict:64-155). This is the port of the JAX package's Flax zoo: serving,
+and training (the loss ignoring the last label, an Adam train step, and
+save_params_npz, which writes the JAX package's flat checkpoint layout).
 
 The numerics are the Flax modules', reproduced with explicit casts rather
 than autocast:
@@ -23,7 +24,8 @@ Modules are NCHW inside. Their submodules carry the Flax parameter paths as
 names (VGGBlock_0.block1_conv1, Bottleneck_3.GroupNorm_1, ...), so the JAX
 package's flat checkpoint dict converts to a state_dict by renaming
 (flax_to_state_dict): HWIO kernels become OIHW, GroupNorm's `scale` becomes
-`weight`. The shipped checkpoints are the JAX package's .npz files under
+`weight`; state_dict_to_flax is the inverse, so one checkpoint serves both
+packages. The shipped checkpoints are the JAX package's .npz files under
 physimglobalpose_tpu/models/weights/, read here as data with numpy.
 """
 
@@ -286,6 +288,40 @@ def flax_to_state_dict(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
     return out
 
 
+def state_dict_to_flax(state: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """The inverse of flax_to_state_dict: this package's state_dict (or any
+    dict keyed like it, such as the parameters' gradients) as the JAX
+    package's flat parameter dict: a 4-D "a.b.weight" [out, in, kh, kw] ->
+    "a/b/kernel" [kh, kw, in, out]; a 1-D "a.b.weight" (GroupNorm, the only
+    1-D weight of the zoo and the detector) -> "a/b/scale"; biases keep
+    their name. float32 numpy arrays on the host."""
+    out = {}
+    for key, value in state.items():
+        *path, leaf = key.split(".")
+        arr = value.detach().to("cpu", torch.float32).numpy()
+        if leaf == "weight" and arr.ndim == 4:
+            arr, leaf = arr.transpose(2, 3, 1, 0), "kernel"
+        elif leaf == "weight" and arr.ndim == 1:
+            leaf = "scale"
+        elif leaf != "bias":
+            raise ValueError(f"unexpected parameter {key!r}")
+        out["/".join(path + [leaf])] = np.ascontiguousarray(arr)
+    return out
+
+
+def save_params_npz(path: str, model: nn.Module, meta: dict | None = None, dtype=None) -> None:
+    """Save the model's parameters as the JAX package's flat .npz (Flax
+    paths, HWIO kernels, GroupNorm `scale`), which both packages'
+    load_params_npz read. meta goes into a `__meta__` uint8 JSON entry;
+    dtype=np.float16 halves the file (load_params_npz casts back to
+    float32)."""
+    arrays = {k: (v.astype(dtype) if dtype is not None else v)
+              for k, v in state_dict_to_flax(model.state_dict()).items()}
+    if meta:
+        arrays["__meta__"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
+    np.savez_compressed(path, **arrays)
+
+
 def load_flax_params(model: nn.Module, flat: dict[str, np.ndarray]) -> nn.Module:
     """Load a flat Flax parameter dict into `model` (every parameter must be
     present, and nothing else); returns the model in eval mode."""
@@ -422,3 +458,68 @@ def make_predictor(model: nn.Module, input_size=(640, 640), tta_scales=(1.0,)):
         return out
 
     return predictor
+
+
+# ---------------------------------------------------------------- training
+
+
+def init_like_flax(model: nn.Module, seed: int = 0) -> nn.Module:
+    """Initialise `model` in place as Flax initialises the JAX modules: every
+    conv kernel lecun_normal (a normal of variance 1/fan_in truncated at two
+    standard deviations), conv biases 0, GroupNorm scale 1 and bias 0. The
+    draws come from a CPU torch.Generator seeded with `seed` (JAX's key
+    stream is not reproduced). Returns the model."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, nn.Conv2d):
+                fan_in = mod.in_channels * mod.kernel_size[0] * mod.kernel_size[1]
+                # 0.8796...: the std of a unit normal truncated at +-2.
+                std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+                # Inverse-CDF draw of the truncated normal: u uniform on
+                # [Phi(-2), Phi(2)], then sqrt(2) erfinv(2u - 1).
+                lo, hi = 0.022750131948179195, 0.9772498680518208
+                u = lo + (hi - lo) * torch.rand(mod.weight.shape, generator=gen)
+                mod.weight.copy_(std * 2.0 ** 0.5 * torch.erfinv(2.0 * u - 1.0))
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, nn.GroupNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+    return model
+
+
+def softmax_xent_ignore_last(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Sparse softmax cross-entropy ignoring the last class label.
+
+    logits [..., C] (the JAX layout, classes last), labels [...] integer.
+    Reference loss_function.py: pixels labeled num_classes (the "ignore"
+    label) contribute nothing; the mean is over the other pixels.
+    """
+    num_classes = logits.shape[-1]
+    valid = labels < num_classes
+    safe = torch.where(valid, labels, 0).to(torch.int64)
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    nll = torch.where(valid, nll, 0.0)
+    return torch.sum(nll) / torch.clamp(torch.sum(valid), min=1)
+
+
+def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer):
+    """Returns train_step(images [B, H, W, 3] float, labels [B, H, W] int)
+    -> the batch's loss before the update (a 0-d tensor), taking one
+    optimizer step. The inputs are in the JAX package's layout and go to the
+    model's device; torch.optim.Adam(params, lr) is optax.adam(lr) (b1 0.9,
+    b2 0.999, eps 1e-8)."""
+
+    def train_step(images, labels):
+        dev = _param_device(model)
+        x = torch.as_tensor(images, dtype=torch.float32).to(dev).permute(0, 3, 1, 2)
+        y = torch.as_tensor(labels).to(dev)
+        optimizer.zero_grad(set_to_none=True)
+        loss = softmax_xent_ignore_last(model(x).permute(0, 2, 3, 1), y)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return train_step

@@ -148,8 +148,14 @@ def build_ppf_table(
     max_dist_mm: int = 640,
     device=None,
 ) -> PPFTable:
-    """Build the model PPF table over all N^2-N directed point pairs (numpy),
-    the content of the reference's offline PPFMap.txt."""
+    """Build the model PPF table over all N^2-N directed point pairs, the
+    content of the reference's offline PPFMap.txt. Uses the native C++
+    builder (runtime/) when it builds; numpy otherwise."""
+    from physimglobalpose_tpu_torch.runtime import build_ppf_native
+
+    nat = build_ppf_native(points, normals, trans_disc, rot_disc, max_dist_mm)
+    if nat is not None:
+        return table_from_arrays(*nat, trans_disc, rot_disc, max_dist_mm, device)
     n = len(points)
     ii, jj = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
     mask = ii != jj

@@ -15,8 +15,9 @@ each object's generation draws. Here every scene gets its own generator,
 seeded with `seed` on the sweep's first device, and consumes it in exactly
 that order (the generation draws through hypothesis.draw_generation, handed
 to the job batch as injected draws), so the sweep equals the serial
-estimate_pose of every scene. The card's voxel grid sums floats with atomics
-(ops/voxel.py), so there the two agree to the last bits of a segment only.
+estimate_pose of every scene, bit for bit on one card as on the CPU: the
+voxel grid's sums are a segmented reduction in sorted order (ops/voxel.py),
+the same order in every run.
 
 The table removal and the segments run scene by scene and object by object
 (the port's remove_table and compute_3d_segment take no leading batch); a

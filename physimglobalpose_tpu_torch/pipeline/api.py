@@ -8,7 +8,8 @@ scene in, per-object camera- and world-frame poses out, result.txt in the
 reference's format. Every segmentation mode (GT, FCN, FCNThreshold, RCNN,
 RCNNThreshold), hypothesis mode (PCS, SUPER4PCS, V4PCS, PPF_VOTING, Hough)
 and verification mode (LCP, MCTS, GREEDY) of the JAX package runs here for
-one scene; debug_dir dumps raise NotImplementedError.
+one scene, and debug_dir dumps the JAX package's debug artifacts
+(utils/debug.py).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from physimglobalpose_tpu_torch.models.objectdb import ObjectDB
 from physimglobalpose_tpu_torch.ops import icp as icp_mod
 from physimglobalpose_tpu_torch.pipeline import hypothesis, mcts, scene as scene_mod, segmentation
 from physimglobalpose_tpu_torch.pipeline.selection import lcp_select
+from physimglobalpose_tpu_torch.utils.debug import DebugDump
 from physimglobalpose_tpu_torch.utils.tracing import trace_span, get_tracer
 
 # Congruent-set hypothesis modes and their generator mode; the voting modes
@@ -98,6 +100,42 @@ def _physics_table_pose(depth, intr, plane4, table_pose, cam_pose, cfg, gen) -> 
         world[:3, 2] *= -1.0  # still right-handed
     world[:3, 3] -= cfg.physics.table_half_extents[2] * world[:3, 2]
     return world
+
+
+def _dump_results(dbg, estimates, db, prob_images, sc, intr, cfg, verification_mode) -> None:
+    """The debug dump's per-object artifacts, the final assignment's mesh
+    render (MCTS and GREEDY) and the final pose overlay."""
+    for est in estimates:
+        obj = db[est.name]
+        dbg.prob_image(est.name, prob_images[obj.class_id])
+        dbg.hypotheses(est.name, est.hypotheses, est.hypothesis_scores)
+        dbg.info(est.name, {"score": est.score, "pose_world": est.pose_world.tolist()})
+    if verification_mode in ("MCTS", "GREEDY") and estimates:
+        # Quality render of the final chosen assignment: the triangle
+        # rasterization of the meshes at full resolution (the search's leaf
+        # cost uses the point splat at render_scale; this is the depth_sim
+        # render, camera.cpp:31, renderScene.cpp:45-71).
+        from physimglobalpose_tpu_torch.models import assets as assets_mod
+        from physimglobalpose_tpu_torch.ops import raster as raster_mod, raster_tri
+
+        dev = intr.device
+        final = torch.zeros(cfg.render.height, cfg.render.width, dtype=torch.float32, device=dev)
+        for est in estimates:
+            mesh = assets_mod.decimate_to_max_faces(db[est.name].mesh, 3000)
+            d = raster_tri.render_mesh_depth(
+                torch.as_tensor(est.pose_cam.astype(np.float32), device=dev),
+                torch.as_tensor(mesh.vertices, device=dev), torch.as_tensor(mesh.faces, device=dev),
+                torch.ones(len(mesh.faces), dtype=torch.bool, device=dev), intr,
+                cfg.render.height, cfg.render.width,
+            )
+            final = raster_mod.composite_min(final, d)
+        final = torch.where(final > cfg.render.max_render_depth, 0.0, final)
+        dbg.depth("final_assignment_mesh_render", final)
+    dbg.overlay(
+        "final_overlay", sc.color, sc.intrinsics,
+        [db[e.name].validation_pts[:1024] for e in estimates],
+        [e.pose_cam for e in estimates],
+    )
 
 
 @dataclasses.dataclass
@@ -193,9 +231,12 @@ def estimate_pose(
     the call's device.
     Runs on the card unless device="cpu"; one torch.Generator seeded with
     `seed` drives every random draw, so a seed gives one result per device.
+
+    debug_dir: a directory that receives the JAX package's debug artifacts
+    (utils/debug.py): the cleaned depth, each object's probability image,
+    top-k hypotheses and score, the final assignment's mesh render in MCTS
+    and GREEDY mode, and an overlay of the final poses.
     """
-    if debug_dir is not None:
-        raise NotImplementedError("debug_dir dumps are not ported yet")
     if verification_mode not in ("LCP", "MCTS", "GREEDY"):
         raise ValueError(f"unknown verification mode {verification_mode!r}")
     if hypothesis_mode not in _GEN_MODES and hypothesis_mode not in _VOTING_MODES:
@@ -203,6 +244,7 @@ def estimate_pose(
 
     dev = _torchcfg.resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
+    dbg = DebugDump(debug_dir)
     tracer = get_tracer()
     timings: Dict[str, float] = {}
     t0 = time.perf_counter()
@@ -217,6 +259,7 @@ def estimate_pose(
         depth_clean, plane4, table_pose = scene_mod.remove_table(depth, intr, cfg, generator=gen)
         _torchcfg.synchronize(dev)
     timings["preprocess_s"] = time.perf_counter() - t0
+    dbg.depth("depth_clean", depth_clean)
 
     if segmentation_mode in ("FCN", "FCNThreshold") and nn_predictor is None:
         # The shipped checkpoint (the reference node loads apc_weights.hdf5,
@@ -367,6 +410,9 @@ def estimate_pose(
             )
             _torchcfg.synchronize(dev)
         timings["search_s"] = time.perf_counter() - t_mcts
+
+    if dbg.enabled:
+        _dump_results(dbg, estimates, db, prob_images, sc, intr, cfg, verification_mode)
 
     timings["total_s"] = time.perf_counter() - t0
     result = PoseEstimationResult(objects=estimates, timings=timings)

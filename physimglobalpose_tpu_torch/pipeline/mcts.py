@@ -757,10 +757,9 @@ def mcts_select(estimates, sc, db, table_pose, depth_clean, cfg, seed=0,
     given and cfg.mcts.tricp_final is on, the final pass adds the
     UCTState::performTrICP refinement (see _tricp_final_core). Runs on the
     card unless device="cpu". stats: a dict that receives uct_search's
-    counts (the greedy search leaves it as it is).
+    counts (the greedy search leaves it as it is). snapshot_path: a JSON
+    file that receives the search's outcome (utils/checkpoint.py).
     """
-    if snapshot_path:
-        raise NotImplementedError("search snapshots (utils/checkpoint) are not ported yet")
     k = len(estimates)
     if k == 0:
         return estimates
@@ -773,9 +772,13 @@ def mcts_select(estimates, sc, db, table_pose, depth_clean, cfg, seed=0,
     if search == "greedy":
         from physimglobalpose_tpu_torch.pipeline.greedy_search import greedy_bfs_search
 
-        assign, _best_cost = greedy_bfs_search(evaluator, hyp_scores, cfg)
+        assign, best_cost = greedy_bfs_search(evaluator, hyp_scores, cfg)
     else:
-        assign, _best_cost = uct_search(evaluator, hyp_scores, cfg, seed=seed, stats=stats)
+        assign, best_cost = uct_search(evaluator, hyp_scores, cfg, seed=seed, stats=stats)
+    if snapshot_path:
+        from physimglobalpose_tpu_torch.utils.checkpoint import save_search_snapshot
+
+        save_search_snapshot(snapshot_path, sc.scene_dir, assign, best_cost, seed)
 
     # Final pass: settle the chosen assignment with the FULL hulls. With
     # segments, the same pass runs the TrICP refinement and installs the

@@ -3,7 +3,8 @@
 Replaces the reference's ad-hoc clock() prints scattered into text files
 (match4pcsBase.cc:1916-1924 hardcodes an author-machine path; main.cpp:120-125
 writes pipeline totals). Spans nest, carry wall time, and can be dumped as
-JSON. Device-side timelines come from torch.profiler around a span.
+JSON. Device-side timelines come from device_trace (torch.profiler) around
+a block.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ import json
 import time
 from dataclasses import dataclass, field
 from typing import List, Optional
+
+import torch
 
 
 @dataclass
@@ -93,3 +96,25 @@ def trace_span(tracer: Tracer, name: str):
         yield
     finally:
         tracer.finish()
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str):
+    """Capture a device-level trace (TensorBoard format) around a block.
+
+    The structured-span Tracer covers host phases; this wraps
+    torch.profiler.profile with CPU activity, and CUDA activity when a card
+    is present, and writes the trace into log_dir through
+    tensorboard_trace_handler. Yields the profiler, whose key_averages()
+    and events() read the spans. After a process has profiled a large
+    session, the profiler can drop device spans of later ones: count the
+    kernels' launches beside the spans rather than trusting the spans alone.
+    """
+    from torch import profiler
+
+    activities = [profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(profiler.ProfilerActivity.CUDA)
+    with profiler.profile(activities=activities,
+                          on_trace_ready=profiler.tensorboard_trace_handler(log_dir)) as prof:
+        yield prof

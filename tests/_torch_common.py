@@ -108,3 +108,46 @@ def write_obj_config(tmp, boxes):
     path = tmp / "obj_config.yml"
     path.write_text(f"objects:\n  num_objects: {len(boxes)}\n  modelDiscretization: 0.01\n{lines}")
     return path
+
+
+def ellipsoid_mesh(radii=(0.06, 0.04, 0.03), n_lat=16, n_lon=24):
+    """A closed triangulated ellipsoid centred at the origin, faces wound
+    outward: (vertices [V, 3] float32, faces [F, 3] int32) with
+    F = 2 n_lon (n_lat - 1)."""
+    theta = np.linspace(0, np.pi, n_lat + 1)[1:-1]  # the rings between the poles
+    phi = np.linspace(0, 2 * np.pi, n_lon, endpoint=False)
+    th, ph = np.meshgrid(theta, phi, indexing="ij")
+    ring = np.stack([np.sin(th) * np.cos(ph), np.sin(th) * np.sin(ph), np.cos(th)], -1)
+    verts = np.concatenate([[[0, 0, 1]], ring.reshape(-1, 3), [[0, 0, -1]]]) * np.asarray(radii)
+    bottom = len(verts) - 1
+    idx = lambda i, j: 1 + i * n_lon + j % n_lon  # noqa: E731
+    faces = [(0, idx(0, j), idx(0, j + 1)) for j in range(n_lon)]
+    for i in range(n_lat - 2):
+        for j in range(n_lon):
+            faces += [(idx(i, j), idx(i + 1, j), idx(i + 1, j + 1)),
+                      (idx(i, j), idx(i + 1, j + 1), idx(i, j + 1))]
+    faces += [(bottom, idx(n_lat - 2, j + 1), idx(n_lat - 2, j)) for j in range(n_lon)]
+    return verts.astype(np.float32), np.asarray(faces, np.int32)
+
+
+def write_ply_binary(path, verts, faces):
+    """A binary little-endian PLY of (verts [V, 3], faces [F, 3]) with an
+    extra per-vertex property and a per-face list the loaders must skip."""
+    header = (
+        "ply\nformat binary_little_endian 1.0\n"
+        f"element vertex {len(verts)}\nproperty float x\nproperty float y\nproperty float z\n"
+        "property uchar red\n"
+        f"element face {len(faces)}\nproperty list uchar int vertex_indices\n"
+        "property list uchar float texcoord\nend_header\n"
+    )
+    vdt = np.dtype([("x", "<f4"), ("y", "<f4"), ("z", "<f4"), ("r", "u1")])
+    vrec = np.zeros(len(verts), vdt)
+    vrec["x"], vrec["y"], vrec["z"] = verts[:, 0], verts[:, 1], verts[:, 2]
+    vrec["r"] = np.arange(len(verts)) % 256
+    fdt = np.dtype([("n", "u1"), ("i", "<i4", 3), ("m", "u1"), ("uv", "<f4", 2)])
+    frec = np.zeros(len(faces), fdt)
+    frec["n"], frec["i"], frec["m"], frec["uv"] = 3, faces, 2, 0.5
+    with open(path, "wb") as fh:
+        fh.write(header.encode("ascii"))
+        fh.write(vrec.tobytes())
+        fh.write(frec.tobytes())

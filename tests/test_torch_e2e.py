@@ -207,15 +207,19 @@ def test_search_modes_match_jax_on_box_scene(setup, mode):
 
 def test_unported_modes_raise(setup):
     # Every segmentation and hypothesis mode of the JAX package runs (here on
-    # a scene with no objects, so the networks run once and nothing else);
-    # only debug dumps are not ported.
+    # a scene with no objects, so the networks run once and nothing else),
+    # and so does the debug dump: the cleaned depth and the (empty) overlay
+    # (tests/test_torch_debug.py holds a full dump against JAX's).
     s = setup
     tdb = objectdb.ObjectDB({}, {})
     sc = scene.scene_from_arrays(np.zeros((H, W, 3), np.uint8), s["depth"], INTR, s["cam"], [],
                                  class_mask=np.zeros((H, W), np.int32))
-    with pytest.raises(NotImplementedError):
-        api.estimate_pose("<memory>", tdb, scene=sc, device="cpu", write_result=False,
-                          debug_dir="/nonexistent")
+    debug_dir = s["tmp"] / "debug_empty"
+    res = api.estimate_pose("<memory>", tdb, scene=sc, device="cpu", write_result=False,
+                            debug_dir=str(debug_dir))
+    assert res.objects == [] and "total_s" in res.timings
+    assert sorted(p.name for p in debug_dir.iterdir()) == [
+        "depth_clean.png", "depth_clean_viz.png", "final_overlay.png"]
     for kw in (dict(segmentation_mode="FCN"), dict(segmentation_mode="FCNThreshold", fcn_tta=True),
                dict(segmentation_mode="RCNN"), dict(hypothesis_mode="SUPER4PCS"),
                dict(hypothesis_mode="V4PCS"), dict(hypothesis_mode="PPF_VOTING"),

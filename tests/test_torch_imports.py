@@ -54,7 +54,16 @@ def test_port_imports_no_jax():
             "physimglobalpose_tpu_torch/pipeline/server.py",
             "physimglobalpose_tpu_torch/parallel/mesh.py",
             "physimglobalpose_tpu_torch/parallel/sharding.py",
-            "physimglobalpose_tpu_torch/parallel/scene_sweep.py"} <= names
+            "physimglobalpose_tpu_torch/parallel/scene_sweep.py",
+            "physimglobalpose_tpu_torch/ops/raster_tri.py",
+            "physimglobalpose_tpu_torch/utils/viz.py",
+            "physimglobalpose_tpu_torch/utils/debug.py",
+            "physimglobalpose_tpu_torch/utils/checkpoint.py",
+            "physimglobalpose_tpu_torch/utils/segdata.py",
+            "physimglobalpose_tpu_torch/utils/synthdata.py",
+            "physimglobalpose_tpu_torch/runtime/__init__.py",
+            "physimglobalpose_tpu_torch/scripts/train_fcn.py",
+            "physimglobalpose_tpu_torch/scripts/train_detector.py"} <= names
     offenders = {str(p.relative_to(ROOT)): b for p in files if (b := _forbidden_imports(p))}
     assert offenders == {}
 
@@ -99,13 +108,20 @@ def test_importing_the_port_builds_and_loads_no_kernel():
             "physimglobalpose_tpu_torch.models.detect",
             "physimglobalpose_tpu_torch.pipeline.detector",
             "physimglobalpose_tpu_torch.pipeline.server",
-            "physimglobalpose_tpu_torch.parallel.scene_sweep"} <= set(modules)
+            "physimglobalpose_tpu_torch.parallel.scene_sweep",
+            "physimglobalpose_tpu_torch.ops.raster_tri", "physimglobalpose_tpu_torch.utils.debug",
+            "physimglobalpose_tpu_torch.utils.checkpoint",
+            "physimglobalpose_tpu_torch.utils.synthdata",
+            "physimglobalpose_tpu_torch.scripts.train_fcn",
+            "physimglobalpose_tpu_torch.scripts.train_detector"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
         "from physimglobalpose_tpu_torch import _build\n"
         "assert 'triton' not in sys.modules\n"
         "assert _build._LOADED == {} and _build.BUILD_LOG == {}\n"
+        "from physimglobalpose_tpu_torch import runtime\n"
+        "assert runtime._lib is None and not runtime._build_failed\n"
         "print('imported', len(sys.modules))\n"
     )
     env = dict(os.environ, PATH="/nonexistent", CUDA_HOME="/nonexistent", CUDA_PATH="/nonexistent",
