@@ -83,7 +83,17 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    synthetic renders of the three boxes, the first step's loss on the card
    against the CPU, 50 Adam steps whose loss falls, steps a second, and the
    saved checkpoint reloaded on the card and the CPU with the same labels;
-10. one JSON line describing every kernel, the card line, and last a JSON
+10. the evaluation and measurement tools (physimglobalpose_tpu_torch/scripts/),
+   through their entry points, after [scoring-large]: [synth-eval] the scene
+   generator writes plain and --hard scenes of the three boxes (640x480,
+   rendered on the card) and pipeline/evaluate grades them in LCP mode, two in
+   MCTS mode and one with the exact EMD: every object of a plain scene within
+   ADD-S 1 cm in LCP and MCTS mode, the hard scenes reported; [bench-tool]
+   bench_scoring, easy and clutter, its gates before its line; [whole-scene]
+   whole_scene_bench (repeat 2, 4 sweep copies, the "small" FCN row);
+   [loadtest] server_loadtest (4 clients, 12 requests, max_queue 1) and one
+   warm boot in a fresh process; [fcn-eval] eval_fcn_checkpoints;
+11. one JSON line describing every kernel, the card line, and last a JSON
    line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX. Exits non-zero without a CUDA device.
@@ -1597,7 +1607,7 @@ def phase_scoring(device, large: bool = False) -> tuple[dict, dict]:
     lcp_stream in float32 (it has no "high3"); the exact pipeline of the gates
     then runs its coarse and fine tiers through lcp_stream too."""
     from physimglobalpose_tpu_torch import bench_inputs
-    from physimglobalpose_tpu_torch.ops import icp, lcp, scoring
+    from physimglobalpose_tpu_torch.ops import lcp, scoring
 
     tag = "[scoring-large]" if large else "[scoring]"
     flags = bench_inputs.prod_flags()
@@ -1614,20 +1624,10 @@ def phase_scoring(device, large: bool = False) -> tuple[dict, dict]:
             f"Nm={inputs[1].shape[0]} Ns={inputs[5].shape[0]}; first call "
             f"{(time.perf_counter() - t0) * 1e3:.2f} ms")
 
-        for fn in (lcp.lcp_segside, lcp.lcp_segside_hb, lcp.lcp_stream):
-            fn.launches, fn.tier_launches = 0, [0, 0, 0]
-        icp.icp_corr_segside.launches = 0
+        _reset_launches()
         prod = run()
         torch.cuda.synchronize()
-        counts = {
-            "lcp_segside": lcp.lcp_segside.launches,
-            "lcp_segside/default": lcp.lcp_segside.tier_launches[1],
-            "lcp_segside/high3": lcp.lcp_segside.tier_launches[2],
-            "lcp_segside_hb": lcp.lcp_segside_hb.launches,
-            "icp_corr_segside": icp.icp_corr_segside.launches,
-            "lcp_stream": lcp.lcp_stream.launches,
-            "lcp_stream/fp32": lcp.lcp_stream.tier_launches[0],
-        }
+        counts = _launches(tiers=True)
         log(f"{tag} {name}: launches of one call {counts}")
         if large:
             # Coarse (Nv 256, Ns 1,024: beyond the hypothesis-block rule) and
@@ -2754,6 +2754,265 @@ def phase_serve(device, setup: dict, sweep_info: dict) -> dict:
             "retry_after_s": int(retry)}
 
 
+
+# --------------------------------------------------- the evaluation tools
+
+
+SYNTH_PLAIN_SCENES = 4
+SYNTH_HARD_SCENES = 2
+SYNTH_ADDS_BAR = 0.01  # every plain scene's objects, LCP and MCTS mode
+
+
+def write_obj_config(workdir, boxes=BOXES) -> str:
+    """obj_config.yml of `boxes` (their PLYs in workdir, as scene_setup
+    writes them); returns its path."""
+    path = os.path.join(workdir, "obj_config.yml")
+    with open(path, "w") as fh:
+        fh.write(f"objects:\n  num_objects: {len(boxes)}\n  modelDiscretization: 0.01\n")
+        for i, (name, cls, *_rest) in enumerate(boxes):
+            fh.write(f"  object_{i + 1}:\n    name: {name}\n    classId: {cls}\n"
+                     "    symmetry: [180, 180, 180]\n")
+    return path
+
+
+def _reset_launches() -> None:
+    from physimglobalpose_tpu_torch.ops import icp, lcp
+
+    for fn in (lcp.lcp_segside, lcp.lcp_segside_hb, lcp.lcp_stream):
+        fn.launches, fn.tier_launches = 0, [0, 0, 0]
+    icp.icp_corr_segside.launches = 0
+
+
+def _launches(tiers: bool = False) -> dict:
+    """The scoring path's kernels' launches since _reset_launches; with
+    `tiers`, the lcp_segside and lcp_stream tiers' counts too."""
+    from physimglobalpose_tpu_torch.ops import icp, lcp
+
+    seg, stream = lcp.lcp_segside, lcp.lcp_stream
+    out = {"lcp_segside": seg.launches}
+    if tiers:
+        out.update({"lcp_segside/default": seg.tier_launches[1],
+                    "lcp_segside/high3": seg.tier_launches[2]})
+    out.update({"lcp_segside_hb": lcp.lcp_segside_hb.launches,
+                "icp_corr_segside": icp.icp_corr_segside.launches, "lcp_stream": stream.launches})
+    if tiers:
+        out["lcp_stream/fp32"] = stream.tier_launches[0]
+    return out
+
+
+def _stdout_of(fn, *args):
+    """(fn(*args), what it printed), the printed text logged as it is."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = fn(*args)
+    sys.stdout.write(buf.getvalue())
+    sys.stdout.flush()
+    return result, buf.getvalue()
+
+
+def phase_synth_eval(device, workdir: str, setup: dict) -> dict:
+    """[synth-eval] the port's scene generator (scripts/make_synthetic_scenes)
+    writes SYNTH_PLAIN_SCENES plain and SYNTH_HARD_SCENES --hard scenes of
+    BOXES at 640x480, rendered on the card; pipeline/evaluate grades them at
+    the default configuration: the plain and the hard scenes in LCP mode, two
+    plain scenes in MCTS mode and one with the exact EMD. Every object of a
+    plain scene must come back within ADD-S 1 cm in LCP and MCTS mode; the
+    hard scenes' figures are reported. Per run: ADD-S within 2 cm, mean,
+    median, max, and the kernels' launches."""
+    from physimglobalpose_tpu_torch.pipeline import evaluate
+    from physimglobalpose_tpu_torch.scripts import make_synthetic_scenes
+
+    obj_cfg = write_obj_config(workdir)
+    base = ["--objects", ",".join(b[0] for b in BOXES), "--model-dir", workdir,
+            "--obj-config", obj_cfg, "--seed", "0"]
+    root = os.path.join(workdir, "synth")
+    t0 = time.perf_counter()
+    make_synthetic_scenes.main(["--out", os.path.join(root, "plain"), "--n",
+                                str(SYNTH_PLAIN_SCENES)] + base)
+    make_synthetic_scenes.main(["--out", os.path.join(root, "hard"), "--n",
+                                str(SYNTH_HARD_SCENES), "--hard"] + base)
+    gen_s = time.perf_counter() - t0
+    plain = [os.path.join(root, "plain", f"scene_{k:04d}") for k in range(SYNTH_PLAIN_SCENES)]
+    hard = [os.path.join(root, "hard", f"scene_{k:04d}") for k in range(SYNTH_HARD_SCENES)]
+    log(f"[synth-eval] generated {len(plain)} plain and {len(hard)} hard scenes in {gen_s:.2f} s")
+
+    out = {"generate_s": gen_s}
+    for tag, dirs, kw in (("LCP", plain, {}), ("LCP-hard", hard, {}),
+                          ("MCTS", plain[:2], {"verification_mode": "MCTS"}),
+                          ("LCP-emd", plain[:1], {"emd_exact": True})):
+        log_path = os.path.join(root, f"eval_{tag}.jsonl")
+        _reset_launches()
+        t0 = time.perf_counter()
+        agg = evaluate.evaluate_scenes(dirs, setup["db"], log_path, device=device, **kw)
+        wall = time.perf_counter() - t0
+        launches = _launches()
+        with open(log_path) as fh:
+            rows = [json.loads(line) for line in fh]
+        adds = {f"{os.path.basename(r['scene'])}/{name}": e["adds_m"]
+                for r in rows for name, e in r["objects"].items()}
+        vals = np.asarray(list(adds.values()))
+        if len(vals) != len(dirs) * len(BOXES) or not np.isfinite(vals).all():
+            fail(f"[synth-eval] {tag}: {len(vals)} graded objects, or a non-finite ADD-S")
+        st = {"scenes": len(dirs), "wall_s": wall, "seconds": [r["seconds"] for r in rows],
+              "adds_within_2cm": agg["adds_within_2cm"], "mean_adds_m": float(vals.mean()),
+              "median_adds_m": float(np.median(vals)), "max_adds_m": float(vals.max()),
+              "adds_m": adds, "launches": launches}
+        if kw.get("emd_exact"):
+            st["emd_bins"] = {f"{os.path.basename(r['scene'])}/{name}": e["emd_bins"]
+                              for r in rows for name, e in r["objects"].items()}
+            if not all(np.isfinite(v) and v >= 0 for v in st["emd_bins"].values()):
+                fail(f"[synth-eval] {tag}: an exact EMD is not finite")
+        log(f"[synth-eval] {tag}: {len(dirs)} scenes in {wall:.2f} s, ADD-S within 2 cm "
+            f"{agg['adds_within_2cm']:.3f}, mean {st['mean_adds_m'] * 1000:.2f} mm, median "
+            f"{st['median_adds_m'] * 1000:.2f} mm, max {st['max_adds_m'] * 1000:.2f} mm; "
+            f"launches {json.dumps(launches)}"
+            + (f"; exact EMD (bins) {json.dumps(st['emd_bins'])}" if "emd_bins" in st else ""))
+        mm = {k: round(v * 1000, 2) for k, v in adds.items()}
+        log(f"[synth-eval] {tag}: ADD-S mm {json.dumps(mm)}")
+        if launches["lcp_segside"] < len(dirs) * len(BOXES):
+            fail(f"[synth-eval] {tag}: lcp_segside launched {launches['lcp_segside']} times")
+        if tag in ("LCP", "MCTS") and not st["max_adds_m"] < SYNTH_ADDS_BAR:
+            fail(f"[synth-eval] {tag}: an object of a plain scene at ADD-S "
+                 f"{st['max_adds_m'] * 1000:.2f} mm >= {SYNTH_ADDS_BAR * 1000:.0f} mm")
+        out[tag] = st
+    out["dirs"] = plain
+    out["obj_config"] = obj_cfg
+    return out
+
+
+def phase_bench_tool(device) -> dict:
+    """[bench-tool] scripts/bench_scoring, the port of bench.py, easy and
+    clutter at H 16,384: the fidelity gates pass before its one line is
+    printed (a failed gate raises), and the line's keys and hyp/s."""
+    from physimglobalpose_tpu_torch.scripts import bench_scoring
+
+    out = {}
+    for variant in ("easy", "clutter"):
+        _reset_launches()
+        t0 = time.perf_counter()
+        rc, printed = _stdout_of(bench_scoring.main, ["--variant", variant])
+        wall = time.perf_counter() - t0
+        launches = _launches()
+        line = json.loads(printed.strip().splitlines()[-1])
+        keys = ["metric", "value", "unit", "vs_baseline"]
+        if rc != 0 or list(line) != keys or not line["value"] > 0:
+            fail(f"[bench-tool] {variant}: exit {rc}, line {line}")
+        if min(launches[k] for k in ("lcp_segside", "lcp_segside_hb", "icp_corr_segside")) < 1:
+            fail(f"[bench-tool] {variant}: a kernel of the scoring path was not launched")
+        log(f"[bench-tool] {variant}: {line['value']:.1f} hyp/s ({line['vs_baseline']}x the C++ "
+            f"baseline) after the gates; the tool's run {wall:.2f} s, launches "
+            f"{json.dumps(launches)}")
+        out[variant] = {"line": line, "wall_s": wall, "launches": launches}
+    return out
+
+
+def _grade_world(tag, scene_dir: str, poses: dict, setup: dict, device) -> dict:
+    """ADD-S (m) by name of world poses against the scene's gt_info.yml; fails
+    unless every object of the scene is there within SYNTH_ADDS_BAR."""
+    from physimglobalpose_tpu_torch.geometry import metrics
+    from physimglobalpose_tpu_torch.pipeline import scene as scene_mod
+
+    gt = scene_mod.load_scene(scene_dir, load_color=False).gt_poses
+    if sorted(poses) != sorted(gt):
+        fail(f"{tag} objects {sorted(poses)}, the scene has {sorted(gt)}")
+    as_t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)  # noqa: E731
+    adds = {n: float(metrics.adds_error(as_t(p), as_t(gt[n]),
+                                        as_t(setup["objects"][n].validation_pts)))
+            for n, p in poses.items()}
+    if not max(adds.values()) < SYNTH_ADDS_BAR:
+        fail(f"{tag} ADD-S mm {json.dumps({n: round(v * 1000, 2) for n, v in adds.items()})}: "
+             f"an object at or past {SYNTH_ADDS_BAR * 1000:.0f} mm")
+    return adds
+
+
+def phase_whole_scene(device, workdir: str, synth: dict, setup: dict) -> dict:
+    """[whole-scene] scripts/whole_scene_bench on the first plain scene of
+    [synth-eval] (the tool's configuration, the small preset): repeat 2, 4
+    sweep copies, the "small" FCN row; the MCTS rows are left to
+    [synth-eval]'s MCTS grading. The GT-segmentation LCP row's poses must be
+    within ADD-S SYNTH_ADDS_BAR of the scene's truth. The FCN row's poses
+    are reported beside the LCP row's, not held: the shipped networks were
+    trained on renders of the reference's meshes, not on these boxes
+    ([e2e-neural] holds the networks' images on the card to the CPU's)."""
+    from physimglobalpose_tpu_torch.scripts import whole_scene_bench
+
+    out_path = os.path.join(workdir, "whole_scene_bench.json")
+    _reset_launches()
+    t0 = time.perf_counter()
+    got, _ = _stdout_of(whole_scene_bench.main, [
+        "--scene", synth["dirs"][0], "--model-dir", workdir, "--obj-config", synth["obj_config"],
+        "--repeat", "2", "--sweep-scenes", "4", "--skip-mcts", "--fcn-variants", "small",
+        "--out", out_path])
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    keys = ("lcp_seconds_per_scene_warm", "lcp_sweep_scenes_per_sec",
+            "lcp_sweep_pipelined2_scenes_per_sec", "lcp_sweep_pipelined4_scenes_per_sec",
+            "fcn_small_lcp_seconds_per_scene_warm", "fcn_small_predictor_seconds_per_scene")
+    if any(not got.get(k, 0) > 0 for k in keys) or launches["lcp_segside"] < 1:
+        fail(f"[whole-scene] a row is missing or not positive, or no lcp_segside launch: "
+             f"{json.dumps(got)}")
+    adds = _grade_world("[whole-scene] serial LCP:", synth["dirs"][0], got["lcp_pose_world"],
+                        setup, device)
+    log(f"[whole-scene] {json.dumps({k: got[k] for k in keys})}; the tool's run {wall:.2f} s, "
+        f"launches {json.dumps(launches)}; serial LCP ADD-S mm "
+        f"{json.dumps({n: round(v * 1000, 2) for n, v in adds.items()})}; FCN row against it "
+        f"(not held) {json.dumps(got['fcn_small_vs_golden_pose'])}")
+    return {**{k: got[k] for k in keys}, "wall_s": wall, "launches": launches,
+            "lcp_adds_m": adds, "fcn_small_vs_golden_pose": got["fcn_small_vs_golden_pose"]}
+
+
+def phase_loadtest(device, workdir: str, synth: dict, setup: dict) -> dict:
+    """[loadtest] scripts/server_loadtest on the first plain scene of
+    [synth-eval]: 4 clients, 12 requests, max_queue 1 (req/s, latency
+    percentiles, queue depth on arrival, 503s and Retry-After), then one
+    warm boot measured in a fresh process. The last answer under load must
+    put every object within ADD-S SYNTH_ADDS_BAR of the scene's truth."""
+    from physimglobalpose_tpu_torch.scripts import server_loadtest
+
+    out_path = os.path.join(workdir, "server_loadtest.json")
+    flags = ["--scene", synth["dirs"][0], "--model-dir", workdir, "--obj-config",
+             synth["obj_config"], "--out", out_path]
+    _reset_launches()
+    rc, _ = _stdout_of(server_loadtest.main, ["--clients", "4", "--requests", "12",
+                                              "--max-queue", "1"] + flags)
+    launches = _launches()
+    rc_boot, _ = _stdout_of(server_loadtest.main, ["--phase", "measure-boots"] + flags)
+    with open(out_path) as fh:
+        report = json.load(fh)["cuda"]
+    if (rc != 0 or rc_boot != 0 or report["errors"] or report["completed"] < 12
+            or launches["lcp_segside"] < 1):
+        fail(f"[loadtest] exit {rc} / {rc_boot}: {json.dumps(report)}")
+    adds = _grade_world("[loadtest] the last answer:", synth["dirs"][0],
+                        report["response_pose_world"], setup, device)
+    keys = ("requests_per_sec", "latency_s", "queue_depth_on_arrival", "shed_503",
+            "warm_compile_s")
+    log(f"[loadtest] {json.dumps({k: report[k] for k in keys})}; warm boot "
+        f"{json.dumps(report['warm_boots']['boot1'])}; launches {json.dumps(launches)}; the "
+        f"last answer's ADD-S mm {json.dumps({n: round(v * 1000, 2) for n, v in adds.items()})}")
+    return {**{k: report[k] for k in keys}, "warm_boot": report["warm_boots"]["boot1"],
+            "launches": launches, "answer_adds_m": adds}
+
+
+def phase_fcn_eval(device, workdir: str, synth: dict) -> dict:
+    """[fcn-eval] scripts/eval_fcn_checkpoints on held-out renders of BOXES:
+    every checkpoint the JAX script evaluates that ships, plain and
+    domain-randomized, at both serving scales."""
+    from physimglobalpose_tpu_torch.scripts import eval_fcn_checkpoints
+
+    t0 = time.perf_counter()
+    results, _ = _stdout_of(eval_fcn_checkpoints.main, [
+        "--model-dir", workdir, "--obj-config", synth["obj_config"], "--objects",
+        ",".join(b[0] for b in BOXES)])
+    wall = time.perf_counter() - t0
+    vals = [v for r in results.values() for sc in r["miou"].values() for v in sc.values()]
+    if not results or not all(0.0 <= v <= 1.0 for v in vals):
+        fail(f"[fcn-eval] {json.dumps(results)}")
+    log(f"[fcn-eval] {json.dumps(results)} in {wall:.2f} s")
+    return {"checkpoints": results, "wall_s": wall}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
@@ -2801,6 +3060,13 @@ def main() -> int:
                        "detect": phase_train(device, workdir, "detect")}
         _scoring_stats, scoring_launches = phase_scoring(device)
         _scoring_stats, scoring_large_launches = phase_scoring(device, large=True)
+        # The tools last: [scoring]'s profiled spans come before their launches
+        # (the profiler loses device spans in a process that has made many).
+        synth_stats = phase_synth_eval(device, workdir, setup)
+        bench_tool_stats = phase_bench_tool(device)
+        whole_scene_stats = phase_whole_scene(device, workdir, synth_stats, setup)
+        loadtest_stats = phase_loadtest(device, workdir, synth_stats, setup)
+        fcn_eval_stats = phase_fcn_eval(device, workdir, synth_stats)
 
     lcp_src = "physimglobalpose_tpu_torch/csrc/lcp_segside.cu"
     stream_src = "physimglobalpose_tpu_torch/csrc/lcp_stream.cu"
@@ -2836,7 +3102,13 @@ def main() -> int:
               # The multi-scene sweep's job batch, one launch a job.
               launches_sweep=sweep_stats["lcp_segside_launches"],
               # The scene under device_trace, and the MCTS scene with debug_dir.
-              launches_trace=trace_stats["launches"], launches_debug=debug_stats["launches"]),
+              launches_trace=trace_stats["launches"], launches_debug=debug_stats["launches"],
+              # The evaluation tools: the generator's scenes graded (LCP,
+              # hard, MCTS, EMD), the whole-scene bench, the load test.
+              launches_synth_eval={t: synth_stats[t]["launches"]["lcp_segside"]
+                                   for t in ("LCP", "LCP-hard", "MCTS", "LCP-emd")},
+              launches_whole_scene=whole_scene_stats["launches"]["lcp_segside"],
+              launches_loadtest=loadtest_stats["launches"]["lcp_segside"]),
         entry("lcp_segside/default", lcp_src, "physimglobalpose_tpu/ops/lcp.py:420",
               "ops/lcp.py::_lcp_kernel_segside (default tier)",
               scoring_launches["lcp_segside/default"], tier_stats["default"],
@@ -2850,6 +3122,8 @@ def main() -> int:
         entry("lcp_segside_hb", lcp_src, "physimglobalpose_tpu/ops/lcp.py:543",
               "ops/lcp.py::_lcp_kernel_segside_hb", scoring_launches["lcp_segside_hb"], hb_stats,
               library_ms=hb_stats["library_ms"],
+              launches_bench_tool={v: st["launches"]["lcp_segside_hb"]
+                                   for v, st in bench_tool_stats.items()},
               **{k: hb_stats[k] for k in (
                   "shape", "weighted_ms", "device_ms", "band_share", "cuda_cores_ms",
                   "cuda_cores_device_ms", "lcp_segside_tensor_cores_ms", "fp32_ms",
@@ -2859,6 +3133,8 @@ def main() -> int:
         entry("icp_corr_segside", "physimglobalpose_tpu_torch/csrc/icp_corr_segside.cu",
               "physimglobalpose_tpu/ops/icp.py:273", "ops/icp.py::_icp_corr_kernel_segside",
               scoring_launches["icp_corr_segside"], icp_stats,
+              launches_bench_tool={v: st["launches"]["icp_corr_segside"]
+                                   for v, st in bench_tool_stats.items()},
               shape=icp_stats["shape"], device_ms=icp_stats["device_ms"],
               fp32_ms=icp_stats["fp32_ms"],
               ns2048={**icp_stats["ns2048"],
@@ -2893,6 +3169,10 @@ def main() -> int:
                                   "sweep_mcts": sweep_mcts_stats, "serve": serve_stats}))
     log("[port-finish] " + json.dumps({"runtime": runtime_stats, "trace": trace_stats,
                                        "debug": debug_stats, "train": train_stats}))
+    log("[tools] " + json.dumps({"synth_eval": {k: v for k, v in synth_stats.items()
+                                                if k not in ("dirs", "obj_config")},
+                                 "bench_tool": bench_tool_stats, "whole_scene": whole_scene_stats,
+                                 "loadtest": loadtest_stats, "fcn_eval": fcn_eval_stats}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

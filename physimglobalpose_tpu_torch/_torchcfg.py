@@ -32,3 +32,21 @@ def synchronize(device: torch.device) -> None:
     """Wait for the card's queued work (a no-op on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def describe_device(device: torch.device) -> dict:
+    """What a measurement ran on: {"device": "cpu"} or, for a card, its name
+    and the name and power limit as nvidia-smi reports them (None where
+    nvidia-smi cannot be run)."""
+    if device.type != "cuda":
+        return {"device": "cpu"}
+    import subprocess
+
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
+             f"--id={device.index or 0}"], capture_output=True, text=True, timeout=30,
+        ).stdout.strip() or None
+    except (OSError, subprocess.TimeoutExpired):
+        smi = None
+    return {"device": torch.cuda.get_device_name(device), "nvidia_smi": smi}

@@ -64,22 +64,12 @@ def main(argv=None):
 
     import numpy as np
 
-    from physimglobalpose_tpu_torch.config import (
-        PipelineConfig, PreprocessConfig, StoCSConfig,
-    )
+    from physimglobalpose_tpu_torch.config import PRESETS
     from physimglobalpose_tpu_torch.models import objectdb
     from physimglobalpose_tpu_torch.pipeline import api, scene as scene_mod
     from physimglobalpose_tpu_torch.utils import tracing
 
-    if args.preset == "small":
-        cfg = PipelineConfig(
-            preprocess=PreprocessConfig(max_segment_points=512),
-            stocs=StoCSConfig(num_bases=48, max_quads_per_base=32, max_pairs_per_ppf=128),
-            max_model_points=512,
-            max_validation_points=1024,
-        )
-    else:
-        cfg = PipelineConfig()
+    cfg = PRESETS[args.preset]
 
     scene_obj = None
     if args.dataset == "CAM":

@@ -139,3 +139,16 @@ class PipelineConfig:
 
 
 DEFAULT_CONFIG = PipelineConfig()
+
+# The entry points' --preset. "small" shrinks the fixed-size caps for fast
+# CPU runs; it is the JAX package's SMALL_CFG (tests/test_e2e_scene.py), the
+# configuration of its whole-scene bench and service load test.
+PRESETS = {
+    "default": DEFAULT_CONFIG,
+    "small": PipelineConfig(
+        preprocess=PreprocessConfig(max_segment_points=512),
+        stocs=StoCSConfig(num_bases=48, max_quads_per_base=32, max_pairs_per_ppf=128),
+        max_model_points=512,
+        max_validation_points=1024,
+    ),
+}

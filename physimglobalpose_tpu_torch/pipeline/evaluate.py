@@ -22,7 +22,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from physimglobalpose_tpu_torch.config import PipelineConfig, DEFAULT_CONFIG
+from physimglobalpose_tpu_torch.config import DEFAULT_CONFIG, PRESETS, PipelineConfig
 from physimglobalpose_tpu_torch.geometry import metrics
 from physimglobalpose_tpu_torch.models.objectdb import ObjectDB
 from physimglobalpose_tpu_torch.pipeline import api, scene as scene_mod
@@ -204,17 +204,7 @@ def main(argv=None):
 
     from physimglobalpose_tpu_torch.models import objectdb
 
-    if args.preset == "small":
-        from physimglobalpose_tpu_torch.config import PreprocessConfig, StoCSConfig
-
-        cfg = PipelineConfig(
-            preprocess=PreprocessConfig(max_segment_points=512),
-            stocs=StoCSConfig(num_bases=48, max_quads_per_base=32, max_pairs_per_ppf=128),
-            max_model_points=512,
-            max_validation_points=1024,
-        )
-    else:
-        cfg = DEFAULT_CONFIG
+    cfg = PRESETS[args.preset]
     dirs = sorted(set(sum((glob_mod.glob(s) or [s] for s in args.scenes), [])))
     sc0 = scene_mod.load_scene(dirs[0], dataset=args.dataset)
     db = objectdb.load_object_db(

@@ -204,18 +204,10 @@ def main(argv=None):
                    help="serve on the card (default) or on the CPU")
     args = p.parse_args(argv)
 
-    from physimglobalpose_tpu_torch.config import PipelineConfig, PreprocessConfig, StoCSConfig
+    from physimglobalpose_tpu_torch.config import PRESETS
     from physimglobalpose_tpu_torch.models import objectdb
 
-    if args.preset == "small":
-        cfg = PipelineConfig(
-            preprocess=PreprocessConfig(max_segment_points=512),
-            stocs=StoCSConfig(num_bases=48, max_quads_per_base=32, max_pairs_per_ppf=128),
-            max_model_points=512,
-            max_validation_points=1024,
-        )
-    else:
-        cfg = PipelineConfig()
+    cfg = PRESETS[args.preset]
     db = objectdb.load_object_db(
         args.obj_config, args.model_dir, config=cfg,
         cache_dir=args.cache_dir or objectdb.default_cache_dir(), only=args.objects,

@@ -99,17 +99,6 @@ def write_scene_dir(scene_dir, cam, boxes, tmp):
     return gt
 
 
-def write_obj_config(tmp, boxes):
-    """obj_config.yml for `boxes` (their PLYs in tmp); returns its path."""
-    lines = "".join(
-        f"  object_{i + 1}:\n    name: {name}\n    classId: {cls}\n    symmetry: [180, 180, 180]\n"
-        for i, (name, cls, *_rest) in enumerate(boxes)
-    )
-    path = tmp / "obj_config.yml"
-    path.write_text(f"objects:\n  num_objects: {len(boxes)}\n  modelDiscretization: 0.01\n{lines}")
-    return path
-
-
 def ellipsoid_mesh(radii=(0.06, 0.04, 0.03), n_lat=16, n_lon=24):
     """A closed triangulated ellipsoid centred at the origin, faces wound
     outward: (vertices [V, 3] float32, faces [F, 3] int32) with

@@ -13,8 +13,8 @@ import numpy as np
 import pytest
 from scipy.spatial.transform import Rotation
 
-from _torch_common import write_obj_config, write_scene_dir
-from chip_smoke import camera_pose
+from _torch_common import write_scene_dir
+from chip_smoke import camera_pose, write_obj_config
 from physimglobalpose_tpu.pipeline import evaluate as jevaluate
 from physimglobalpose_tpu_torch.pipeline import evaluate
 from test_torch_e2e import BOXES

@@ -63,7 +63,12 @@ def test_port_imports_no_jax():
             "physimglobalpose_tpu_torch/utils/synthdata.py",
             "physimglobalpose_tpu_torch/runtime/__init__.py",
             "physimglobalpose_tpu_torch/scripts/train_fcn.py",
-            "physimglobalpose_tpu_torch/scripts/train_detector.py"} <= names
+            "physimglobalpose_tpu_torch/scripts/train_detector.py",
+            "physimglobalpose_tpu_torch/scripts/make_synthetic_scenes.py",
+            "physimglobalpose_tpu_torch/scripts/bench_scoring.py",
+            "physimglobalpose_tpu_torch/scripts/whole_scene_bench.py",
+            "physimglobalpose_tpu_torch/scripts/server_loadtest.py",
+            "physimglobalpose_tpu_torch/scripts/eval_fcn_checkpoints.py"} <= names
     offenders = {str(p.relative_to(ROOT)): b for p in files if (b := _forbidden_imports(p))}
     assert offenders == {}
 
@@ -113,7 +118,12 @@ def test_importing_the_port_builds_and_loads_no_kernel():
             "physimglobalpose_tpu_torch.utils.checkpoint",
             "physimglobalpose_tpu_torch.utils.synthdata",
             "physimglobalpose_tpu_torch.scripts.train_fcn",
-            "physimglobalpose_tpu_torch.scripts.train_detector"} <= set(modules)
+            "physimglobalpose_tpu_torch.scripts.train_detector",
+            "physimglobalpose_tpu_torch.scripts.make_synthetic_scenes",
+            "physimglobalpose_tpu_torch.scripts.bench_scoring",
+            "physimglobalpose_tpu_torch.scripts.whole_scene_bench",
+            "physimglobalpose_tpu_torch.scripts.server_loadtest",
+            "physimglobalpose_tpu_torch.scripts.eval_fcn_checkpoints"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
