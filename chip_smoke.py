@@ -93,7 +93,18 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    whole_scene_bench (repeat 2, 4 sweep copies, the "small" FCN row);
    [loadtest] server_loadtest (4 clients, 12 requests, max_queue 1) and one
    warm boot in a fresh process; [fcn-eval] eval_fcn_checkpoints;
-11. one JSON line describing every kernel, the card line, and last a JSON
+11. the accuracy tools, after [fcn-eval]: [hard-eval] r4_hard_eval on 8
+   --hard scenes of the boxes in LCP, MCTS and GREEDY mode, r5_eval's
+   hard_six (the boxes, an ellipsoid, a cylinder and a slab), hard_ycb (the
+   boxes under YCB names and class ids, plain-mm depth) on 2 --hard scenes in
+   LCP and MCTS mode and rcnn (the shipped detector) on 2 plain scenes in LCP
+   mode, then r5_hard_miss_analysis on the hard family's MCTS log, its
+   joint-substitution costs on the card against the CPU's; every object
+   graded with a finite ADD-S, lcp_segside launched at least once an object
+   of each run, lcp_stream never, each section with the JAX section's keys;
+   the figures reported, not held; a [phase-times] line times the tool
+   phases;
+12. one JSON line describing every kernel, the card line, and last a JSON
    line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX. Exits non-zero without a CUDA device.
@@ -275,15 +286,58 @@ def write_box_ply(path: str, size):
                 p = verts[list(tri)]
                 n = np.cross(p[1] - p[0], p[2] - p[0])
                 tris.append(tri if n[axis] * sign > 0 else (tri[0], tri[2], tri[1]))
+    return write_mesh_ply(path, verts, tris)
+
+
+def write_mesh_ply(path: str, verts, faces):
+    """An ascii PLY of (verts [V, 3], triangles [F, 3]). Returns them as
+    float32 and int32 arrays."""
     with open(path, "w") as fh:
         fh.write("ply\nformat ascii 1.0\n")
         fh.write(f"element vertex {len(verts)}\nproperty float x\nproperty float y\nproperty float z\n")
-        fh.write(f"element face {len(tris)}\nproperty list uchar int vertex_indices\nend_header\n")
+        fh.write(f"element face {len(faces)}\nproperty list uchar int vertex_indices\nend_header\n")
         for v in verts:
             fh.write(f"{v[0]:.6f} {v[1]:.6f} {v[2]:.6f}\n")
-        for t in tris:
+        for t in faces:
             fh.write(f"3 {t[0]} {t[1]} {t[2]}\n")
-    return verts.astype(np.float32), np.asarray(tris, np.int32)
+    return np.asarray(verts, np.float32), np.asarray(faces, np.int32)
+
+
+def ellipsoid_mesh(radii=(0.06, 0.04, 0.03), n_lat=16, n_lon=24):
+    """A closed triangulated ellipsoid centred at the origin, faces wound
+    outward: (vertices [V, 3] float32, faces [F, 3] int32) with
+    F = 2 n_lon (n_lat - 1)."""
+    theta = np.linspace(0, np.pi, n_lat + 1)[1:-1]  # the rings between the poles
+    phi = np.linspace(0, 2 * np.pi, n_lon, endpoint=False)
+    th, ph = np.meshgrid(theta, phi, indexing="ij")
+    ring = np.stack([np.sin(th) * np.cos(ph), np.sin(th) * np.sin(ph), np.cos(th)], -1)
+    verts = np.concatenate([[[0, 0, 1]], ring.reshape(-1, 3), [[0, 0, -1]]]) * np.asarray(radii)
+    bottom = len(verts) - 1
+    idx = lambda i, j: 1 + i * n_lon + j % n_lon  # noqa: E731
+    faces = [(0, idx(0, j), idx(0, j + 1)) for j in range(n_lon)]
+    for i in range(n_lat - 2):
+        for j in range(n_lon):
+            faces += [(idx(i, j), idx(i + 1, j), idx(i + 1, j + 1)),
+                      (idx(i, j), idx(i + 1, j + 1), idx(i, j + 1))]
+    faces += [(bottom, idx(n_lat - 2, j + 1), idx(n_lat - 2, j)) for j in range(n_lon)]
+    return verts.astype(np.float32), np.asarray(faces, np.int32)
+
+
+def cylinder_mesh(radius=0.035, height=0.1, n_seg=32):
+    """A closed cylinder along z centred at the origin, faces wound outward:
+    (vertices [2 n_seg + 2, 3] float32, faces [4 n_seg, 3] int32)."""
+    phi = np.linspace(0, 2 * np.pi, n_seg, endpoint=False)
+    ring = np.stack([radius * np.cos(phi), radius * np.sin(phi)], -1)
+    h = height / 2
+    verts = np.concatenate([np.c_[ring, np.full(n_seg, -h)], np.c_[ring, np.full(n_seg, h)],
+                            [[0, 0, -h], [0, 0, h]]])
+    bottom, top = 2 * n_seg, 2 * n_seg + 1
+    faces = []
+    for j in range(n_seg):
+        k = (j + 1) % n_seg
+        faces += [(j, k, n_seg + k), (j, n_seg + k, n_seg + j),
+                  (bottom, k, j), (top, n_seg + j, n_seg + k)]
+    return verts.astype(np.float32), np.asarray(faces, np.int32)
 
 
 # The sweep's scenes: each box of BOXES shifted by (dx, dy) m and turned by a
@@ -3013,6 +3067,188 @@ def phase_fcn_eval(device, workdir: str, synth: dict) -> dict:
     return {"checkpoints": results, "wall_s": wall}
 
 
+
+# ------------------------------------------- the accuracy families ([hard-eval])
+
+
+HARD_SCENES = 8  # r4_hard_eval's default
+FAMILY_SCENES = 2
+# [hard-eval] six: BOXES and three objects of other shapes and sizes (no two
+# equal boxes with coincident faces: the PBD contact's blind spot).
+SIX_EXTRA = (("ellipsoid", 4), ("cylinder", 5), ("slab", 6))
+# [hard-eval] ycb: BOXES' sizes under the hard_ycb family's names and their
+# class ids in the reference's obj_config_ycb.yml.
+YCB_BOXES = (("003_cracker_box", 2), ("005_tomato_soup_can", 4), ("006_mustard_bottle", 5))
+SECTION_KEYS = {"generator", "scenes", "instances", "backend", "timestamp"}
+FAMILY_KEYS = {"hard": {"occlusion_frac", "corruption"},
+               "hard_six": {"segmentation", "occlusion_frac"},
+               "hard_ycb": {"segmentation", "occlusion_frac"},
+               "rcnn": {"segmentation", "detection"}}
+MODE_KEYS = {"adds_within_2cm", "mean_adds_m", "max_adds_m", "per_object_mean_adds_m", "wall_s",
+             "worst3"}
+MISS_KEYS = {"eval_adds_m", "segment_points", "lcp_pose_folded", "branch_set_adds_m",
+             "final3_from_chosen", "final3_from_gt", "verdict_hint"}
+
+
+def _graded_adds(log_path: str) -> dict:
+    with open(log_path) as fh:
+        rows = [json.loads(line) for line in fh]
+    return {f"{os.path.basename(r['scene'])}/{name}": e.get("adds_m", float("nan"))
+            for r in rows for name, e in r["objects"].items()}
+
+
+def phase_hard_eval(device, workdir: str) -> dict:
+    """[hard-eval] the accuracy tools (scripts/r4_hard_eval, r5_eval,
+    r5_hard_miss_analysis) through main(argv), one mode a call, at the small
+    preset and 640x480, on procedural meshes: the hard family (HARD_SCENES
+    --hard scenes of BOXES) in LCP, MCTS and GREEDY mode; hard_six
+    (FAMILY_SCENES --hard scenes of BOXES and SIX_EXTRA) and hard_ycb (BOXES
+    as YCB_BOXES, plain-mm depth) in LCP and MCTS mode; rcnn (FAMILY_SCENES
+    plain scenes, the shipped detector) in LCP mode; then the miss analysis
+    of the hard family's MCTS log, over 2 cm or, where nothing misses by 2 cm,
+    just below the worst ADD-S. Fails where an object is not graded or its
+    ADD-S is not finite, lcp_segside launched fewer times than scenes x
+    objects, lcp_stream launched, a section lacks a key of the JAX section, or
+    the miss analysis's joint-substitution costs on the card and on the CPU
+    differ by more than TOL_LEAF_COST. The figures are reported, not held."""
+    from physimglobalpose_tpu_torch.config import PRESETS
+    from physimglobalpose_tpu_torch.scripts import r4_hard_eval, r5_eval
+    from physimglobalpose_tpu_torch.scripts import r5_hard_miss_analysis as miss
+
+    root = os.path.join(workdir, "hard_eval")
+    out_path = os.path.join(root, "synth_eval.json")
+    six_dir, ycb_dir = os.path.join(root, "six_meshes"), os.path.join(root, "ycb_meshes")
+    os.makedirs(six_dir)
+    os.makedirs(ycb_dir)
+    for name, _cls, size, *_rest in BOXES:
+        write_box_ply(os.path.join(six_dir, f"{name}.ply"), size)
+    write_mesh_ply(os.path.join(six_dir, "ellipsoid.ply"), *ellipsoid_mesh((0.05, 0.035, 0.03)))
+    write_mesh_ply(os.path.join(six_dir, "cylinder.ply"), *cylinder_mesh(0.03, 0.11))
+    write_box_ply(os.path.join(six_dir, "slab.ply"), (0.14, 0.09, 0.02))
+    six = [b[:2] for b in BOXES] + list(SIX_EXTRA)
+    for (name, _cls), box in zip(YCB_BOXES, BOXES):
+        write_box_ply(os.path.join(ycb_dir, f"{name}.ply"), box[2])
+    box_cfg = write_obj_config(workdir)  # BOXES' PLYs, written by scene_setup
+    boxes = ",".join(b[0] for b in BOXES)
+    hard_dir = os.path.join(root, "hard")
+
+    def flags(family, meshes, obj_cfg, objects, n):
+        return ((["--family", family] if family != "hard" else [])
+                + ["--dir", os.path.join(root, family), "--scenes", str(n), "--model-dir", meshes,
+                   "--obj-config", obj_cfg, "--out", out_path]
+                + (["--objects", objects] if objects else []))
+
+    families = (  # (section, tool, argv, scenes, objects, modes, log name)
+        ("hard", r4_hard_eval.main, flags("hard", workdir, box_cfg, boxes, HARD_SCENES),
+         HARD_SCENES, len(BOXES), ("LCP", "MCTS", "GREEDY"), "hard_eval_{}_0.jsonl"),
+        ("hard_six", r5_eval.main,
+         flags("hard_six", six_dir, write_obj_config(six_dir, six), ",".join(n for n, _ in six),
+               FAMILY_SCENES), FAMILY_SCENES, len(six), ("LCP", "MCTS"),
+         "r5_eval_hard_six_{}_0.jsonl"),
+        ("hard_ycb", r5_eval.main,  # the family's own object names
+         flags("hard_ycb", ycb_dir, write_obj_config(ycb_dir, YCB_BOXES), None, FAMILY_SCENES),
+         FAMILY_SCENES, len(YCB_BOXES), ("LCP", "MCTS"), "r5_eval_hard_ycb_{}_0.jsonl"),
+        ("rcnn", r5_eval.main, flags("rcnn", workdir, box_cfg, boxes, FAMILY_SCENES),
+         FAMILY_SCENES, len(BOXES), ("LCP",), "r5_eval_rcnn_{}_0.jsonl"),
+    )
+    out = {}
+    for family, tool, argv, n_scenes, n_obj, modes, log_name in families:
+        for mode in modes:
+            _reset_launches()
+            t0 = time.perf_counter()
+            rc, _ = _stdout_of(tool, argv + ["--modes", mode])
+            wall = time.perf_counter() - t0
+            launches = _launches()
+            adds = _graded_adds(os.path.join(root, family, log_name.format(mode)))
+            vals = np.asarray(list(adds.values()))
+            with open(out_path) as fh:
+                st = json.load(fh)[family][mode]
+            tag = f"[hard-eval] {family} {mode}"
+            if rc != 0 or len(vals) != n_scenes * n_obj or not np.isfinite(vals).all():
+                fail(f"{tag}: exit {rc}, {len(vals)} graded objects of {n_scenes * n_obj}, or a "
+                     f"non-finite ADD-S: {json.dumps(adds)}")
+            if launches["lcp_segside"] < n_scenes * n_obj or launches["lcp_stream"] != 0:
+                fail(f"{tag}: launches {json.dumps(launches)}")
+            log(f"{tag}: {n_scenes} scenes in {wall:.2f} s (the section's wall_s {st['wall_s']}), "
+                f"ADD-S within 2 cm {st['adds_within_2cm']:.3f}, mean "
+                f"{st['mean_adds_m'] * 1000:.2f} mm, max {st['max_adds_m'] * 1000:.2f} mm; "
+                f"launches {json.dumps(launches)}")
+            log(f"{tag}: ADD-S mm {json.dumps({k: round(v * 1000, 2) for k, v in adds.items()})}")
+            out[f"{family}/{mode}"] = {"scenes": n_scenes, "objects": n_obj, "wall_s": wall,
+                                       **{k: st[k] for k in MODE_KEYS}, "launches": launches}
+        with open(out_path) as fh:
+            section = json.load(fh)[family]
+        want = SECTION_KEYS | FAMILY_KEYS[family] | set(modes)
+        if not want <= set(section) or any(not MODE_KEYS <= set(section[m]) for m in modes):
+            fail(f"[hard-eval] {family}: the section lacks a key of the JAX section: "
+                 f"{sorted(want - set(section))}")
+        out[family] = {k: section[k] for k in ("occlusion_frac", "detection", "backend")
+                       if k in section}
+        log(f"[hard-eval] {family}: {json.dumps(out[family])}")
+    det = out["rcnn"]["detection"]
+    if not {"instances", "mean_box_iou", "recall_at_0.5", "missed"} <= set(det):
+        fail(f"[hard-eval] rcnn: detection {det}")
+    log(f"[hard-eval] rcnn: the shipped detector (trained on renders of the reference's meshes, "
+        f"not on these boxes): {json.dumps(det)}")
+
+    # The miss analysis on the hard family's MCTS log; its joint-substitution
+    # costs once more on the CPU, from the same poses.
+    mcts_log = os.path.join(hard_dir, "hard_eval_MCTS_0.jsonl")
+    worst = max(_graded_adds(mcts_log).values())
+    threshold = 0.02 if worst > 0.02 else float(np.nextafter(worst, 0.0))
+    miss_out = os.path.join(root, "hard_miss_analysis.json")
+    recorded = []
+    substitution_costs = miss.substitution_costs
+
+    def recording(inputs, cfg, device=None):
+        costs = substitution_costs(inputs, cfg, device)
+        recorded.append((inputs, costs))
+        return costs
+
+    miss.substitution_costs = recording
+    _reset_launches()
+    t0 = time.perf_counter()
+    try:
+        rc, _ = _stdout_of(miss.main, ["--dir", hard_dir, "--log", mcts_log, "--threshold",
+                                       repr(threshold), "--model-dir", workdir, "--obj-config",
+                                       box_cfg, "--objects", boxes, "--out", miss_out])
+    finally:
+        miss.substitution_costs = substitution_costs
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    with open(miss_out) as fh:
+        report = json.load(fh)
+    analysed = {k: v for k, v in report.items()
+                if k != "meta" and not k.endswith("/joint_cost_substitution")}
+    scenes = {k.split("/")[0] for k in analysed}
+    subs = {k: v for k, v in report.items() if k.endswith("/joint_cost_substitution")}
+    if (rc != 0 or not analysed or any(not MISS_KEYS <= set(v) for v in analysed.values())
+            or len(subs) != len(scenes) or len(recorded) != len(scenes)):
+        fail(f"[hard-eval] miss: exit {rc}, {len(analysed)} analysed, {len(subs)} substitutions "
+             f"({len(recorded)} recorded) for {len(scenes)} scenes")
+    if launches["lcp_segside"] < (len(analysed) + len(scenes)) * len(BOXES) or launches[
+            "lcp_stream"] != 0:
+        fail(f"[hard-eval] miss: launches {json.dumps(launches)}")
+    cfg = PRESETS["small"]
+    cpu_err = 0.0
+    for inputs, card in recorded:
+        cpu = substitution_costs(inputs, cfg, "cpu")
+        for scale, costs in card.items():
+            for label, cost in costs.items():
+                cpu_err = max(cpu_err, abs(cost - cpu[scale][label]))
+    if cpu_err > TOL_LEAF_COST:
+        fail(f"[hard-eval] miss: joint-substitution costs on the card and the CPU differ by "
+             f"{cpu_err} px > {TOL_LEAF_COST}")
+    log(f"[hard-eval] miss: threshold {threshold * 1000:.3f} mm, {len(analysed)} analysed in "
+        f"{wall:.2f} s, verdicts {json.dumps({k: v['verdict_hint'] for k, v in analysed.items()})}; "
+        f"joint substitution {json.dumps(subs)}; card against CPU max {cpu_err} px; launches "
+        f"{json.dumps(launches)}")
+    out["miss"] = {"threshold_m": threshold, "wall_s": wall, "analysed": analysed,
+                   "joint_cost_substitution": subs, "cpu_max_abs_err_px": cpu_err,
+                   "launches": launches}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
@@ -3062,11 +3298,20 @@ def main() -> int:
         _scoring_stats, scoring_large_launches = phase_scoring(device, large=True)
         # The tools last: [scoring]'s profiled spans come before their launches
         # (the profiler loses device spans in a process that has made many).
-        synth_stats = phase_synth_eval(device, workdir, setup)
-        bench_tool_stats = phase_bench_tool(device)
-        whole_scene_stats = phase_whole_scene(device, workdir, synth_stats, setup)
-        loadtest_stats = phase_loadtest(device, workdir, synth_stats, setup)
-        fcn_eval_stats = phase_fcn_eval(device, workdir, synth_stats)
+        phase_times = {}
+
+        def timed(key, phase, *args):
+            t0 = time.perf_counter()
+            result = phase(*args)
+            phase_times[key] = time.perf_counter() - t0
+            return result
+
+        synth_stats = timed("synth", phase_synth_eval, device, workdir, setup)
+        bench_tool_stats = timed("bench", phase_bench_tool, device)
+        whole_scene_stats = timed("whole", phase_whole_scene, device, workdir, synth_stats, setup)
+        loadtest_stats = timed("loadtest", phase_loadtest, device, workdir, synth_stats, setup)
+        fcn_eval_stats = timed("fcn_eval", phase_fcn_eval, device, workdir, synth_stats)
+        hard_eval_stats = timed("hard_eval", phase_hard_eval, device, workdir)
 
     lcp_src = "physimglobalpose_tpu_torch/csrc/lcp_segside.cu"
     stream_src = "physimglobalpose_tpu_torch/csrc/lcp_stream.cu"
@@ -3173,6 +3418,8 @@ def main() -> int:
                                                 if k not in ("dirs", "obj_config")},
                                  "bench_tool": bench_tool_stats, "whole_scene": whole_scene_stats,
                                  "loadtest": loadtest_stats, "fcn_eval": fcn_eval_stats}))
+    log("[hard-eval] " + json.dumps(hard_eval_stats))
+    log(f"[phase-times] {json.dumps(phase_times)}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

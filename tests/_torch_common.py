@@ -10,6 +10,8 @@ same kind of scene on the card.
 import numpy as np
 import torch
 
+from chip_smoke import ellipsoid_mesh  # noqa: F401  (the tests' second mesh shape)
+
 torch.set_num_threads(1)
 
 CPU = torch.device("cpu")
@@ -97,26 +99,6 @@ def write_scene_dir(scene_dir, cam, boxes, tmp):
     }
     (scene_dir / "gt_info.yml").write_text(json.dumps(info))  # JSON is YAML
     return gt
-
-
-def ellipsoid_mesh(radii=(0.06, 0.04, 0.03), n_lat=16, n_lon=24):
-    """A closed triangulated ellipsoid centred at the origin, faces wound
-    outward: (vertices [V, 3] float32, faces [F, 3] int32) with
-    F = 2 n_lon (n_lat - 1)."""
-    theta = np.linspace(0, np.pi, n_lat + 1)[1:-1]  # the rings between the poles
-    phi = np.linspace(0, 2 * np.pi, n_lon, endpoint=False)
-    th, ph = np.meshgrid(theta, phi, indexing="ij")
-    ring = np.stack([np.sin(th) * np.cos(ph), np.sin(th) * np.sin(ph), np.cos(th)], -1)
-    verts = np.concatenate([[[0, 0, 1]], ring.reshape(-1, 3), [[0, 0, -1]]]) * np.asarray(radii)
-    bottom = len(verts) - 1
-    idx = lambda i, j: 1 + i * n_lon + j % n_lon  # noqa: E731
-    faces = [(0, idx(0, j), idx(0, j + 1)) for j in range(n_lon)]
-    for i in range(n_lat - 2):
-        for j in range(n_lon):
-            faces += [(idx(i, j), idx(i + 1, j), idx(i + 1, j + 1)),
-                      (idx(i, j), idx(i + 1, j + 1), idx(i, j + 1))]
-    faces += [(bottom, idx(n_lat - 2, j + 1), idx(n_lat - 2, j)) for j in range(n_lon)]
-    return verts.astype(np.float32), np.asarray(faces, np.int32)
 
 
 def write_ply_binary(path, verts, faces):

@@ -1,5 +1,5 @@
 """The port and chip_smoke.py import neither JAX nor the JAX package nor its
-bench.py, and importing the port needs no CUDA compiler and no triton.
+bench.py and scripts/, and importing the port needs no CUDA compiler and no triton.
 
 Checked on the source (ast), not on sys.modules: the test process itself
 imports JAX. Note that physimglobalpose_tpu_torch shares its prefix with
@@ -13,7 +13,9 @@ import subprocess
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "physimglobalpose_tpu", "bench"}
+# "scripts": the JAX package's scripts/ directory, imported as a namespace
+# package from the repository's root.
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "physimglobalpose_tpu", "bench", "scripts"}
 
 
 def _sources():
@@ -68,7 +70,11 @@ def test_port_imports_no_jax():
             "physimglobalpose_tpu_torch/scripts/bench_scoring.py",
             "physimglobalpose_tpu_torch/scripts/whole_scene_bench.py",
             "physimglobalpose_tpu_torch/scripts/server_loadtest.py",
-            "physimglobalpose_tpu_torch/scripts/eval_fcn_checkpoints.py"} <= names
+            "physimglobalpose_tpu_torch/scripts/eval_fcn_checkpoints.py",
+            "physimglobalpose_tpu_torch/scripts/_synth_eval.py",
+            "physimglobalpose_tpu_torch/scripts/r4_hard_eval.py",
+            "physimglobalpose_tpu_torch/scripts/r5_eval.py",
+            "physimglobalpose_tpu_torch/scripts/r5_hard_miss_analysis.py"} <= names
     offenders = {str(p.relative_to(ROOT)): b for p in files if (b := _forbidden_imports(p))}
     assert offenders == {}
 
@@ -97,8 +103,9 @@ def test_checker_catches_forbidden_imports(tmp_path):
         "import jax.numpy as jnp\nfrom physimglobalpose_tpu.ops import lcp\n"
         "import physimglobalpose_tpu_torch\nfrom physimglobalpose_tpu_torch.ops import lcp\n"
         "import bench\nfrom physimglobalpose_tpu_torch import bench_inputs\n"
+        "from scripts import r4_hard_eval\nfrom physimglobalpose_tpu_torch.scripts import r5_eval\n"
     )
-    assert _forbidden_imports(src) == ["jax.numpy", "physimglobalpose_tpu.ops", "bench"]
+    assert _forbidden_imports(src) == ["jax.numpy", "physimglobalpose_tpu.ops", "bench", "scripts"]
 
 
 def test_importing_the_port_builds_and_loads_no_kernel():
@@ -123,7 +130,10 @@ def test_importing_the_port_builds_and_loads_no_kernel():
             "physimglobalpose_tpu_torch.scripts.bench_scoring",
             "physimglobalpose_tpu_torch.scripts.whole_scene_bench",
             "physimglobalpose_tpu_torch.scripts.server_loadtest",
-            "physimglobalpose_tpu_torch.scripts.eval_fcn_checkpoints"} <= set(modules)
+            "physimglobalpose_tpu_torch.scripts.eval_fcn_checkpoints",
+            "physimglobalpose_tpu_torch.scripts.r4_hard_eval",
+            "physimglobalpose_tpu_torch.scripts.r5_eval",
+            "physimglobalpose_tpu_torch.scripts.r5_hard_miss_analysis"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
