@@ -48,7 +48,8 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--repeat", type=int, default=1,
                    help="run the scene N times (steady-state timing)")
-    p.add_argument("--trace", default=None, help="write JSON trace to this path")
+    p.add_argument("--trace", default=None,
+                   help="write this run's span trees (one a repeat) as JSON to this path")
     p.add_argument("--result", default=None,
                    help="result.txt path (default: scene dir, or cwd if read-only)")
     p.add_argument("--debug-dir", default=None,
@@ -88,6 +89,7 @@ def main(argv=None):
         cache_dir=args.cache_dir or objectdb.default_cache_dir(), only=only, device=args.device,
     )
 
+    request_ids = []
     for rep in range(args.repeat):
         t0 = time.perf_counter()
         result = api.estimate_pose(
@@ -105,6 +107,7 @@ def main(argv=None):
             fcn_variant=args.fcn_variant,
             fcn_tta=args.fcn_tta,
         )
+        request_ids.append(result.timings["request_id"])
         if args.repeat > 1:
             print(f"[rep {rep}] scene time: {time.perf_counter() - t0:.3f}s")
     for obj in result.objects:
@@ -112,7 +115,9 @@ def main(argv=None):
         print(f"{obj.name}: t=({t[0]:.4f}, {t[1]:.4f}, {t[2]:.4f}) score={obj.score:.4f}")
     print(json.dumps({"timings": result.timings}))
     if args.trace:
-        tracing.get_tracer().dump(args.trace)
+        with open(args.trace, "w") as fh:
+            json.dump([root.to_dict() for rid in request_ids
+                       for root in tracing.record(rid).roots], fh, indent=2)
     return 0
 
 

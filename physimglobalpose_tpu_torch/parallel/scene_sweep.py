@@ -27,7 +27,6 @@ batched variant is later speed work.
 from __future__ import annotations
 
 import dataclasses
-import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence
 
@@ -46,6 +45,7 @@ from physimglobalpose_tpu_torch.pipeline.api import (
     _GEN_MODES, ObjectPoseEstimate, PoseEstimationResult,
 )
 from physimglobalpose_tpu_torch.pipeline.segmentation import Segment3D
+from physimglobalpose_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass
@@ -338,6 +338,12 @@ def sweep_scenes(
     and prepares chunk i+1 while the device runs chunk i; results are the
     unchunked sweep's. timings then report preprocess_host_s, the host's
     share, measured though overlapped.
+    The call is one span "sweep" (utils/tracing) with the children
+    sweep.prepare (to its synchronize), sweep.jobs (the job batch's dispatch
+    and finalize) and, in MCTS mode, sweep.search; pipelined, one
+    sweep.prepare and one sweep.jobs a chunk. The timings are those spans'
+    durations, and every scene's timings["request_id"] names the call's
+    request record.
     """
     if hypothesis_mode not in _GEN_MODES:
         raise ValueError(f"unsupported sweep hypothesis mode {hypothesis_mode!r}")
@@ -350,62 +356,35 @@ def sweep_scenes(
     dispatch_kwargs = dict(db=db, cfg=cfg, gen_mode=_GEN_MODES[hypothesis_mode], top_k=top_k,
                            do_refine=refine_final and not is_mcts, device=dev)
 
-    if pipeline_chunks > 1 and not is_mcts and len(scene_dirs) > 1:
-        t0 = time.perf_counter()
-        idx_chunks = [list(b) for b in np.array_split(
-            np.arange(len(scene_dirs)), min(pipeline_chunks, len(scene_dirs))) if len(b)]
-        scene_lists: List[tuple] = []
-        inflight, prep_host_s = None, 0.0
-        for idxs in idx_chunks + [None]:
-            state = None
-            if idxs is not None:
-                tp = time.perf_counter()
-                chunk = prepare_scenes([scene_dirs[i] for i in idxs], db, **prep_kwargs)
-                prep_host_s += time.perf_counter() - tp
-                state = _dispatch_jobs(mesh, chunk, **dispatch_kwargs)
-            if inflight is not None:
-                per_scene = _finalize_jobs(inflight)
-                scene_lists += [(pj.scene_dir, per_scene[si])
-                                for si, pj in enumerate(inflight["prepared"])]
-            inflight = state
-        total = time.perf_counter() - t0
-        n_scenes = max(len(scene_lists), 1)
-        timings = {
-            "preprocess_s": 0.0,
-            "preprocess_host_s": prep_host_s / n_scenes,
-            "device_s": total / n_scenes,
-            "mcts_s": 0.0,
-            "scenes_per_sec": n_scenes / total,
-            "pipelined": True,
-            "pipeline_chunks": len(idx_chunks),
-        }
-        return {sd: PoseEstimationResult(objects=est, timings=dict(timings))
-                for sd, est in scene_lists}
+    with tracing.span("sweep") as sp_sweep:
+        if pipeline_chunks > 1 and not is_mcts and len(scene_dirs) > 1:
+            return _sweep_pipelined(sp_sweep, mesh, scene_dirs, db, pipeline_chunks,
+                                    prep_kwargs, dispatch_kwargs)
 
-    t0 = time.perf_counter()
-    prepared = prepare_scenes(scene_dirs, db, **prep_kwargs)
-    _torchcfg.synchronize(dev)
-    prep_s = time.perf_counter() - t0
-    t1 = time.perf_counter()
-    state = _dispatch_jobs(mesh, prepared, **dispatch_kwargs)
-    if state["packed"] is None:
-        return {}
-    per_scene = _finalize_jobs(state)
-    device_s = time.perf_counter() - t1
+        with tracing.span("sweep.prepare") as sp_prep:
+            prepared = prepare_scenes(scene_dirs, db, **prep_kwargs)
+            _torchcfg.synchronize(dev)
+        with tracing.span("sweep.jobs") as sp_jobs:
+            state = _dispatch_jobs(mesh, prepared, **dispatch_kwargs)
+            if state["packed"] is None:
+                return {}
+            per_scene = _finalize_jobs(state)
 
-    mcts_s = 0.0
-    if is_mcts:
-        from physimglobalpose_tpu_torch.pipeline import mcts as mcts_mod
+        mcts_s = 0.0
+        if is_mcts:
+            from physimglobalpose_tpu_torch.pipeline import mcts as mcts_mod
 
-        t2 = time.perf_counter()
-        refined = mcts_mod.mcts_select_multi(
-            [(per_scene[si], pj.sc, pj.table_pose.cpu().numpy(), pj.depth_clean)
-             for si, pj in enumerate(prepared)],
-            db, cfg, seed=seed, mesh=mesh, segs_list=[pj.segs for pj in prepared], device=dev,
-        )
-        per_scene = dict(enumerate(refined))
-        mcts_s = time.perf_counter() - t2
+            with tracing.span("sweep.search") as sp_search:
+                refined = mcts_mod.mcts_select_multi(
+                    [(per_scene[si], pj.sc, pj.table_pose.cpu().numpy(), pj.depth_clean)
+                     for si, pj in enumerate(prepared)],
+                    db, cfg, seed=seed, mesh=mesh, segs_list=[pj.segs for pj in prepared],
+                    device=dev,
+                )
+            per_scene = dict(enumerate(refined))
+            mcts_s = sp_search.duration
 
+    prep_s, device_s = sp_prep.duration, sp_jobs.duration
     n_scenes = len(prepared)
     return {
         pj.scene_dir: PoseEstimationResult(objects=per_scene[si], timings={
@@ -413,6 +392,48 @@ def sweep_scenes(
             "device_s": device_s / n_scenes,
             "mcts_s": mcts_s / n_scenes,
             "scenes_per_sec": n_scenes / (prep_s + device_s + mcts_s),
+            "request_id": sp_sweep.request_id,
         })
         for si, pj in enumerate(prepared)
     }
+
+
+def _sweep_pipelined(sp_sweep, mesh, scene_dirs, db, pipeline_chunks, prep_kwargs,
+                     dispatch_kwargs):
+    """sweep_scenes with pipeline_chunks > 1: chunk i+1 is prepared while the
+    device runs chunk i. A chunk's sweep.jobs span runs from its dispatch to
+    its finalize, across the next chunk's sweep.prepare, so it is opened and
+    closed out of the context's nesting."""
+    idx_chunks = [list(b) for b in np.array_split(
+        np.arange(len(scene_dirs)), min(pipeline_chunks, len(scene_dirs))) if len(b)]
+    scene_lists: List[tuple] = []
+    inflight, prep_host_s = None, 0.0
+    for idxs in idx_chunks + [None]:
+        state = None
+        if idxs is not None:
+            with tracing.span("sweep.prepare") as sp_prep:
+                chunk = prepare_scenes([scene_dirs[i] for i in idxs], db, **prep_kwargs)
+            prep_host_s += sp_prep.duration
+            jobs = tracing.span("sweep.jobs").open()
+            state = _dispatch_jobs(mesh, chunk, **dispatch_kwargs)
+        if inflight is not None:
+            in_state, in_jobs = inflight
+            per_scene = _finalize_jobs(in_state)
+            in_jobs.close()
+            scene_lists += [(pj.scene_dir, per_scene[si])
+                            for si, pj in enumerate(in_state["prepared"])]
+        inflight = None if state is None else (state, jobs)
+    total = sp_sweep.duration
+    n_scenes = max(len(scene_lists), 1)
+    timings = {
+        "preprocess_s": 0.0,
+        "preprocess_host_s": prep_host_s / n_scenes,
+        "device_s": total / n_scenes,
+        "mcts_s": 0.0,
+        "scenes_per_sec": n_scenes / total,
+        "pipelined": True,
+        "pipeline_chunks": len(idx_chunks),
+        "request_id": sp_sweep.request_id,
+    }
+    return {sd: PoseEstimationResult(objects=est, timings=dict(timings))
+            for sd, est in scene_lists}

@@ -48,6 +48,7 @@ from physimglobalpose_tpu_torch.ops import cost as cost_mod
 from physimglobalpose_tpu_torch.ops import icp as icp_mod
 from physimglobalpose_tpu_torch.ops import physics, raster
 from physimglobalpose_tpu_torch.parallel import mesh as mesh_mod
+from physimglobalpose_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass
@@ -633,9 +634,14 @@ def uct_search(
     """Run the batched UCT search.
 
     Returns (best complete assignment [K] hypothesis indices, best cost).
-    stats: a dict that receives search_expansions, search_budget and
+    stats: a dict that receives search_expansions, search_budget,
     search_deadline_cut (the deadline ended the search before the budget
-    was spent or the tree exhausted).
+    was spent or the tree exhausted), search_leaf_batches (leaf batches
+    evaluated) and search_leaves (their leaves, padding not counted).
+    Each round is spans search.collect, search.leaf_eval (the batch's
+    enqueue) and search.backup (the wait for a batch's costs and their
+    backup); the two counts are also added to the caller's current span
+    (utils/tracing) as leaf_batches and leaves.
     """
     mc = cfg.mcts
     k = evaluator.k
@@ -650,20 +656,28 @@ def uct_search(
     # cfg.mcts.inflight_batches are queued.
     depth = max(1, mc.inflight_batches)
     inflight: List[tuple] = []  # (pend, device costs), oldest first
+    leaf_batches = leaves = 0
     while time.monotonic() < deadline:
         finished = tree.done or tree.root.exhausted
-        pend = [] if finished else _collect_batch(tree, mc.alpha, mc.leaf_batch)
+        pend = []
+        if not finished:
+            with tracing.span("search.collect"):
+                pend = _collect_batch(tree, mc.alpha, mc.leaf_batch)
         if pend:
             # Pad to the fixed leaf_batch (repeating row 0, results
             # discarded): cached-terminal backups make pend length variable.
-            rows = [p[1] for p in pend]
-            rows += [rows[0]] * (mc.leaf_batch - len(rows))
-            batch_choices = np.stack(rows)
-            costs_dev, _settled = evaluator.evaluate_async(batch_choices, batch_choices >= 0)
+            with tracing.span("search.leaf_eval"):
+                rows = [p[1] for p in pend]
+                rows += [rows[0]] * (mc.leaf_batch - len(rows))
+                batch_choices = np.stack(rows)
+                costs_dev, _settled = evaluator.evaluate_async(batch_choices, batch_choices >= 0)
             inflight.append((pend, costs_dev))
+            leaf_batches += 1
+            leaves += len(pend)
         if len(inflight) > depth or (not pend and inflight):
             prev_pend, prev_costs = inflight.pop(0)
-            _backup(tree, prev_pend, prev_costs.cpu().numpy())
+            with tracing.span("search.backup"):
+                _backup(tree, prev_pend, prev_costs.cpu().numpy())
         if not pend and not inflight:
             if finished:
                 break
@@ -674,11 +688,14 @@ def uct_search(
     # A deadline exit can leave queued batches not backed up; their work is
     # done, and the best assignment may be in them.
     for prev_pend, prev_costs in inflight:
-        _backup(tree, prev_pend, prev_costs.cpu().numpy())
+        with tracing.span("search.backup"):
+            _backup(tree, prev_pend, prev_costs.cpu().numpy())
 
+    tracing.count(leaf_batches=leaf_batches, leaves=leaves)
     if stats is not None:
         stats.update(search_expansions=tree.expansions, search_budget=tree.budget,
-                     search_deadline_cut=not (tree.done or tree.root.exhausted))
+                     search_deadline_cut=not (tree.done or tree.root.exhausted),
+                     search_leaf_batches=leaf_batches, search_leaves=leaves)
     return tree.best_assign, tree.best_cost
 
 
@@ -994,7 +1011,9 @@ def uct_search_multi(
     Tree s is seeded with seed + s. Returns per scene (best assignment
     [K_s], best cost). stats: a dict that receives search_expansions (per
     scene), search_budget (per scene), shared_batches and leaves (rows
-    evaluated, padding not counted).
+    evaluated, padding not counted), and the same two counts as
+    search_leaf_batches and search_leaves. Spans and counters as
+    uct_search's.
     """
     mc = cfg.mcts
     trees: List[_Tree] = []
@@ -1018,33 +1037,36 @@ def uct_search_multi(
         rows_scene: List[int] = []
         rows_choices: List[np.ndarray] = []
         pend_per_scene: List[tuple] = []
-        for si in live:
-            pend = _collect_batch(trees[si], mc.alpha, quota)
-            pend_per_scene.append((si, pend))
-            for _, choices in pend:
-                row = np.full(k_max, -1, np.int64)
-                row[: trees[si].k] = choices
-                rows_scene.append(si)
-                rows_choices.append(row)
+        with tracing.span("search.collect"):
+            for si in live:
+                pend = _collect_batch(trees[si], mc.alpha, quota)
+                pend_per_scene.append((si, pend))
+                for _, choices in pend:
+                    row = np.full(k_max, -1, np.int64)
+                    row[: trees[si].k] = choices
+                    rows_scene.append(si)
+                    rows_choices.append(row)
         if not rows_choices:
             return empty_round
         counts["shared_batches"] += 1
         counts["leaves"] += len(rows_choices)
-        pad = (-len(rows_choices)) % batch  # fixed batch-size multiples
-        rows_scene += [rows_scene[0]] * pad
-        rows_choices += [rows_choices[0]] * pad
-        choices_arr = np.stack(rows_choices)
-        costs_dev, _settled = msev.evaluate_async(np.asarray(rows_scene), choices_arr,
-                                                  choices_arr >= 0)
+        with tracing.span("search.leaf_eval"):
+            pad = (-len(rows_choices)) % batch  # fixed batch-size multiples
+            rows_scene += [rows_scene[0]] * pad
+            rows_choices += [rows_choices[0]] * pad
+            choices_arr = np.stack(rows_choices)
+            costs_dev, _settled = msev.evaluate_async(np.asarray(rows_scene), choices_arr,
+                                                      choices_arr >= 0)
         return pend_per_scene, costs_dev
 
     def backup_round(round_result):
         pend_per_scene, costs_dev = round_result
-        costs = costs_dev.cpu().numpy()
-        ofs = 0
-        for si, pend in pend_per_scene:
-            _backup(trees[si], pend, costs[ofs: ofs + len(pend)])
-            ofs += len(pend)
+        with tracing.span("search.backup"):
+            costs = costs_dev.cpu().numpy()
+            ofs = 0
+            for si, pend in pend_per_scene:
+                _backup(trees[si], pend, costs[ofs: ofs + len(pend)])
+                ofs += len(pend)
 
     depth = max(1, mc.inflight_batches)
     inflight = []  # queued rounds, oldest first
@@ -1061,9 +1083,12 @@ def uct_search_multi(
     # A deadline exit: back up the queued rounds (their work is done).
     for r in inflight:
         backup_round(r)
+    tracing.count(leaf_batches=counts["shared_batches"], leaves=counts["leaves"])
     if stats is not None:
         stats.update(search_expansions=[t.expansions for t in trees],
-                     search_budget=[t.budget for t in trees], **counts)
+                     search_budget=[t.budget for t in trees], **counts,
+                     search_leaf_batches=counts["shared_batches"],
+                     search_leaves=counts["leaves"])
     return [(t.best_assign, t.best_cost) for t in trees]
 
 

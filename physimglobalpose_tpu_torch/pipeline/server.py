@@ -11,6 +11,11 @@ built:
   -> {"objects": [{"name", "pose_world" (4x4), "pose_cam", "score"}, ...],
       "timings": {...}}
 
+The timings are estimate_pose's (pipeline/api.py) and two of the service's:
+request_id, the request's record in utils/tracing (spans serve.request ->
+serve.parse, serve.queue_wait, estimate -> its stages, serve.reply), and
+queue_wait_s, the seconds from admission to holding the device.
+
 Queueing policy (the JAX package's, physimglobalpose_tpu/pipeline/server.py):
 the device is single-flight, one scene at a time holds it. Up to max_queue
 more requests wait in line (every response carries an X-Queue-Depth header
@@ -79,21 +84,40 @@ def warmup(db, cfg, verification_mode: str = "LCP", device=None):
 def make_handler(db, default_cfg, max_queue: int = 4, warm_s: float = 0.0,
                  warm_compile_s: float = 0.0, device=None):
     from physimglobalpose_tpu_torch.pipeline import api
+    from physimglobalpose_tpu_torch.utils import tracing
 
     lock = threading.Lock()  # one scene at a time through the device
     state = {"pending": 0, "ema_s": 30.0}  # the EMA starts at a cold guess
     state_lock = threading.Lock()
 
     class Handler(BaseHTTPRequestHandler):
+        def handle_one_request(self):
+            # One request record a request: from before the request line is
+            # read until the reply is written. serve.parse is not the current
+            # span (nothing nests in it), so a reply can close it wherever
+            # the handler stops parsing.
+            with tracing.span("serve.request") as self.request_span:
+                self.parse_span = tracing.span("serve.parse").open()
+                try:
+                    super().handle_one_request()
+                finally:
+                    self._parsed()
+
+        def _parsed(self):
+            if self.parse_span.end_ns is None:
+                self.parse_span.close()
+
         def _reply(self, code, payload, headers=()):
-            body = json.dumps(payload).encode()
-            self.send_response(code)
-            self.send_header("Content-Type", "application/json")
-            self.send_header("Content-Length", str(len(body)))
-            for k, v in headers:
-                self.send_header(k, v)
-            self.end_headers()
-            self.wfile.write(body)
+            self._parsed()
+            with tracing.span("serve.reply"):
+                body = json.dumps(payload).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                for k, v in headers:
+                    self.send_header(k, v)
+                self.end_headers()
+                self.wfile.write(body)
 
         def do_GET(self):
             if self.path != "/healthz":
@@ -111,6 +135,13 @@ def make_handler(db, default_cfg, max_queue: int = 4, warm_s: float = 0.0,
             if self.path != "/pose_estimation":
                 self._reply(404, {"error": "unknown path"})
                 return
+            try:
+                n = int(self.headers.get("Content-Length", 0))
+                req = json.loads(self.rfile.read(n) or b"{}")
+            except ValueError as e:
+                self._reply(400, {"error": f"{type(e).__name__}: {e}"})
+                return
+            self._parsed()
             # Admission before joining the device line: max_queue callers
             # may wait, the rest get an explicit backoff.
             with state_lock:
@@ -125,9 +156,9 @@ def make_handler(db, default_cfg, max_queue: int = 4, warm_s: float = 0.0,
                 state["pending"] += 1
             t0 = time.monotonic()
             try:
-                n = int(self.headers.get("Content-Length", 0))
-                req = json.loads(self.rfile.read(n) or b"{}")
-                with lock:
+                with tracing.span("serve.queue_wait") as wait:
+                    lock.acquire()
+                try:
                     result = api.estimate_pose(
                         req["scene_dir"], db,
                         dataset=req.get("dataset", "APC"),
@@ -139,6 +170,8 @@ def make_handler(db, default_cfg, max_queue: int = 4, warm_s: float = 0.0,
                         write_result=bool(req.get("write_result", False)),
                         device=device,
                     )
+                finally:
+                    lock.release()
                 # The EMA counts successful requests only (an error answers
                 # in milliseconds and would drag Retry-After to 0).
                 dt = time.monotonic() - t0
@@ -150,7 +183,8 @@ def make_handler(db, default_cfg, max_queue: int = 4, warm_s: float = 0.0,
                          "pose_cam": o.pose_cam.tolist(), "score": o.score}
                         for o in result.objects
                     ],
-                    "timings": result.timings,
+                    "timings": dict(result.timings, request_id=self.request_span.request_id,
+                                    queue_wait_s=wait.duration),
                 }, headers=[("X-Queue-Depth", str(depth))])
             except (KeyError, ValueError, FileNotFoundError) as e:
                 self._reply(400, {"error": f"{type(e).__name__}: {e}"})

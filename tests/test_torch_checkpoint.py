@@ -1,10 +1,13 @@
 """Port parity: utils/checkpoint.py (search snapshots, the train state),
 mcts_select(snapshot_path=...) and utils/tracing.py (the span tracer and
 device_trace) against the JAX package's. Mirrors tests/test_utils.py's
-tracer, snapshot and train-state cases."""
+tracer, snapshot and train-state cases; adds the port's request records
+(ids, self time, threads, the ring's bound, the profiler's ranges)."""
 
+import contextlib
 import json
 import os
+import threading
 import types
 
 import numpy as np
@@ -32,6 +35,103 @@ def test_tracer_spans_nest():
     assert "outer" in flat and "outer/inner" in flat
     parsed = json.loads(tr.to_json())
     assert parsed[0]["name"] == "outer"
+
+
+def test_nested_spans_share_their_records_id():
+    with tracing.span("call") as call:
+        with tracing.span("stage") as stage:
+            with tracing.span("step") as step:
+                tracing.count(leaves=3)
+                tracing.count(leaves=2, batches=1)
+    assert call.request_id == stage.request_id == step.request_id
+    assert step.parent is stage and stage.parent is call and call.parent is None
+    assert step.counts == {"leaves": 5, "batches": 1}
+    rec = tracing.record(call.request_id)
+    assert rec.roots == [call] and rec.find("step") is step
+    assert call.start_ns <= stage.start_ns <= step.start_ns <= step.end_ns <= call.end_ns
+    with tracing.span("next call") as other:
+        pass
+    assert other.request_id != call.request_id and other.parent is None
+
+
+def test_self_time_is_what_the_children_leave():
+    tr = tracing.Tracer()
+    root = tracing.Span("root", tr, None)
+    root.start_ns, root.end_ns = 0, 10_000
+    for a, b in ((1_000, 4_000), (3_000, 6_000), (8_000, 9_000)):  # two overlap
+        c = tracing.Span("child", tr, root)
+        c.start_ns, c.end_ns = a, b
+    assert tracing.self_s(root) == pytest.approx(4e-6)  # 10 - (5 covered + 1)
+    assert tracing.self_s(root.children[2]) == pytest.approx(1e-6)
+
+
+def test_two_threads_build_separate_trees():
+    # One thread waits inside its record while the other runs: each tree
+    # holds only its own thread's spans.
+    gate = threading.Barrier(2, timeout=30)
+    got = {}
+
+    def work(tag):
+        with tracing.span(f"request {tag}") as req:
+            with tracing.span(f"wait {tag}"):
+                gate.wait()
+            gate.wait()
+            with tracing.span(f"run {tag}"):
+                pass
+        got[tag] = req
+
+    threads = [threading.Thread(target=work, args=(k,)) for k in "ab"]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=30)
+        assert not th.is_alive()
+    assert got["a"].request_id != got["b"].request_id
+    for k in "ab":
+        assert [c.name for c in got[k].children] == [f"wait {k}", f"run {k}"]
+        assert tracing.record(got[k].request_id).roots == [got[k]]
+
+
+def test_the_ring_keeps_its_bound():
+    first = None
+    for k in range(tracing.RING_RECORDS + 50):
+        with tracing.span("request") as req:
+            pass
+        first = req.request_id if first is None else first
+    held = tracing.records()
+    assert len(held) == tracing.RING_RECORDS
+    assert held[-1].request_id == req.request_id
+    assert tracing.record(first) is None and tracing.record(req.request_id) is held[-1]
+
+
+def test_no_profiler_range_without_a_profiler(monkeypatch):
+    opened = []
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        lambda name: opened.append(name) or contextlib.nullcontext())
+    with tracing.span("call"):
+        with tracing.span("stage"):
+            pass
+        tracing.span("detached").open().close()
+    assert opened == []
+    # The same spans under a (stand-in) active profiler open their ranges.
+    monkeypatch.setattr(tracing._autograd_profiler, "_is_profiler_enabled", True)
+    with tracing.span("call"):
+        with tracing.span("stage"):
+            pass
+    assert opened == ["pose::call", "pose::stage"]
+
+
+def test_spans_are_profiler_ranges_that_nest():
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with tracing.span("outer"):
+            with tracing.span("inner"):
+                (torch.ones(8, 8) @ torch.ones(8, 8)).sum()
+    events = {e.name: e for e in prof.events()}
+    outer, inner = events["pose::outer"], events["pose::inner"]
+    assert inner.cpu_parent is outer
+    assert outer.time_range.start <= inner.time_range.start
+    assert inner.time_range.end <= outer.time_range.end
+    assert any(ch.name == "aten::matmul" for ch in inner.cpu_children)
 
 
 def test_search_snapshot_roundtrip(tmp_path):

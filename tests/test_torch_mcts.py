@@ -22,6 +22,7 @@ from physimglobalpose_tpu.pipeline import scene as jscene
 from physimglobalpose_tpu_torch import config as tconfig
 from physimglobalpose_tpu_torch.models import assets
 from physimglobalpose_tpu_torch.pipeline import greedy_search, mcts, scene
+from physimglobalpose_tpu_torch.utils import tracing
 
 K_INTR = np.array([[300.0, 0, 80], [0, 300.0, 60], [0, 0, 1]], dtype=np.float32)
 H, W = 120, 160
@@ -252,6 +253,30 @@ def test_uct_search_two_objects_matches_jax(decoy):
     assert abs(got[1] - want[1]) <= TOL_COST
 
 
+def test_search_counts_the_leaf_batches_it_collected(decoy, monkeypatch):
+    # Batches of 2 with one in flight and cached terminals (budget 4 under a
+    # cap of 10): stats and the caller's span count what _collect_batch
+    # handed the evaluator; each round is a span of its own.
+    s = decoy
+    cfgs = _cfgs(leaf_batch=2, branching=3, max_search_seconds=600.0)
+    ev = mcts.BatchedLeafEvaluator([s["obj"]], decoy_hyps(s), s["obs"], K_INTR, s["cam_pose"],
+                                   s["table_pose"], cfgs[0], device="cpu", render_scale=1)
+    collected, orig = [], mcts._collect_batch
+    monkeypatch.setattr(mcts, "_collect_batch",
+                        lambda *a: collected.append(orig(*a)) or collected[-1])
+    stats = {}
+    with tracing.span("search") as search:
+        mcts.uct_search(ev, np.array([[0.9, 0.5, 0.8]], np.float32), cfgs[0], seed=0,
+                        max_iterations=10, stats=stats)
+    batches = [p for p in collected if p]
+    assert stats["search_leaf_batches"] == len(batches) >= 2
+    assert stats["search_leaves"] == sum(map(len, batches))
+    assert search.counts == {"leaf_batches": len(batches), "leaves": stats["search_leaves"]}
+    assert len(search.find_all("search.leaf_eval")) == len(batches)
+    assert len(search.find_all("search.backup")) == len(batches)
+    assert len(search.find_all("search.collect")) == len(collected)
+
+
 def test_tree_exhaustion_terminates_enumeration():
     tree = mcts._make_tree(np.array([[0.9, 0.5, 0.8]], np.float32), k=1, c=3, budget=100, seed=0)
     pend = mcts._collect_batch(tree, alpha=5000.0, quota=3)
@@ -298,7 +323,8 @@ def test_deadline_cut_is_reported(decoy, monkeypatch):
     assign, best_cost = mcts.uct_search(ev, np.array([[0.9, 0.5, 0.8]], np.float32), cfgs[0],
                                         seed=0, stats=stats)
     assert assign[0] == 0 and best_cost == np.inf
-    assert stats == {"search_expansions": 0, "search_budget": 4, "search_deadline_cut": True}
+    assert stats == {"search_expansions": 0, "search_budget": 4, "search_deadline_cut": True,
+                     "search_leaf_batches": 0, "search_leaves": 0}
 
 
 # --------------------------------------------------------------- the stack

@@ -121,6 +121,8 @@ def test_uct_search_multi_matches_jax(decoy):
         assert abs(c - jc) <= TOL_COST
     assert stats["search_budget"] == [4, 4] and stats["shared_batches"] >= 1
     assert stats["leaves"] >= sum(stats["search_expansions"])
+    assert (stats["search_leaf_batches"], stats["search_leaves"]) == (
+        stats["shared_batches"], stats["leaves"])
     # The same searches with each batch split over 8 CPU entries.
     split = mcts.uct_search_multi(
         mcts.MultiSceneLeafEvaluator(evs, mesh=mesh_mod.make_mesh(8, device="cpu")), scores,

@@ -20,6 +20,7 @@ from chip_smoke import camera_pose
 from physimglobalpose_tpu_torch import config as tconfig
 from physimglobalpose_tpu_torch.models import objectdb
 from physimglobalpose_tpu_torch.pipeline import api as api_mod, server as server_mod
+from physimglobalpose_tpu_torch.utils import tracing
 from test_torch_e2e import BOXES, _cfg
 
 ST = dict(num_bases=16, max_quads_per_base=16, max_pairs_per_ppf=64)
@@ -71,6 +72,29 @@ def test_pose_estimation_endpoint(service, setup):
         np.testing.assert_allclose(obj["pose_cam"], est.pose_cam, atol=1e-6)
         assert obj["score"] == pytest.approx(est.score)
     assert body["timings"]["total_s"] > 0
+
+
+def test_reply_names_its_request_record(service, setup):
+    with _post(service + "/pose_estimation", {"scene_dir": setup["scene"], "dataset": "APC"}) as r:
+        timings = json.loads(r.read())["timings"]
+    assert timings["queue_wait_s"] >= 0
+    rec = tracing.record(timings["request_id"])
+    req = rec.roots[0]
+    assert req.name == "serve.request"
+    for _ in range(100):  # the handler closes the span after the reply's last byte
+        if req.end_ns is not None:
+            break
+        time.sleep(0.02)
+    names = [c.name for c in req.children]
+    assert names == ["serve.parse", "serve.queue_wait", "estimate", "serve.reply"]
+    est = req.children[2]
+    assert [c.name for c in est.children][:4] == [
+        "load_scene", "remove_table", "segmentation", "hypotheses"]
+    # The timings are the spans' durations.
+    assert timings["queue_wait_s"] == req.children[1].duration
+    assert timings["hypothesis_s"] == est.find("hypotheses").duration
+    assert timings["icp_refine_s"] == est.find("icp_refine").duration
+    assert timings["total_s"] <= est.duration <= tracing.self_s(req) + est.duration
 
 
 def test_bad_request(service):
@@ -139,6 +163,7 @@ def test_load_shedding_503(monkeypatch):
             time.sleep(0.02)
         else:
             raise AssertionError("the first request never became in flight")
+        last_id = tracing.records()[-1].request_id
         with pytest.raises(urllib.error.HTTPError) as err:
             _post(base + "/pose_estimation", {"scene_dir": "/nonexistent"}, timeout=60)
         assert err.value.code == 503
@@ -146,6 +171,10 @@ def test_load_shedding_503(monkeypatch):
         assert err.value.headers["X-Queue-Depth"] == "1"
         body = json.loads(err.value.read())
         assert body["error"] == "busy" and body["queue_depth"] == 1
+        # The shed request has a record of its own, with no estimate.
+        shed = [r for r in tracing.records() if r.request_id > last_id]
+        assert len(shed) == 1 and shed[0].roots[0].name == "serve.request"
+        assert [c.name for c in shed[0].roots[0].children] == ["serve.parse", "serve.reply"]
     finally:
         release.set()
         t.join(timeout=60)

@@ -35,6 +35,7 @@ from physimglobalpose_tpu_torch.ops import icp, lcp
 from physimglobalpose_tpu_torch.parallel import mesh as mesh_mod, scene_sweep, sharding
 from physimglobalpose_tpu_torch.pipeline import api, hypothesis
 from physimglobalpose_tpu_torch.pipeline.segmentation import Segment3D
+from physimglobalpose_tpu_torch.utils import tracing
 from test_torch_e2e import BOXES, _adds, _cfg
 from test_torch_stocs import ST, _jax_draws, assets, make_segment  # noqa: F401  (fixture)
 
@@ -219,6 +220,20 @@ def test_sweep_matches_serial_estimate_pose(scenes, serial, swept):
         assert swept[sd].timings["scenes_per_sec"] > 0
 
 
+def test_each_scene_names_its_sweep_calls_record(scenes, swept):
+    ids = {swept[sd].timings["request_id"] for sd in scenes["dirs"]}
+    assert len(ids) == 1
+    rec = tracing.record(ids.pop())
+    sweep = rec.roots[0]
+    assert sweep.name == "sweep"
+    assert [c.name for c in sweep.children] == ["sweep.prepare", "sweep.jobs"]
+    prep, jobs = sweep.children
+    n = len(scenes["dirs"])
+    for sd in scenes["dirs"]:
+        assert swept[sd].timings["preprocess_s"] == prep.duration / n
+        assert swept[sd].timings["device_s"] == jobs.duration / n
+
+
 def test_pipelined_sweep_matches_unchunked(scenes, swept):
     piped = scene_sweep.sweep_scenes(None, scenes["dirs"], scenes["db"], cfg=scenes["cfg"],
                                      seed=0, pipeline_chunks=2, device="cpu")
@@ -228,6 +243,14 @@ def test_pipelined_sweep_matches_unchunked(scenes, swept):
         assert piped[sd].timings["pipelined"] is True
         assert piped[sd].timings["pipeline_chunks"] == 2
         assert piped[sd].timings["preprocess_host_s"] > 0
+    # One record for the call: a sweep.prepare and a sweep.jobs a chunk,
+    # each chunk's jobs closed after its prepare.
+    ids = {piped[sd].timings["request_id"] for sd in scenes["dirs"]}
+    assert len(ids) == 1
+    sweep = tracing.record(ids.pop()).roots[0]
+    preps, jobs = sweep.find_all("sweep.prepare"), sweep.find_all("sweep.jobs")
+    assert len(preps) == len(jobs) == 2
+    assert all(p.end_ns <= j.start_ns <= j.end_ns <= sweep.end_ns for p, j in zip(preps, jobs))
 
 
 def test_sweep_over_eight_cpu_entries_matches_one_device(scenes, swept):
