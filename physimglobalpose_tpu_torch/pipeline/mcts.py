@@ -776,6 +776,9 @@ def mcts_select(estimates, sc, db, table_pose, depth_clean, cfg, seed=0,
     card unless device="cpu". stats: a dict that receives uct_search's
     counts (the greedy search leaves it as it is). snapshot_path: a JSON
     file that receives the search's outcome (utils/checkpoint.py).
+
+    Spans (utils/tracing): the search's rounds (uct_search's spans), then
+    search.final: the final pass through the installed poses.
     """
     k = len(estimates)
     if k == 0:
@@ -800,19 +803,21 @@ def mcts_select(estimates, sc, db, table_pose, depth_clean, cfg, seed=0,
     # Final pass: settle the chosen assignment with the FULL hulls. With
     # segments, the same pass runs the TrICP refinement and installs the
     # min-cost of {raw, tricp->settle, settle->tricp}.
-    if cfg.mcts.tricp_final and segs is not None:
-        seg_pts, seg_mask = _segs_to_arrays(segs, k)
-        costs3, settled3 = evaluator.evaluate_final_tricp(assign, np.ones(k, bool), seg_pts, seg_mask)
-        settled_row = settled3[_tricp_pick(costs3)]
-        if cfg.mcts.final_polish_rounds > 0:
-            pev = evaluator
-            if cfg.mcts.final_polish_scale != cfg.mcts.render_scale:
-                pev = make_evaluator(cfg.mcts.final_polish_scale)
-            settled_row, _c = _final_polish(pev, settled_row, np.ones(k, bool), cfg, seed=seed)
-    else:
-        _, settled = evaluator.evaluate_final(assign[None, :], np.ones((1, k), bool))
-        settled_row = settled[0]
-    return _install_assignment(estimates, assign, settled_row, sc.cam_pose)
+    with tracing.span("search.final"):
+        if cfg.mcts.tricp_final and segs is not None:
+            seg_pts, seg_mask = _segs_to_arrays(segs, k)
+            costs3, settled3 = evaluator.evaluate_final_tricp(assign, np.ones(k, bool), seg_pts,
+                                                              seg_mask)
+            settled_row = settled3[_tricp_pick(costs3)]
+            if cfg.mcts.final_polish_rounds > 0:
+                pev = evaluator
+                if cfg.mcts.final_polish_scale != cfg.mcts.render_scale:
+                    pev = make_evaluator(cfg.mcts.final_polish_scale)
+                settled_row, _c = _final_polish(pev, settled_row, np.ones(k, bool), cfg, seed=seed)
+        else:
+            _, settled = evaluator.evaluate_final(assign[None, :], np.ones((1, k), bool))
+            settled_row = settled[0]
+        return _install_assignment(estimates, assign, settled_row, sc.cam_pose)
 
 
 # ------------------------------------------------------------ many scenes

@@ -8,6 +8,8 @@ Tolerances: leaf costs within 2 pixels, settled poses within 1e-4 m (and
 1e-3 rad); the search picks the same assignment with the same best cost.
 Every search budget here ends far before max_search_seconds."""
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +24,7 @@ from physimglobalpose_tpu.pipeline import scene as jscene
 from physimglobalpose_tpu_torch import config as tconfig
 from physimglobalpose_tpu_torch.models import assets
 from physimglobalpose_tpu_torch.pipeline import greedy_search, mcts, scene
+from physimglobalpose_tpu_torch.pipeline.api import ObjectPoseEstimate
 from physimglobalpose_tpu_torch.utils import tracing
 
 K_INTR = np.array([[300.0, 0, 80], [0, 300.0, 60], [0, 0, 1]], dtype=np.float32)
@@ -275,6 +278,33 @@ def test_search_counts_the_leaf_batches_it_collected(decoy, monkeypatch):
     assert len(search.find_all("search.leaf_eval")) == len(batches)
     assert len(search.find_all("search.backup")) == len(batches)
     assert len(search.find_all("search.collect")) == len(collected)
+
+
+@pytest.mark.parametrize("search,with_segs", [("uct", True), ("greedy", True), ("uct", False)])
+def test_mcts_select_spans_its_final_pass(decoy, search, with_segs):
+    # Under the caller's search span: the rounds (the UCT search's), then
+    # search.final once, last, with the final pass inside it.
+    s = decoy
+    tcfg, _ = _cfgs(leaf_batch=4, branching=3, max_search_seconds=600.0, max_expansions=12)
+    obj = s["obj"]
+    db = {"box": types.SimpleNamespace(
+        hull_pts=obj["hull_pts"], hull_mask=obj["hull_mask"], hull_eqs=obj["hull_eqs"],
+        validation_pts=obj["render_pts"], validation_nrm=np.zeros_like(obj["render_pts"]))}
+    sc = types.SimpleNamespace(intrinsics=K_INTR, cam_pose=s["cam_pose"], scene_dir="/scenes/decoy")
+    hyps = decoy_hyps(s)[0]
+    est = [ObjectPoseEstimate(name="box", pose_cam=hyps[0], pose_world=hyps[0], score=0.9,
+                              hypotheses=hyps, hypothesis_scores=np.array([0.9, 0.5, 0.8], np.float32))]
+    seg_pts, seg_mask = _seg_of(obj["render_pts"], s["true_pose"])
+    segs = [types.SimpleNamespace(pts=seg_pts, mask=seg_mask)] if with_segs else None
+    with tracing.span("search") as sp:
+        got = mcts.mcts_select(est, sc, db, s["table_pose"], s["obs"], tcfg, seed=3, search=search,
+                               segs=segs, device="cpu")
+    names = [c.name for c in sp.children]
+    assert names[-1] == "search.final" and names.count("search.final") == 1
+    assert ("search.leaf_eval" in names) == (search == "uct")
+    final = sp.find("search.final")
+    assert 0.0 < final.duration < sp.duration
+    assert np.linalg.norm(got[0].pose_world[:3, 3] - s["true_pose"][:3, 3]) < 0.01
 
 
 def test_tree_exhaustion_terminates_enumeration():
