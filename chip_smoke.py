@@ -30,7 +30,11 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    one launch) against the per-object refine_icp loop at K = 3 and 12
    objects of 1,024-point models and segments, ragged models, exact ties and
    a pose without correspondences; one launch a call; its time, device time,
-   bound, registers and shared memory;
+   bound, registers and shared memory; [settle] the search's in-order leaf
+   settle (every row, placement position and substep in one launch) against
+   its plain version, the loop of settle_single_dynamic, at B = 128 rows with
+   shared constants and B = 512 with a row's own; its time, device time,
+   bound, the plain version's time, registers and shared memory;
 4. [runtime] the native host runtime (runtime/physim_runtime.cc) built with
    g++ into build/runtime/, a PLY through it equal to the numpy parser, its
    PPF table's counts equal to numpy's, and the scene's asset preparation
@@ -1772,6 +1776,97 @@ def phase_icp_polish(device) -> dict:
     return stats
 
 
+# The settle kernel against its plain version on the card, dynamic bodies: the
+# leaf comparison's tolerance (gpubench/search_reference.py TOL), held for at
+# least TOL_SETTLE_SHARE of the rows (tests/test_torch_settle_in_order.py says
+# why: another order of the same float32 sums, which a contact settle
+# amplifies where a box rocks on an edge).
+TOL_SETTLE_POS_M = 1e-5
+TOL_SETTLE_ROT = 5e-5
+TOL_SETTLE_SHARE = 0.98
+
+
+def _settle_flop(consts, dyn, placed, substeps_total: int) -> float:
+    """The settle's operations, counted on the host: per substep of a row's
+    position, 6 FLOP a (valid vertex, valid face of a collider) pair for the
+    signed distances, 18 a vertex for its world position, 8 a (vertex,
+    collider) pair for the reductions and 120 a collider for the solve; the
+    integration and the plane set-up are not counted."""
+    mask = consts["hull_mask"].cpu().expand(dyn.shape[0], *consts["hull_mask"].shape[-2:])
+    eqs = consts["hull_eqs"].cpu().expand(dyn.shape[0], *consts["hull_eqs"].shape[-3:])
+    far = torch.tensor([0.0, 0.0, 1.0, -1e9])
+    faces = (~(eqs == far).all(-1)).sum(-1)  # [B, K]
+    verts = mask.sum(-1)  # [B, K]
+    dyn, placed = dyn.cpu(), placed.cpu()
+    total = 0.0
+    for b in range(dyn.shape[0]):
+        for d in range(dyn.shape[1]):
+            j = int(dyn[b, d])
+            if j < 0 or not bool(placed[b, d, j]):
+                continue
+            coll = [c for c in range(placed.shape[-1]) if c != j and bool(placed[b, d, c])]
+            nf = sum(int(faces[b, c]) for c in coll) + 6
+            nv, nc = int(verts[b, j]), len(coll) + 1
+            total += substeps_total * (nv * (18 + 6 * nf + 8 * nc) + 120 * nc)
+    return total
+
+
+def phase_settle(device) -> dict:
+    """[settle] the in-order leaf settle kernel (csrc/settle_leaves.cu)
+    against settle_in_order_plain on the same card tensors, at the MCTS
+    cell's shapes (K 3, P 64 with 8 valid, F 96 with 12 valid, 30 steps x 2
+    substeps): B 128 rows with shared constants (a leaf batch) and B 512
+    with a row's own (the multi-scene batch); one launch a call; then timed
+    (CUDA events through settle_in_order, the profiler's device span)
+    beside its bound and the plain version's time."""
+    from physimglobalpose_tpu_torch import _build
+    from physimglobalpose_tpu_torch.geometry import se3
+    from physimglobalpose_tpu_torch.ops import physics
+
+    kw = dict(object_mass=10.0, steps=30, substeps=2, dt=1.0 / 60.0, gravity=-2.0,
+              damping=0.99, friction=1.0, restitution=0.0)
+    out = {}
+    regs = registers_of("settle_leaves_kernel")
+    smem = re.findall(r"(\d+) bytes smem", _build.BUILD_LOG.get("settle_leaves", ""))
+    for b, per_row in ((128, False), (512, True)):
+        args = kernel_inputs.settle_inputs(60 + b, b, device, per_row=per_row)
+        before = physics.settle_in_order.launches
+        got = physics.settle_in_order(*args, **kw)
+        if physics.settle_in_order.launches != before + 1:
+            fail(f"[settle] B={b}: {physics.settle_in_order.launches - before} launches, want 1")
+        want = physics.settle_in_order_plain(*args, **kw)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()):
+            fail(f"[settle] B={b}: non-finite poses")
+        dp = (got[1] - want[1]).abs().amax(dim=(1, 2))
+        dr = (se3.quat_to_matrix(got[0].double()) - se3.quat_to_matrix(want[0].double())
+              ).abs().amax(dim=(1, 2, 3))
+        share = float(((dp <= TOL_SETTLE_POS_M) & (dr <= TOL_SETTLE_ROT)).double().mean())
+        moved = float((want[1] - args[2]).norm(dim=-1).max())
+        log(f"[settle] B={b} ({'a row its own constants' if per_row else 'shared constants'}): "
+            f"kernel vs plain max {float(dp.max()) * 1e3:.6f} mm, rotation entries "
+            f"{float(dr.max()):.3e}; rows within {TOL_SETTLE_POS_M * 1e3} mm / {TOL_SETTLE_ROT}: "
+            f"{share:.4f} (want {TOL_SETTLE_SHARE}); median row {float(dp.median()) * 1e3:.6f} "
+            f"mm; the settle moved a body up to {moved * 1e3:.2f} mm")
+        if share < TOL_SETTLE_SHARE:
+            fail(f"[settle] B={b}: the kernel parts from the plain version")
+        run = lambda: physics.settle_in_order(*args, **kw)  # noqa: E731
+        ms = cuda_time_ms(run, reps=5, inner=10)
+        dev_ms = device_ms(run, "settle_leaves_kernel")
+        plain_ms = cuda_time_ms(lambda: physics.settle_in_order_plain(*args, **kw), reps=3,
+                                warmup=1)
+        bound = _settle_flop(args[0], args[3], args[4], 60) / PEAK_FP32_FLOPS * 1e3
+        log(f"[settle] timed B={b} K=3 P=64 F=96 60 substeps x 3 positions: "
+            f"settle_in_order={ms:.4f} ms (device {dev_ms} ms) plain={plain_ms:.3f} ms "
+            f"({plain_ms / ms:.1f}x); bound={bound:.6f} ms share {bound / ms:.5f}; registers "
+            f"(ptxas) {json.dumps(regs)}, static smem {smem} bytes")
+        out[f"b{b}"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound,
+                            share_within=share, max_pos_err=float(dp.max()),
+                            max_rot_err=float(dr.max()), shape=[b, 3, 64, 96, 60])
+    return dict(out["b128"], max_abs_err=out["b128"]["max_pos_err"], b512=out["b512"],
+                registers=regs, static_smem_bytes=smem)
+
+
 def phase_scoring(device, large: bool = False) -> tuple[dict, dict]:
     """score_refine_pipeline at the benchmark's full shape with the production
     flags: launch counts of one call, the fidelity gates against the exact
@@ -2135,13 +2230,14 @@ def phase_search(device, workdir: str, setup: dict, mode: str) -> dict:
     default configuration (top_k 25, branching 25, 1,200 expansions, the
     TrICP final pass), on the card; every object within SEARCH_ADDS_BAR."""
     from physimglobalpose_tpu_torch.config import DEFAULT_CONFIG
-    from physimglobalpose_tpu_torch.ops import lcp
+    from physimglobalpose_tpu_torch.ops import lcp, physics
     from physimglobalpose_tpu_torch.pipeline import api
 
     tag = f"[{mode.lower()}]"
     cfg = DEFAULT_CONFIG
     result_path = os.path.join(workdir, f"result_{mode}.txt")
     lcp.lcp_segside.launches, lcp.lcp_segside.tier_launches = 0, [0, 0, 0]
+    physics.settle_in_order.launches = 0
     t0 = time.perf_counter()
     result = api.estimate_pose(
         "<memory>", setup["db"], verification_mode=mode, cfg=cfg, seed=0,
@@ -2150,16 +2246,23 @@ def phase_search(device, workdir: str, setup: dict, mode: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = lcp.lcp_segside.tier_launches[0]
+    settles = physics.settle_in_order.launches
     timings = {k: v for k, v in result.timings.items() if k != "result_path"}
     timings["wall_s"] = wall
-    out = {"timings": timings, "lcp_segside_launches": launches}
+    out = {"timings": timings, "lcp_segside_launches": launches, "settle_launches": settles}
     if mode == "MCTS":
         log(f"{tag} expansions {timings['search_expansions']} of a budget of "
             f"{timings['search_budget']}; the {cfg.mcts.max_search_seconds:.0f} s deadline cut "
             f"the search: {timings['search_deadline_cut']}")
-    log(f"{tag} timings {json.dumps(timings)}; lcp_segside launches {launches}")
+    log(f"{tag} timings {json.dumps(timings)}; lcp_segside launches {launches}; "
+        f"settle_leaves launches {settles}")
     if launches < 1:
         fail(f"{tag} the run launched no lcp_segside")
+    # One settle launch a leaf batch and one for the final pass.
+    if mode == "MCTS" and settles != timings["search_leaf_batches"] + 1:
+        fail(f"{tag} {settles} settle launches for {timings['search_leaf_batches']} leaf batches")
+    if settles < 2:
+        fail(f"{tag} the search launched the settle kernel {settles} times")
     out["adds_m"] = _check_objects(tag, result, setup, SEARCH_ADDS_BAR, device)
     with open(result_path) as fh:
         if len(fh.read().splitlines()) != len(BOXES):
@@ -3404,6 +3507,7 @@ def main() -> int:
     wide_stats, wide_launches = phase_lcp_wide(device)
     icp_stream_stats, icp_stream_launches = phase_icp_stream(device)
     polish_stats = phase_icp_polish(device)
+    settle_stats = phase_settle(device)
     with tempfile.TemporaryDirectory() as workdir:
         from physimglobalpose_tpu_torch import runtime
 
@@ -3543,6 +3647,15 @@ def main() -> int:
               **{k: polish_stats[k] for k in (
                   "shape", "device_ms", "k12", "registers", "static_smem_bytes",
                   "max_rot_err_deg")}),
+        # Launches: the [mcts] search's (one a leaf batch and one for the final
+        # pass); replaces no TPU kernel (the JAX package's settle is its
+        # jitted, vmapped settle_single_dynamic).
+        entry("settle_leaves", "physimglobalpose_tpu_torch/csrc/settle_leaves.cu",
+              "none", "none: physimglobalpose_tpu/ops/physics.py::settle_single_dynamic, "
+              "jitted and vmapped", mcts_stats["settle_launches"], settle_stats,
+              launches_greedy=greedy_stats["settle_launches"],
+              **{k: settle_stats[k] for k in (
+                  "shape", "device_ms", "b512", "registers", "static_smem_bytes")}),
         entry("lcp_stream_wide", stream_src, "scripts/lcp_wide_kernel_experiment.py:42",
               "scripts/lcp_wide_kernel_experiment.py::_lcp_kernel_wide", wide_launches,
               wide_stats, **{k: wide_stats[k] for k in (

@@ -19,6 +19,7 @@ from pathlib import Path
 
 KERNEL_SOURCES = (
     "lcp_segside", "icp_corr_segside", "lcp_stream", "icp_corr_stream", "icp_polish",
+    "settle_leaves",
 )
 
 _PKG = Path(__file__).resolve().parent

@@ -264,9 +264,101 @@ def polish_inputs(seed: int, k: int, nm: int, ns: int, device, lengths=None,
         smask[i, rng.choice(n_valid, size=min(10, n_valid), replace=False)] = False
         axis = rng.normal(size=3)
         axis /= np.linalg.norm(axis)
-        ang = math.radians(rng.uniform(1.0, 5.0))
-        kx = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
-        poses[i, :3, :3] = (np.eye(3) + math.sin(ang) * kx + (1 - math.cos(ang)) * kx @ kx) @ true_rot
+        poses[i, :3, :3] = _axis_angle(axis, math.radians(rng.uniform(1.0, 5.0))) @ true_rot
         poses[i, :3, 3] = true_t + rng.normal(scale=0.004, size=3)
     as_t = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt, device=device)
     return (as_t(poses), as_t(mpts), as_t(mnrm), as_t(spts), as_t(smask, torch.bool), lengths)
+
+
+def settle_hulls(sizes=POLISH_BOXES, p: int = 64, f: int = 96, mass: float = 10.0,
+                 round_hulls: bool = False):
+    """The search's contact hulls of boxes, as the object database and the
+    leaf evaluator pack them: the 8 corners padded to p points (masked), the
+    qhull face planes (12 triangles a box) padded to f with the far plane,
+    and the inverse inertia of the hull's box. round_hulls: the hull of the
+    ellipsoid inscribed in each box instead (p vertices, as many faces as f
+    keeps), the most a search hull holds. Returns numpy (hull_pts [K, p,
+    3], hull_mask [K, p], hull_eqs [K, f, 4], inv_inertia [K, 3])."""
+    from physimglobalpose_tpu_torch.models import assets
+    from physimglobalpose_tpu_torch.ops import physics
+
+    k = len(sizes)
+    pts, mask = np.zeros((k, p, 3), np.float32), np.zeros((k, p), bool)
+    eqs, inertia = np.zeros((k, f, 4), np.float32), np.zeros((k, 3), np.float32)
+    for i, size in enumerate(sizes):
+        half = np.asarray(size) / 2.0
+        if round_hulls:
+            d = np.random.default_rng(i).normal(size=(400, 3))
+            hull = assets.convex_hull_points((d / np.linalg.norm(d, axis=1, keepdims=True) * half)
+                                             .astype(np.float32), p)
+        else:
+            hull = np.array([[x, y, z] for x in (-1, 1) for y in (-1, 1) for z in (-1, 1)]) * half
+        n = len(hull)
+        pts[i, :n], mask[i, :n] = hull, True
+        eqs[i] = assets.convex_hull_planes(pts[i, :n], max_faces=f)
+        inertia[i] = physics.box_inv_inertia(torch.as_tensor(pts[i, :n]),
+                                             torch.ones(n, dtype=torch.bool), mass).numpy()
+    return pts, mask, eqs, inertia
+
+
+def settle_inputs(seed: int, b: int, device, sequential: bool = True, per_row: bool = False,
+                  p: int = 64, f: int = 96, round_hulls: bool = False):
+    """Leaf rows of the search's in-order settle on the benchmark's three
+    boxes: placements as the tree makes them (each row places a random
+    subset of the objects, one row in eight none), each box at a hypothesis
+    near a stack on a table whose top is at z = 0 (box 0 on the table, box
+    1 on box 0, box 2 beside them), moved by up to 8 mm and turned by up to
+    10 degrees about a random axis, so that some start inside what lies
+    under them and some above it. per_row: each row carries its own
+    constants (the multi-scene leaf batch): the boxes in a row's own order
+    and the table's height and tilt drawn a row. round_hulls: settle_hulls'. Returns (consts, quat [B,
+    3, 4], pos [B, 3, 3], dyn, placed) as _settle_render_cost hands them to
+    physics.settle_in_order."""
+    from physimglobalpose_tpu_torch.geometry import se3
+    from physimglobalpose_tpu_torch.pipeline import mcts
+
+    rng = np.random.default_rng(seed)
+    k = len(POLISH_BOXES)
+    pts, mask, eqs, inertia = settle_hulls(POLISH_BOXES, p, f, round_hulls=round_hulls)
+    order = np.stack([rng.permutation(k) if per_row else np.arange(k) for _ in range(b)])
+    table = np.tile(np.eye(4, dtype=np.float32), (b, 1, 1))
+    table[:, 2, 3] = -0.2  # the top face at z = 0
+    if per_row:
+        table[:, 2, 3] += rng.uniform(-0.05, 0.05, b)
+        for r in range(b):
+            axis = rng.normal(size=3)
+            axis /= np.linalg.norm(axis)
+            table[r, :3, :3] = _axis_angle(axis, math.radians(rng.uniform(0.0, 3.0)))
+    poses = np.tile(np.eye(4), (b, k, 1, 1))
+    for r in range(b):
+        sizes = [POLISH_BOXES[i] for i in order[r]]
+        top = table[r, 2, 3] + 0.2
+        centres = [(0.0, 0.0, top + sizes[0][2] / 2),
+                   (0.01, -0.005, top + sizes[0][2] + sizes[1][2] / 2),
+                   (0.15, 0.02, top + sizes[2][2] / 2)]
+        for i in range(k):
+            axis = rng.normal(size=3)
+            axis /= np.linalg.norm(axis)
+            rot = _axis_angle(axis, math.radians(rng.uniform(0.0, 10.0))) @ _rot_z(rng.uniform(-20, 20))
+            poses[r, i, :3, :3] = rot
+            poses[r, i, :3, 3] = np.asarray(centres[i]) + rng.uniform(-0.008, 0.008, 3)
+    active = rng.random((b, k)) < 0.7
+    active[::8] = False
+    as_t = lambda a, dt=torch.float32: torch.as_tensor(np.asarray(a), dtype=dt, device=device)
+    if per_row:
+        consts = dict(hull_pts=as_t(pts[order]), hull_mask=as_t(mask[order], torch.bool),
+                      hull_eqs=as_t(eqs[order]), inv_inertia=as_t(inertia[order]),
+                      table_pose=as_t(table))
+    else:
+        consts = dict(hull_pts=as_t(pts), hull_mask=as_t(mask, torch.bool), hull_eqs=as_t(eqs),
+                      inv_inertia=as_t(inertia), table_pose=as_t(table[0]))
+    consts["table_half_extents"] = as_t([0.4, 0.4, 0.2])
+    poses_t = as_t(poses)
+    dyn, placed = mcts._placement_order(as_t(active, torch.bool), sequential)
+    return (consts, se3.matrix_to_quat(poses_t[..., :3, :3]), poses_t[..., :3, 3].contiguous(),
+            dyn, placed)
+
+
+def _axis_angle(axis, ang: float) -> np.ndarray:
+    kx = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
+    return np.eye(3) + math.sin(ang) * kx + (1 - math.cos(ang)) * kx @ kx

@@ -22,18 +22,28 @@ each carry their own dynamic body, placement mask and static poses (the MCTS
 leaf batch). The substep chain runs eagerly, so its launches are counted
 per substep, not per row.
 
+settle_in_order settles the MCTS leaf batch: each row's placement positions in
+order, one dynamic body a position (settle_single_dynamic's semantics). On the
+card it is one launch of csrc/settle_leaves.cu (settle_leaves below) for every
+row, position and substep; on the CPU it is settle_in_order_plain, the loop of
+settle_single_dynamic over the positions.
+
 State layout (per row): K bodies x (quat wxyz [4], pos [3], linvel [3],
 angvel [3]). Static bodies have inv_mass 0.
 """
 
 from __future__ import annotations
 
+import ctypes
+import math
 from typing import NamedTuple, Optional
 
 import torch
 
+from physimglobalpose_tpu_torch import _build
 from physimglobalpose_tpu_torch import _torchcfg  # noqa: F401  (precision setup)
 from physimglobalpose_tpu_torch.geometry import se3
+from physimglobalpose_tpu_torch.utils import tracing
 
 
 class PhysicsScene(NamedTuple):
@@ -415,6 +425,170 @@ def settle_single_dynamic(
     quat = torch.where(sel, q_d[:, None], quat0)
     pos = torch.where(sel, p_d[:, None], pos0)
     return quat.reshape(batch + (k, 4)), pos.reshape(batch + (k, 3))
+
+
+# ------------------------------------------------------- the in-order settle
+
+# The constants settle_in_order reads from its `consts` dict: shared by every
+# row ([K, P, 3], [K, P], [K, F, 4], [K, 3], [4, 4]) or one a row (a leading
+# [B]); table_half_extents [3] is shared.
+SETTLE_CONSTS = ("hull_pts", "hull_mask", "hull_eqs", "inv_inertia", "table_pose",
+                 "table_half_extents")
+# The largest shapes the kernel takes (csrc/settle_leaves.cu).
+MAX_SETTLE_BODIES = 16
+MAX_SETTLE_HULL_POINTS = 256
+MAX_SETTLE_FACES = 256
+
+
+def _settle_on_kernel(device: torch.device) -> bool:
+    """settle_in_order's route: the kernel for every tensor not on the CPU
+    (which raises off the card)."""
+    return device.type != "cpu"
+
+
+def settle_in_order_plain(
+    consts: dict,
+    quat: torch.Tensor,  # [B, K, 4] world
+    pos: torch.Tensor,  # [B, K, 3] world
+    dyn: torch.Tensor,  # [B, D] int; -1 = no dynamic body at that position
+    placed: torch.Tensor,  # [B, D, K] bool
+    object_mass: float = 10.0,
+    steps: int = 60,
+    substeps: int = 2,
+    dt: float = 1.0 / 60.0,
+    gravity: float = -2.0,
+    damping: float = 0.99,
+    friction: float = 1.0,
+    restitution: float = 0.0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of settle_in_order: settle_single_dynamic once a
+    placement position. At position d body dyn[:, d] is dynamic (mass
+    object_mass), the other bodies placed at d (placed[:, d]) are static at
+    the poses the earlier positions left, and unplaced bodies are absent
+    (the reference's correctPhysics adds only placed objects to the world,
+    UCTState.cpp:208-270)."""
+    k = quat.shape[-2]
+    bodies = torch.arange(k, device=quat.device)
+    for d in range(dyn.shape[1]):
+        dyn_d, placed_d = dyn[:, d], placed[:, d]
+        inv_mass = torch.where(bodies[None, :] == dyn_d[:, None], 1.0 / object_mass, 0.0)
+        scene = PhysicsScene(
+            hull_pts=consts["hull_pts"],
+            hull_mask=consts["hull_mask"] & placed_d[..., None],
+            hull_eqs=consts["hull_eqs"],
+            inv_mass=inv_mass,
+            inv_inertia=consts["inv_inertia"],
+            table_pose=consts["table_pose"],
+            table_half_extents=consts["table_half_extents"],
+            body_active=placed_d,
+        )
+        quat, pos = settle_single_dynamic(
+            scene, quat, pos, dyn_d, steps=steps, substeps=substeps, dt=dt, gravity=gravity,
+            damping=damping, friction=friction, restitution=restitution,
+        )
+    return quat, pos
+
+
+def _settle_leaves_launcher():
+    fn = _build.load("settle_leaves").settle_leaves_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_longlong] * 5 + [ctypes.c_void_p] * 2
+                       + [ctypes.c_int] * 6 + [ctypes.c_float] * 6 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def settle_leaves(consts: dict, quat, pos, dyn, placed, object_mass: float = 10.0,
+                  steps: int = 60, substeps: int = 2, dt: float = 1.0 / 60.0,
+                  gravity: float = -2.0, damping: float = 0.99, friction: float = 1.0,
+                  restitution: float = 0.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch csrc/settle_leaves.cu on the current stream: settle_in_order
+    for every row, position and substep in one launch; returns (quat [B, K,
+    4], pos [B, K, 3]).
+
+    quat [B, K, 4], pos [B, K, 3] float32; dyn [B, D] int64; placed [B, D, K]
+    bool; consts' SETTLE_CONSTS float32 (hull_mask bool), each shared or one
+    a row; K <= MAX_SETTLE_BODIES, 1 <= P <= MAX_SETTLE_HULL_POINTS, 1 <= F
+    <= MAX_SETTLE_FACES; all contiguous on one card."""
+    b, k = quat.shape[:2]
+    hull_pts, hull_mask, hull_eqs, inv_inertia, table_pose, table_half = (
+        consts[key] for key in SETTLE_CONSTS)
+    p, f = hull_pts.shape[-2], hull_eqs.shape[-2]
+    d = dyn.shape[1] if dyn.dim() == 2 else -1
+    if quat.shape != (b, k, 4) or pos.shape != (b, k, 3):
+        raise ValueError("settle_leaves: quat must be [B, K, 4] and pos [B, K, 3]")
+    if dyn.shape != (b, d) or placed.shape != (b, d, k):
+        raise ValueError("settle_leaves: dyn must be [B, D] and placed [B, D, K]")
+    rows = {"hull_pts": (k, p, 3), "hull_mask": (k, p), "hull_eqs": (k, f, 4),
+            "inv_inertia": (k, 3), "table_pose": (4, 4)}
+    strides = []
+    for key, shape in rows.items():
+        x = consts[key]
+        if x.shape == shape:
+            strides.append(0)
+        elif x.shape == (b,) + shape:
+            strides.append(math.prod(shape))
+        else:
+            raise ValueError(f"settle_leaves: {key} must be {list(shape)} or [B, *{list(shape)}]")
+    if table_half.shape != (3,):
+        raise ValueError("settle_leaves: table_half_extents must be [3]")
+    floats = [quat, pos, hull_pts, hull_eqs, inv_inertia, table_pose, table_half]
+    if any(x.dtype != torch.float32 for x in floats):
+        raise ValueError("settle_leaves takes float32 poses and constants")
+    if dyn.dtype != torch.int64 or placed.dtype != torch.bool or hull_mask.dtype != torch.bool:
+        raise ValueError("settle_leaves takes an int64 dyn and bool placed and hull_mask")
+    if not (1 <= k <= MAX_SETTLE_BODIES and 1 <= p <= MAX_SETTLE_HULL_POINTS
+            and 1 <= f <= MAX_SETTLE_FACES):
+        raise ValueError(f"settle_leaves takes 1 to {MAX_SETTLE_BODIES} bodies, 1 to "
+                         f"{MAX_SETTLE_HULL_POINTS} hull points and 1 to {MAX_SETTLE_FACES} faces")
+    if steps < 0 or substeps < 1:
+        raise ValueError("settle_leaves: steps must be >= 0 and substeps >= 1")
+    tensors = floats + [dyn, placed, hull_mask]
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError("settle_leaves takes contiguous tensors")
+    dev = quat.device
+    if any(x.device != dev or x.device.type != "cuda" for x in tensors):
+        raise ValueError("settle_leaves takes CUDA tensors on one device")
+    quat_out, pos_out = torch.empty_like(quat), torch.empty_like(pos)
+    h = dt / substeps
+    with torch.cuda.device(dev):  # launch in the tensors' own context
+        rc = _settle_leaves_launcher()(
+            quat.data_ptr(), pos.data_ptr(), dyn.data_ptr(), placed.data_ptr(),
+            hull_pts.data_ptr(), hull_mask.data_ptr(), hull_eqs.data_ptr(),
+            inv_inertia.data_ptr(), table_pose.data_ptr(), table_half.data_ptr(), *strides,
+            quat_out.data_ptr(), pos_out.data_ptr(), b, d, k, p, f, steps * substeps,
+            h, gravity * h, damping, min(max(0.8 * friction, 0.0), 1.0), -(1.0 + restitution),
+            1.0 / object_mass, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"settle_leaves launch failed with CUDA error {rc}")
+    return quat_out, pos_out
+
+
+def settle_in_order(consts: dict, quat, pos, dyn, placed, **kw) -> tuple[torch.Tensor, torch.Tensor]:
+    """The MCTS leaf settle: row b's bodies settle position by position, body
+    dyn[b, d] dynamic at position d against the bodies placed there
+    (placed[b, d]) and the table; -1 leaves a position out. D = K for the
+    sequential settle (the reference's defaultPolicy, UCTSearch.cpp:140-194),
+    D = 1 for one settle of the whole assignment. Returns (quat [B, K, 4],
+    pos [B, K, 3]); keywords as settle_in_order_plain's.
+
+    CPU tensors take settle_in_order_plain. Tensors on the card take one
+    launch of settle_leaves, which adds settle_launches and settle_rows to
+    the current span (utils/tracing) and counts in settle_in_order.launches;
+    what the kernel does not take raises.
+    """
+    if not _settle_on_kernel(quat.device):
+        return settle_in_order_plain(consts, quat, pos, dyn, placed, **kw)
+    c = {key: consts[key].contiguous() for key in SETTLE_CONSTS}
+    out = settle_leaves(c, quat.contiguous(), pos.contiguous(), dyn.contiguous(),
+                        placed.contiguous(), **kw)
+    settle_in_order.launches += 1
+    tracing.count(settle_launches=1, settle_rows=quat.shape[0])
+    return out
+
+
+settle_in_order.launches = 0
 
 
 def settle_batch(scene: PhysicsScene, init_quat: torch.Tensor, init_pos: torch.Tensor, **kw):

@@ -98,59 +98,44 @@ def _leaf_eval(consts, cfg, h, w, radius, choices, active):
     return _settle_render_cost(consts, cfg, h, w, radius, poses_w, active)
 
 
+def _placement_order(active, sequential: bool):
+    """The settle's placement positions of B assignments (active [B, K]):
+    (dyn [B, D] the dynamic body at each position or -1, placed [B, D, K]
+    the bodies in the world there). Objects are placed in index order.
+
+    Sequential (D = K), the reference's defaultPolicy settles each newly
+    placed object on top of the previously settled ones
+    (UCTSearch.cpp:140-194): the object at position d dynamic, 0..d-1 static
+    at their settled poses, later objects absent. Otherwise (D = 1) one
+    settle of the complete assignment, only the last-placed object dynamic
+    (equivalent for non-stacked scenes)."""
+    order_pos = torch.cumsum(active.to(torch.int64), dim=1) - 1
+    if sequential:
+        d = torch.arange(active.shape[-1], device=active.device)[:, None]  # [D, 1]
+        is_dyn = active[:, None, :] & (order_pos[:, None, :] == d)
+        placed = active[:, None, :] & (order_pos[:, None, :] <= d)
+    else:
+        last_idx = torch.amax(torch.where(active, order_pos, -1), dim=1, keepdim=True)
+        is_dyn = (active & (order_pos == last_idx))[:, None, :]
+        placed = active[:, None, :]
+    dyn = torch.where(torch.any(is_dyn, dim=-1), torch.argmax(is_dyn.to(torch.uint8), dim=-1), -1)
+    return dyn, placed
+
+
 def _settle_render_cost(consts, cfg, h, w, radius, poses_w, active):
     """Settle explicit world poses [B, K, 4, 4], then render + pixel cost (the
     leaf body, split out so the TrICP final pass feeds refined poses through
-    the same settle/cost path)."""
+    the same settle/cost path). Exactly one body is dynamic a settle
+    (correctPhysics semantics); physics.settle_in_order runs every placement
+    position of every row, in one launch on the card."""
     ph = cfg.physics
-    order_pos = torch.cumsum(active.to(torch.int64), dim=1) - 1
-    quat = se3.matrix_to_quat(poses_w[..., :3, :3])
-    pos = poses_w[..., :3, 3]
-
-    def scene_for(inv_mass, placed):
-        # Unplaced objects have no hull and are no collider either (the
-        # reference's correctPhysics adds only placed objects to the world,
-        # UCTState.cpp:208-270).
-        return physics.PhysicsScene(
-            hull_pts=consts["hull_pts"],
-            hull_mask=consts["hull_mask"] & placed[..., None],
-            hull_eqs=consts["hull_eqs"],
-            inv_mass=inv_mass,
-            inv_inertia=consts["inv_inertia"],
-            table_pose=consts["table_pose"],
-            table_half_extents=consts["table_half_extents"],
-            body_active=placed,
-        )
-
-    def run_settle(scene, q, p, is_dyn):
-        # Exactly one body is dynamic per settle (correctPhysics semantics).
-        dyn_idx = torch.where(
-            torch.any(is_dyn, dim=1), torch.argmax(is_dyn.to(torch.uint8), dim=1), -1
-        )
-        return physics.settle_single_dynamic(
-            scene, q, p, dyn_idx,
-            steps=ph.steps, substeps=ph.substeps, dt=ph.dt,
-            gravity=ph.gravity, damping=ph.damping,
-            friction=ph.friction, restitution=ph.restitution,
-        )
-
-    if cfg.mcts.sequential_settle:
-        # The reference's defaultPolicy settles each newly placed object on
-        # top of the previously settled ones (UCTSearch.cpp:140-194): the
-        # object at placement position d dynamic, 0..d-1 static at their
-        # settled poses, later objects absent.
-        for d in range(active.shape[-1]):
-            is_dyn = active & (order_pos == d)
-            placed = active & (order_pos <= d)
-            inv_mass = torch.where(is_dyn, 1.0 / ph.object_mass, 0.0)
-            quat, pos = run_settle(scene_for(inv_mass, placed), quat, pos, is_dyn)
-    else:
-        # One settle of the complete assignment, only the last-placed object
-        # dynamic (equivalent for non-stacked scenes).
-        last_idx = torch.amax(torch.where(active, order_pos, -1), dim=1, keepdim=True)
-        is_dyn = active & (order_pos == last_idx)
-        inv_mass = torch.where(is_dyn, 1.0 / ph.object_mass, 0.0)
-        quat, pos = run_settle(scene_for(inv_mass, active), quat, pos, is_dyn)
+    dyn, placed = _placement_order(active, cfg.mcts.sequential_settle)
+    quat, pos = physics.settle_in_order(
+        consts, se3.matrix_to_quat(poses_w[..., :3, :3]), poses_w[..., :3, 3], dyn, placed,
+        object_mass=ph.object_mass, steps=ph.steps, substeps=ph.substeps, dt=ph.dt,
+        gravity=ph.gravity, damping=ph.damping, friction=ph.friction,
+        restitution=ph.restitution,
+    )
     settled_w = se3.pose_from_rot_trans(se3.quat_to_matrix(quat), pos)
     return _render_cost_of_poses(consts, cfg, h, w, radius, settled_w, active), settled_w
 
