@@ -1,4 +1,4 @@
-"""Physics-aware MCTS over object placement orders (one scene).
+"""Physics-aware MCTS over object placement orders.
 
 Reference (UCTSearch/UCTState): tree node = partial scene (first k objects
 placed, one hypothesis each). Expansion picks the best-unexpanded child by
@@ -27,7 +27,9 @@ uct_search_multi, mcts_select_multi) puts the pending leaves of every
 scene's tree into one shared batch: each row carries its scene's index and
 gathers that scene's constants (stacked and padded to the largest scene), so
 one batch's launches serve every scene. With a mesh (parallel/mesh.py) the
-batch's rows are split over its devices.
+batch's rows are split over its devices. One scene and many share the round
+loop (_search_rounds) and the final pass (_final_pass); a scene's
+BatchedLeafEvaluator is the unit both are built from.
 """
 
 from __future__ import annotations
@@ -87,14 +89,46 @@ def _to_device(a, device: torch.device, dtype=None) -> torch.Tensor:
     return t
 
 
-def _leaf_eval(consts, cfg, h, w, radius, choices, active):
+def _pad_stack(parts, fill=0, dtype=None):
+    """Arrays (or tensors) of one rank stacked on a new leading axis, each
+    padded with `fill` (broadcast over the trailing axes) to the largest
+    extent of every axis."""
+    shape = (len(parts), *(max(n) for n in zip(*(p.shape for p in parts))))
+    if isinstance(parts[0], torch.Tensor):
+        out = torch.empty(shape, dtype=parts[0].dtype, device=parts[0].device)
+        out[...] = torch.as_tensor(fill, dtype=out.dtype, device=out.device)
+    else:
+        out = np.empty(shape, dtype or parts[0].dtype)
+        out[...] = fill
+    for i, part in enumerate(parts):
+        out[(i, *map(slice, part.shape))] = part
+    return out
+
+
+def _rigid_inverse(pose) -> np.ndarray:
+    """The inverse of a rigid transform [4, 4], in float64 on the host."""
+    p = np.asarray(pose, np.float64)
+    inv = np.eye(4)
+    inv[:3, :3] = p[:3, :3].T
+    inv[:3, 3] = -p[:3, :3].T @ p[:3, 3]
+    return inv
+
+
+def _hyp_poses(consts, choices, rows=()):
+    """World poses [..., K, 4, 4] of hypothesis choices [..., K] (-1, not
+    placed, clamped to hypothesis 0). rows: the leading index of constants
+    that carry a row axis (the multi-scene batch's); one scene's have none."""
+    safe_choice = torch.clamp(choices, 0, consts["hyp_world"].shape[-3] - 1)
+    return consts["hyp_world"][(*rows, consts["obj_idx"], safe_choice)]
+
+
+def _leaf_eval(consts, cfg, h, w, radius, choices, active, rows=()):
     """Evaluate B placement assignments: settle -> render -> pixel cost.
 
     choices [B, K] hypothesis index per object (-1 = not placed), active
-    [B, K] bool. Returns (costs [B], settled world poses [B, K, 4, 4])."""
-    k, num_hyp = consts["hyp_world"].shape[:2]
-    safe_choice = torch.clamp(choices, 0, num_hyp - 1)
-    poses_w = consts["hyp_world"][consts["obj_idx"][None, :], safe_choice]  # [B, K, 4, 4]
+    [B, K] bool; rows as _hyp_poses'. Returns (costs [B], settled world
+    poses [B, K, 4, 4])."""
+    poses_w = _hyp_poses(consts, choices, rows)
     return _settle_render_cost(consts, cfg, h, w, radius, poses_w, active)
 
 
@@ -158,6 +192,8 @@ def _render_cost_of_poses(consts, cfg, h, w, radius, poses_w, active):
     )
     return cost_mod.render_cost(consts["obs"], depth, cfg.render.explanation_threshold)
 
+
+_FAR_PLANE = (0.0, 0.0, 1.0, -1e9)  # a padded hull face: never a contact
 
 _TRICP_MODEL_POINTS = 1024  # strided model-cloud budget for the ICP products
 
@@ -282,38 +318,6 @@ def _tricp_pick(costs3) -> int:
     return int(min(_TRICP_ORDER, key=lambda i: (costs3[i], _TRICP_ORDER.index(i))))
 
 
-def _tricp_final_core(consts, cam_pose, model_nrm, seg_pts, seg_mask,
-                      cfg, h, w, radius, choices, active):
-    """Final-state evaluation with TrICP refinement, one scene.
-
-    Three candidate final states through the same settle/cost path:
-      0: raw chosen hypotheses -> settle
-      1: TrICP -> settle   (reference expandNode order, Search.cpp:43-47)
-      2: settle -> TrICP polish (cost re-rendered)
-    choices/active [K]. Returns (costs [3], settled [3, K, 4, 4]); the
-    caller installs the argmin row.
-    """
-    k, num_hyp = consts["hyp_world"].shape[:2]
-    safe_choice = torch.clamp(choices, 0, num_hyp - 1)
-    poses_w = consts["hyp_world"][consts["obj_idx"], safe_choice]
-    stride = max(1, consts["render_pts"].shape[1] // _TRICP_MODEL_POINTS)
-    mp = consts["render_pts"][:, ::stride]
-    mm = consts["render_mask"][:, ::stride]
-    mn = model_nrm[:, ::stride]
-    cam_inv = consts["cam_pose_inv"]
-
-    refined_c = _tricp_refine_cam(cam_inv @ poses_w, mp, mn, mm, seg_pts, seg_mask, active, cfg)
-    # Candidates 0 and 1 settle as two rows of one batch.
-    c01, s01 = _settle_render_cost(
-        consts, cfg, h, w, radius, torch.stack([poses_w, cam_pose @ refined_c]),
-        active[None].expand(2, k),
-    )
-    polish_c = _tricp_refine_cam(cam_inv @ s01[0], mp, mn, mm, seg_pts, seg_mask, active, cfg)
-    s2 = cam_pose @ polish_c
-    c2 = _render_cost_of_poses(consts, cfg, h, w, radius, s2, active)
-    return torch.cat([c01, c2[None]]), torch.cat([s01, s2[None]])
-
-
 def _decimate_contact_hull(h: dict, max_vertices: int) -> dict:
     """Search-time contact hull: farthest-point-sampled vertex subset with
     recomputed faces (cfg.mcts.contact_hull_vertices).
@@ -360,25 +364,17 @@ class BatchedLeafEvaluator:
             render_scale = cfg.mcts.render_scale
         self.device = dev = _torchcfg.resolve_device(device)
         self.cfg = cfg
-        k = len(obj_hulls)
-        self.k = k
+        self.k = k = len(obj_hulls)
         self.num_hyp = hypotheses_world.shape[1]
         ph = cfg.physics
         as_dev = lambda a, dtype=torch.float32: torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
 
         def pack_hulls(hull_list):
-            p_max = max(h["hull_pts"].shape[0] for h in hull_list)
-            f_max = max(h["hull_eqs"].shape[0] for h in hull_list)
-            hull_pts = np.zeros((k, p_max, 3), np.float32)
-            hull_mask = np.zeros((k, p_max), bool)
-            hull_eqs = np.tile(np.array([0, 0, 1, -1e9], np.float32), (k, f_max, 1))
+            hull_pts = _pad_stack([h["hull_pts"] for h in hull_list], dtype=np.float32)
+            hull_mask = _pad_stack([h["hull_mask"][: len(h["hull_pts"])] for h in hull_list],
+                                   False, bool)
             inv_inertia = np.zeros((k, 3), np.float32)
-            for i, h in enumerate(hull_list):
-                hp = h["hull_pts"]
-                hull_pts[i, : len(hp)] = hp
-                hull_mask[i, : len(hp)] = h["hull_mask"][: len(hp)]
-                he = h["hull_eqs"]
-                hull_eqs[i, : len(he)] = he
+            for i in range(k):
                 valid = hull_pts[i][hull_mask[i]]
                 ext = np.maximum(valid.max(0) - valid.min(0), 1e-3)
                 m = ph.object_mass / 12.0
@@ -389,7 +385,9 @@ class BatchedLeafEvaluator:
                 )
             return dict(
                 hull_pts=as_dev(hull_pts), hull_mask=as_dev(hull_mask, torch.bool),
-                hull_eqs=as_dev(hull_eqs), inv_inertia=as_dev(inv_inertia),
+                hull_eqs=as_dev(_pad_stack([h["hull_eqs"] for h in hull_list], _FAR_PLANE,
+                                           np.float32)),
+                inv_inertia=as_dev(inv_inertia),
             )
 
         # Search-time hulls may be decimated (cfg.mcts.contact_hull_vertices);
@@ -400,23 +398,14 @@ class BatchedLeafEvaluator:
         scene_const = pack_hulls(search_hulls)
         scene_const_full = pack_hulls(obj_hulls) if search_hulls is not obj_hulls else None
 
-        n_max = max(h["render_pts"].shape[0] for h in obj_hulls)
-        render_pts = np.zeros((k, n_max, 3), np.float32)
-        render_nrm = np.zeros((k, n_max, 3), np.float32)
-        render_mask = np.zeros((k, n_max), bool)
-        for i, h in enumerate(obj_hulls):
-            rp = h["render_pts"]
-            render_pts[i, : len(rp)] = rp
-            render_mask[i, : len(rp)] = h["render_mask"][: len(rp)]
-            rn = h.get("render_nrm")
-            if rn is not None:
-                render_nrm[i, : len(rn)] = rn
+        pts, nrm = zip(*((h["render_pts"], h.get("render_nrm")) for h in obj_hulls))
+        render_pts = _pad_stack(pts, dtype=np.float32)
+        render_mask = _pad_stack([h["render_mask"][: len(p)] for h, p in zip(obj_hulls, pts)],
+                                 False, bool)
+        render_nrm = _pad_stack([np.zeros_like(p) if n is None else n for p, n in zip(pts, nrm)],
+                                dtype=np.float32)
         self.render_nrm = as_dev(render_nrm)
         self.cam_pose = as_dev(cam_pose)
-        cp = np.asarray(cam_pose, np.float64)
-        cp_inv = np.eye(4)
-        cp_inv[:3, :3] = cp[:3, :3].T
-        cp_inv[:3, 3] = -cp[:3, :3].T @ cp[:3, 3]
         s = render_scale
         self.h = cfg.render.height // s
         self.w = cfg.render.width // s
@@ -435,7 +424,7 @@ class BatchedLeafEvaluator:
             obj_idx=torch.arange(k, device=dev),
             table_pose=as_dev(table_pose),
             table_half_extents=as_dev(ph.table_half_extents),
-            cam_pose_inv=as_dev(cp_inv.astype(np.float32)),
+            cam_pose_inv=as_dev(_rigid_inverse(cam_pose).astype(np.float32)),
             intr=as_dev(intr),
             obs=obs[::s, ::s][: self.h, : self.w].contiguous(),
         )
@@ -470,20 +459,35 @@ class BatchedLeafEvaluator:
         return costs.cpu().numpy(), settled.cpu().numpy()
 
     def evaluate_final_tricp(self, choices: np.ndarray, active: np.ndarray, seg_pts, seg_mask):
-        """Final settle + TrICP refinement (FULL hulls).
+        """Final settle + TrICP refinement (FULL hulls): three candidate
+        final states through the same settle/cost path,
+          0: raw chosen hypotheses -> settle
+          1: TrICP -> settle   (reference expandNode order, Search.cpp:43-47)
+          2: settle -> TrICP polish (cost re-rendered).
 
         choices/active: [K]; seg_pts [K, N, 3] / seg_mask [K, N] are the
         per-object camera-frame 3D segments. Returns numpy (costs [3],
-        settled [3, K, 4, 4]), rows raw / tricp->settle / settle->tricp;
-        the caller installs _tricp_pick's row."""
-        costs, settled = _tricp_final_core(
-            self.consts_full, self.cam_pose, self.render_nrm,
-            torch.as_tensor(seg_pts, dtype=torch.float32, device=self.device),
-            torch.as_tensor(seg_mask, dtype=torch.bool, device=self.device),
-            self.cfg, self.h, self.w, self.splat_radius,
-            _to_device(np.asarray(choices), self.device, torch.int64),
-            _to_device(np.asarray(active), self.device, torch.bool),
+        settled [3, K, 4, 4]); the caller installs _tricp_pick's row."""
+        consts, cfg, view = self.consts_full, self.cfg, (self.h, self.w, self.splat_radius)
+        seg_pts = torch.as_tensor(seg_pts, dtype=torch.float32, device=self.device)
+        seg_mask = torch.as_tensor(seg_mask, dtype=torch.bool, device=self.device)
+        choices = _to_device(np.asarray(choices), self.device, torch.int64)
+        active = _to_device(np.asarray(active), self.device, torch.bool)
+        poses_w = _hyp_poses(consts, choices)
+        stride = max(1, consts["render_pts"].shape[1] // _TRICP_MODEL_POINTS)
+        mp, mm, mn = (x[:, ::stride] for x in (consts["render_pts"], consts["render_mask"],
+                                               self.render_nrm))
+        cam_inv = consts["cam_pose_inv"]
+        refined_c = _tricp_refine_cam(cam_inv @ poses_w, mp, mn, mm, seg_pts, seg_mask, active, cfg)
+        # Candidates 0 and 1 settle as two rows of one batch.
+        c01, s01 = _settle_render_cost(
+            consts, cfg, *view, torch.stack([poses_w, self.cam_pose @ refined_c]),
+            active[None].expand(2, self.k),
         )
+        polish_c = _tricp_refine_cam(cam_inv @ s01[0], mp, mn, mm, seg_pts, seg_mask, active, cfg)
+        s2 = self.cam_pose @ polish_c
+        c2 = _render_cost_of_poses(consts, cfg, *view, s2, active)
+        costs, settled = torch.cat([c01, c2[None]]), torch.cat([s01, s2[None]])
         return costs.cpu().numpy(), settled.cpu().numpy()
 
 
@@ -529,6 +533,12 @@ def _assignment_of(tree: _Tree, node: _Node, rollout_tail: bool) -> np.ndarray:
     return choices
 
 
+def _add_virtual_loss(node: _Node) -> None:
+    while node is not None:
+        node.virtual += 1
+        node = node.parent
+
+
 def _collect_batch(tree: _Tree, alpha: float, quota: int) -> List[tuple]:
     """Collect up to `quota` pending leaf evaluations with virtual loss.
 
@@ -546,10 +556,7 @@ def _collect_batch(tree: _Tree, alpha: float, quota: int) -> List[tuple]:
             # Deterministic terminal re-visit: back up the cached cost now,
             # no device work. (_backup pairs with a virtual-loss increment
             # along the path, so add one first - net zero.)
-            cur = node
-            while cur is not None:
-                cur.virtual += 1
-                cur = cur.parent
+            _add_virtual_loss(node)
             _backup(tree, [(node, _assignment_of(tree, node, False))], [node.cached_cost])
             continue
         if node.depth < tree.k:
@@ -562,10 +569,7 @@ def _collect_batch(tree: _Tree, alpha: float, quota: int) -> List[tuple]:
             node.children[pick] = child
             node = child
             tree.expansions += 1
-        cur = node
-        while cur is not None:
-            cur.virtual += 1
-            cur = cur.parent
+        _add_virtual_loss(node)
         pend.append((node, _assignment_of(tree, node, rollout_tail=True)))
         if tree.done:
             break
@@ -602,10 +606,75 @@ def _backup(tree: _Tree, pend: List[tuple], costs) -> None:
             cur = cur.parent
 
 
-def _search_budget(k: int, c: int, cap: int) -> int:
-    # sum_{i=0}^{k} branching^i expansions (UCTSearch.cpp:290-294), capped by
-    # cfg.mcts.max_expansions (the reference's 60 s cut binds first there).
-    return min(sum(c**i for i in range(0, k + 1)), cap)
+def _scene_tree(hyp_scores, k: int, cfg: PipelineConfig, max_iterations, seed: int) -> _Tree:
+    """A scene's tree. Budget: sum_{i=0}^{k} branching^i expansions
+    (UCTSearch.cpp:290-294), capped by max_iterations or
+    cfg.mcts.max_expansions (the reference's 60 s cut binds first there)."""
+    c = min(cfg.mcts.branching, hyp_scores.shape[1])
+    budget = min(sum(c**i for i in range(0, k + 1)), max_iterations or cfg.mcts.max_expansions)
+    return _make_tree(hyp_scores, k, c, budget, seed)
+
+
+def _search_rounds(trees: List[_Tree], cfg: PipelineConfig, batch: int, k_max: int,
+                   enqueue) -> tuple[int, int]:
+    """The pipelined UCT rounds of one or more trees, until each is spent or
+    exhausted or cfg.mcts.max_search_seconds pass. A round splits `batch`
+    rows over the live trees, collects their leaves with virtual loss and
+    queues them as one batch through enqueue(rows_scene, choices [B, k_max],
+    active) -> device costs (rows_scene: each row's tree; B padded to a
+    multiple of `batch` by repeating row 0). The oldest round is read and
+    backed up once cfg.mcts.inflight_batches are queued. Spans:
+    search.collect, search.leaf_eval (the enqueue), search.backup (the wait
+    and the backup). Returns (leaf batches, leaves without the padding),
+    also counted on the caller's span as leaf_batches and leaves."""
+    mc = cfg.mcts
+    deadline = time.monotonic() + mc.max_search_seconds
+    inflight: List[tuple] = []  # (pending leaves a tree, device costs), oldest first
+    leaf_batches = leaves = 0
+
+    def backup(pend, costs_dev):
+        with tracing.span("search.backup"):
+            costs = costs_dev.cpu().numpy()
+            ofs = 0
+            for si, p in pend:
+                _backup(trees[si], p, costs[ofs: ofs + len(p)])
+                ofs += len(p)
+
+    while time.monotonic() < deadline:
+        live = [si for si, t in enumerate(trees) if not (t.done or t.root.exhausted)]
+        pend = []  # (tree index, its pending leaves)
+        if live:
+            quota = max(1, batch // len(live))
+            with tracing.span("search.collect"):
+                pend = [(si, _collect_batch(trees[si], mc.alpha, quota)) for si in live]
+        n = sum(len(p) for _, p in pend)
+        if n:
+            leaf_batches += 1
+            leaves += n
+            with tracing.span("search.leaf_eval"):
+                size = n + (-n) % batch
+                rows_scene = np.empty(size, np.int64)
+                choices = np.full((size, k_max), -1, np.int64)
+                ofs = 0
+                for si, p in pend:
+                    if p:
+                        rows_scene[ofs: ofs + len(p)] = si
+                        choices[ofs: ofs + len(p), : trees[si].k] = [ch for _, ch in p]
+                        ofs += len(p)
+                rows_scene[n:], choices[n:] = rows_scene[0], choices[0]
+                inflight.append((pend, enqueue(rows_scene, choices, choices >= 0)))
+        if len(inflight) > max(1, mc.inflight_batches) or (not n and inflight):
+            backup(*inflight.pop(0))
+        if not live and not inflight:
+            break
+        # Otherwise (a round of cached-terminal backups only) keep searching.
+
+    # A deadline exit can leave queued rounds not backed up; their work is
+    # done, and the best assignment may be in them.
+    for queued in inflight:
+        backup(*queued)
+    tracing.count(leaf_batches=leaf_batches, leaves=leaves)
+    return leaf_batches, leaves
 
 
 def uct_search(
@@ -616,67 +685,20 @@ def uct_search(
     max_iterations: Optional[int] = None,
     stats: Optional[dict] = None,
 ) -> tuple[np.ndarray, float]:
-    """Run the batched UCT search.
+    """The batched UCT search: _search_rounds on one tree, in leaf batches
+    of cfg.mcts.leaf_batch queued through evaluator.evaluate_async.
 
     Returns (best complete assignment [K] hypothesis indices, best cost).
     stats: a dict that receives search_expansions, search_budget,
     search_deadline_cut (the deadline ended the search before the budget
     was spent or the tree exhausted), search_leaf_batches (leaf batches
     evaluated) and search_leaves (their leaves, padding not counted).
-    Each round is spans search.collect, search.leaf_eval (the batch's
-    enqueue) and search.backup (the wait for a batch's costs and their
-    backup); the two counts are also added to the caller's current span
-    (utils/tracing) as leaf_batches and leaves.
+    Spans and counters: _search_rounds'.
     """
-    mc = cfg.mcts
-    k = evaluator.k
-    c = min(mc.branching, hyp_scores.shape[1])
-    budget = _search_budget(k, c, max_iterations or mc.max_expansions)
-    tree = _make_tree(hyp_scores, k, c, budget, seed)
-    deadline = time.monotonic() + mc.max_search_seconds
-
-    # Pipelined loop: collect the next batch (virtual loss decorrelates it
-    # from the batches not yet backed up) while the device runs earlier
-    # ones; fetch + back up the oldest batch only once
-    # cfg.mcts.inflight_batches are queued.
-    depth = max(1, mc.inflight_batches)
-    inflight: List[tuple] = []  # (pend, device costs), oldest first
-    leaf_batches = leaves = 0
-    while time.monotonic() < deadline:
-        finished = tree.done or tree.root.exhausted
-        pend = []
-        if not finished:
-            with tracing.span("search.collect"):
-                pend = _collect_batch(tree, mc.alpha, mc.leaf_batch)
-        if pend:
-            # Pad to the fixed leaf_batch (repeating row 0, results
-            # discarded): cached-terminal backups make pend length variable.
-            with tracing.span("search.leaf_eval"):
-                rows = [p[1] for p in pend]
-                rows += [rows[0]] * (mc.leaf_batch - len(rows))
-                batch_choices = np.stack(rows)
-                costs_dev, _settled = evaluator.evaluate_async(batch_choices, batch_choices >= 0)
-            inflight.append((pend, costs_dev))
-            leaf_batches += 1
-            leaves += len(pend)
-        if len(inflight) > depth or (not pend and inflight):
-            prev_pend, prev_costs = inflight.pop(0)
-            with tracing.span("search.backup"):
-                _backup(tree, prev_pend, prev_costs.cpu().numpy())
-        if not pend and not inflight:
-            if finished:
-                break
-            # A round of cached-terminal backups only: budget remains and the
-            # tree is not exhausted, so keep searching.
-            continue
-
-    # A deadline exit can leave queued batches not backed up; their work is
-    # done, and the best assignment may be in them.
-    for prev_pend, prev_costs in inflight:
-        with tracing.span("search.backup"):
-            _backup(tree, prev_pend, prev_costs.cpu().numpy())
-
-    tracing.count(leaf_batches=leaf_batches, leaves=leaves)
+    tree = _scene_tree(hyp_scores, evaluator.k, cfg, max_iterations, seed)
+    leaf_batches, leaves = _search_rounds(
+        [tree], cfg, cfg.mcts.leaf_batch, evaluator.k,
+        lambda _rows_scene, choices, active: evaluator.evaluate_async(choices, active)[0])
     if stats is not None:
         stats.update(search_expansions=tree.expansions, search_budget=tree.budget,
                      search_deadline_cut=not (tree.done or tree.root.exhausted),
@@ -700,9 +722,8 @@ def _scene_search_inputs(estimates, sc, db, cfg):
             hyps_cam = np.asarray(est.hypotheses[:n_h], np.float32)
             hyp_world[i, :n_h] = np.einsum("ij,njk->nik", cam, hyps_cam)
             hyp_scores[i, :n_h] = est.hypothesis_scores[:n_h]
-        for j in range(n_h, c):
-            hyp_world[i, j] = hyp_world[i, 0]
-            hyp_scores[i, j] = -1.0
+        hyp_world[i, n_h:] = hyp_world[i, 0]
+        hyp_scores[i, n_h:] = -1.0
         obj_hulls.append(dict(
             hull_pts=obj.hull_pts, hull_mask=obj.hull_mask, hull_eqs=obj.hull_eqs,
             render_pts=obj.validation_pts, render_nrm=obj.validation_nrm,
@@ -713,29 +734,21 @@ def _scene_search_inputs(estimates, sc, db, cfg):
 
 def _segs_to_arrays(segs, k: int):
     """Segments as ([k, N, 3], [k, N]) tensors: a list of per-object
-    Segment3D or one stacked Segment3D with a leading object axis; the
-    object axis is padded (empty masks) or cut to k."""
+    Segment3D or one stacked Segment3D with a leading object axis, cut to
+    k objects."""
     if hasattr(segs, "pts"):  # stacked Segment3D
         pts, mask = torch.as_tensor(segs.pts), torch.as_tensor(segs.mask)
     else:
         pts = torch.stack([torch.as_tensor(s.pts) for s in segs])
         mask = torch.stack([torch.as_tensor(s.mask) for s in segs])
-    pts, mask = pts.to(torch.float32), mask.to(torch.bool)
-    n_obj, n = pts.shape[:2]
-    if n_obj < k:
-        pts = torch.cat([pts, pts.new_zeros((k - n_obj, n, 3))])
-        mask = torch.cat([mask, mask.new_zeros((k - n_obj, n))])
-    return pts[:k], mask[:k]
+    return pts[:k].to(torch.float32), mask[:k].to(torch.bool)
 
 
 def _install_assignment(estimates, assign, settled_row, cam):
     """Write the settled world poses of the chosen assignment back into the
     per-object estimates (pose_cam recomputed through the camera), on the
     host."""
-    cam = np.asarray(cam, np.float64)
-    cam_inv = np.eye(4)
-    cam_inv[:3, :3] = cam[:3, :3].T
-    cam_inv[:3, 3] = -cam[:3, :3].T @ cam[:3, 3]
+    cam_inv = _rigid_inverse(cam)
     out = []
     for i, est in enumerate(estimates):
         pose_w = settled_row[i]
@@ -750,6 +763,39 @@ def _install_assignment(estimates, assign, settled_row, cam):
     return out
 
 
+def _scene_evaluator(estimates, sc, db, table_pose, depth_clean, cfg, device):
+    """A scene's BatchedLeafEvaluator at the search's render scale, its
+    hypothesis scores [K, C], and remake(scale): the same evaluator at
+    another render scale."""
+    hyp_world, hyp_scores, obj_hulls = _scene_search_inputs(estimates, sc, db, cfg)
+    remake = lambda scale=None: BatchedLeafEvaluator(  # noqa: E731
+        obj_hulls, hyp_world, depth_clean, sc.intrinsics, sc.cam_pose, table_pose, cfg,
+        render_scale=scale, device=device,
+    )
+    return remake(), hyp_scores, remake
+
+
+def _final_pass(evaluator: BatchedLeafEvaluator, remake, assign, segs, seed: int) -> np.ndarray:
+    """One scene's final state: the chosen assignment [K] settled with the
+    FULL hulls, as world poses [K, 4, 4]. With segments and
+    cfg.mcts.tricp_final, the TrICP refinement's min-cost row of {raw,
+    tricp->settle, settle->tricp} (_tricp_pick), then the optional
+    _final_polish on remake(cfg.mcts.final_polish_scale), the scene's
+    evaluator at that scale, where it differs from the search's."""
+    cfg, k, mc = evaluator.cfg, evaluator.k, evaluator.cfg.mcts
+    if not (mc.tricp_final and segs is not None):
+        _, settled = evaluator.evaluate_final(assign[None, :], np.ones((1, k), bool))
+        return settled[0]
+    seg_pts, seg_mask = _segs_to_arrays(segs, k)
+    costs3, settled3 = evaluator.evaluate_final_tricp(assign, np.ones(k, bool), seg_pts, seg_mask)
+    settled_row = settled3[_tricp_pick(costs3)]
+    if mc.final_polish_rounds > 0:
+        scale = mc.final_polish_scale
+        pev = evaluator if scale == mc.render_scale else remake(scale)
+        settled_row, _c = _final_polish(pev, settled_row, np.ones(k, bool), cfg, seed=seed)
+    return settled_row
+
+
 def mcts_select(estimates, sc, db, table_pose, depth_clean, cfg, seed=0,
                 snapshot_path=None, search="uct", segs=None, device=None, stats=None):
     """MCTSSelection::selectBestPoses analogue: refine the per-object pose
@@ -757,23 +803,18 @@ def mcts_select(estimates, sc, db, table_pose, depth_clean, cfg, seed=0,
 
     segs: optional per-object 3D segments aligned with `estimates`. When
     given and cfg.mcts.tricp_final is on, the final pass adds the
-    UCTState::performTrICP refinement (see _tricp_final_core). Runs on the
-    card unless device="cpu". stats: a dict that receives uct_search's
-    counts (the greedy search leaves it as it is). snapshot_path: a JSON
-    file that receives the search's outcome (utils/checkpoint.py).
+    UCTState::performTrICP refinement (_final_pass). Runs on the card unless
+    device="cpu". stats: a dict that receives uct_search's counts (the
+    greedy search leaves it as it is). snapshot_path: a JSON file that
+    receives the search's outcome (utils/checkpoint.py).
 
     Spans (utils/tracing): the search's rounds (uct_search's spans), then
     search.final: the final pass through the installed poses.
     """
-    k = len(estimates)
-    if k == 0:
+    if not estimates:
         return estimates
-    hyp_world, hyp_scores, obj_hulls = _scene_search_inputs(estimates, sc, db, cfg)
-    make_evaluator = lambda scale=None: BatchedLeafEvaluator(
-        obj_hulls, hyp_world, depth_clean, sc.intrinsics, sc.cam_pose, table_pose, cfg,
-        render_scale=scale, device=device,
-    )
-    evaluator = make_evaluator()
+    evaluator, hyp_scores, remake = _scene_evaluator(estimates, sc, db, table_pose, depth_clean,
+                                                     cfg, device)
     if search == "greedy":
         from physimglobalpose_tpu_torch.pipeline.greedy_search import greedy_bfs_search
 
@@ -785,23 +826,8 @@ def mcts_select(estimates, sc, db, table_pose, depth_clean, cfg, seed=0,
 
         save_search_snapshot(snapshot_path, sc.scene_dir, assign, best_cost, seed)
 
-    # Final pass: settle the chosen assignment with the FULL hulls. With
-    # segments, the same pass runs the TrICP refinement and installs the
-    # min-cost of {raw, tricp->settle, settle->tricp}.
     with tracing.span("search.final"):
-        if cfg.mcts.tricp_final and segs is not None:
-            seg_pts, seg_mask = _segs_to_arrays(segs, k)
-            costs3, settled3 = evaluator.evaluate_final_tricp(assign, np.ones(k, bool), seg_pts,
-                                                              seg_mask)
-            settled_row = settled3[_tricp_pick(costs3)]
-            if cfg.mcts.final_polish_rounds > 0:
-                pev = evaluator
-                if cfg.mcts.final_polish_scale != cfg.mcts.render_scale:
-                    pev = make_evaluator(cfg.mcts.final_polish_scale)
-                settled_row, _c = _final_polish(pev, settled_row, np.ones(k, bool), cfg, seed=seed)
-        else:
-            _, settled = evaluator.evaluate_final(assign[None, :], np.ones((1, k), bool))
-            settled_row = settled[0]
+        settled_row = _final_pass(evaluator, remake, assign, segs, seed)
         return _install_assignment(estimates, assign, settled_row, sc.cam_pose)
 
 
@@ -816,21 +842,11 @@ _SCENE_KEYS = ("hull_pts", "hull_mask", "hull_eqs", "inv_inertia", "render_pts",
 
 def _leaf_eval_multi(consts, cfg, h, w, radius, scene_idx, choices, active):
     """Evaluate B (scene, placement) rows: row b gathers scene scene_idx[b]'s
-    constants, then settle -> render -> pixel cost as _leaf_eval. Returns
-    (costs [B], settled world poses [B, K_max, 4, 4])."""
+    constants, then _leaf_eval on them. Returns (costs [B], settled world
+    poses [B, K_max, 4, 4])."""
     rows = {key: (v[scene_idx] if key in _SCENE_KEYS else v) for key, v in consts.items()}
-    num_hyp = rows["hyp_world"].shape[2]
-    safe_choice = torch.clamp(choices, 0, num_hyp - 1)
-    b = choices.shape[0]
-    poses_w = rows["hyp_world"][
-        torch.arange(b, device=choices.device)[:, None], rows["obj_idx"][None, :], safe_choice
-    ]
-    return _settle_render_cost(rows, cfg, h, w, radius, poses_w, active)
-
-
-def _scene_consts(consts, s: int) -> dict:
-    """Scene s's constants out of the stacked multi-scene ones."""
-    return {key: (v[s] if key in _SCENE_KEYS else v) for key, v in consts.items()}
+    return _leaf_eval(rows, cfg, h, w, radius, choices, active,
+                      rows=(torch.arange(choices.shape[0], device=choices.device)[:, None],))
 
 
 class MultiSceneLeafEvaluator:
@@ -852,94 +868,56 @@ class MultiSceneLeafEvaluator:
         self.device = dev = evaluators[0].device
         self.cfg = evaluators[0].cfg
         self.h, self.w = evaluators[0].h, evaluators[0].w
-        for ev in evaluators:
-            assert (ev.h, ev.w) == (self.h, self.w), "mixed render resolutions"
+        assert all((ev.h, ev.w) == (self.h, self.w) for ev in evaluators), "mixed resolutions"
         self.ks = [ev.k for ev in evaluators]
         self.k_max = k_max = max(self.ks)
-        self.num_scenes = len(evaluators)
         self.splat_radius = evaluators[0].splat_radius
         assert all(ev.splat_radius == self.splat_radius for ev in evaluators)
-        n_max = max(ev.consts["render_pts"].shape[1] for ev in evaluators)
-        c_max = max(ev.consts["hyp_world"].shape[1] for ev in evaluators)
-
-        def pad_to(x, shape, fill=0):
-            out = torch.full(shape, fill, dtype=x.dtype, device=dev)
-            out[tuple(slice(0, n) for n in x.shape)] = x
-            return out
+        c_max = max(ev.num_hyp for ev in evaluators)
+        # Padded objects take the far plane, an inverse inertia of 1 and the
+        # identity (never active); padded hypothesis slots repeat hypothesis 0.
+        fills = {"hull_eqs": _FAR_PLANE, "inv_inertia": 1.0, "hyp_world": torch.eye(4)}
 
         def stack_consts(scene_consts):
-            p_max = max(c["hull_pts"].shape[1] for c in scene_consts)
-            f_max = max(c["hull_eqs"].shape[1] for c in scene_consts)
-            far = torch.tensor([0.0, 0.0, 1.0, -1e9], device=dev)
-            out = {key: [] for key in _SCENE_KEYS}
-            for c in scene_consts:
-                k, f = c["hull_pts"].shape[0], c["hull_eqs"].shape[1]
-                out["hull_pts"].append(pad_to(c["hull_pts"], (k_max, p_max, 3)))
-                out["hull_mask"].append(pad_to(c["hull_mask"], (k_max, p_max)))
-                # Padded faces and objects take the far plane: never a contact.
-                eqs = far.expand(k_max, f_max, 4).clone()
-                eqs[:k, :f] = c["hull_eqs"]
-                out["hull_eqs"].append(eqs)
-                out["inv_inertia"].append(pad_to(c["inv_inertia"], (k_max, 3), fill=1.0))
-                out["render_pts"].append(pad_to(c["render_pts"], (k_max, n_max, 3)))
-                out["render_mask"].append(pad_to(c["render_mask"], (k_max, n_max)))
-                # Padded hypothesis slots repeat hypothesis 0; padded objects
-                # take the identity (never active).
-                hw = torch.eye(4, device=dev).expand(k_max, c_max, 4, 4).clone()
-                c_s = c["hyp_world"].shape[1]
-                hw[:k, :c_s] = c["hyp_world"]
-                hw[:k, c_s:] = c["hyp_world"][:, :1]
-                out["hyp_world"].append(hw)
-                for key in ("table_pose", "cam_pose_inv", "intr", "obs"):
-                    out[key].append(c[key])
-            stacked = {key: torch.stack(v) for key, v in out.items()}
+            parts = {key: [c[key] for c in scene_consts] for key in _SCENE_KEYS}
+            parts["hyp_world"] = [torch.cat([hw, hw[:, [0] * (c_max - hw.shape[1])]], 1)
+                                  for hw in parts["hyp_world"]]
+            stacked = {key: _pad_stack(v, fills.get(key, 0)) for key, v in parts.items()}
             stacked["obj_idx"] = torch.arange(k_max, device=dev)
             stacked["table_half_extents"] = scene_consts[0]["table_half_extents"]
             return stacked
 
+        self.evaluators = evaluators
         self.consts = stack_consts([ev.consts for ev in evaluators])
         self.consts_full = (
             stack_consts([ev.consts_full for ev in evaluators])
             if any(ev.consts_full is not ev.consts for ev in evaluators) else self.consts
         )
-        # The final pass's TrICP inputs: cameras and the model normals aligned
-        # with consts["render_pts"].
-        self.cam_pose_stacked = torch.stack([ev.cam_pose for ev in evaluators])
-        self.render_nrm_stacked = torch.stack(
-            [pad_to(ev.render_nrm, (k_max, n_max, 3)) for ev in evaluators])
-        if mesh is not None:
-            copy = lambda consts: [{key: v.to(d, non_blocking=True) for key, v in consts.items()}
-                                   for d in mesh.device_list]
-            self._consts_on = copy(self.consts)
-            self._consts_full_on = (self._consts_on if self.consts_full is self.consts
-                                    else copy(self.consts_full))
+        # Each device's copy of the constants (the first device's are these).
+        self._devices = mesh.device_list if mesh is not None else [dev]
+        self._consts_on = {which: [{key: v.to(d, non_blocking=True) for key, v in consts.items()}
+                                   for d in self._devices]
+                           for which, consts in (("consts", self.consts),
+                                                 ("consts_full", self.consts_full))}
 
     def _run(self, which: str, scene_idx, choices, active):
         """Queue the leaf batch on the constants `which` ("consts" or
-        "consts_full"), split over the mesh when there is one."""
-        if self.mesh is None:
-            return _leaf_eval_multi(
-                getattr(self, which), self.cfg, self.h, self.w, self.splat_radius,
-                _to_device(scene_idx, self.device, torch.int64),
-                _to_device(choices, self.device, torch.int64),
-                _to_device(active, self.device, torch.bool),
-            )
+        "consts_full"), its rows split over the mesh's devices."""
         n = len(scene_idx)
         pad = (-n) % self.n_shards
         if pad:
             scene_idx, choices, active = (np.concatenate([x, np.repeat(x[:1], pad, 0)])
                                           for x in (scene_idx, choices, active))
         per = (n + pad) // self.n_shards
-        consts_on = self._consts_on if which == "consts" else self._consts_full_on
         parts = [
-            _leaf_eval_multi(
-                consts_on[i], self.cfg, self.h, self.w, self.splat_radius,
-                _to_device(scene_idx[i * per:(i + 1) * per], d, torch.int64),
-                _to_device(choices[i * per:(i + 1) * per], d, torch.int64),
-                _to_device(active[i * per:(i + 1) * per], d, torch.bool),
-            )
-            for i, d in enumerate(self.mesh.device_list)
+            _leaf_eval_multi(self._consts_on[which][i], self.cfg, self.h, self.w, self.splat_radius,
+                             *(_to_device(x[i * per:(i + 1) * per], d, dtype) for x, dtype in (
+                                 (scene_idx, torch.int64), (choices, torch.int64),
+                                 (active, torch.bool))))
+            for i, d in enumerate(self._devices)
         ]
+        if len(parts) == 1:
+            return parts[0]
         return tuple(mesh_mod.gather([p[j] for p in parts], self.device) for j in range(2))
 
     def evaluate_async(self, scene_idx: np.ndarray, choices: np.ndarray, active: np.ndarray):
@@ -960,27 +938,23 @@ class MultiSceneLeafEvaluator:
         return costs[:n_real].cpu().numpy(), settled[:n_real].cpu().numpy()
 
     def evaluate_final_tricp(self, choices: np.ndarray, active: np.ndarray, seg_pts, seg_mask):
-        """Final settles + TrICP refinement of every scene (FULL hulls).
+        """Final settles + TrICP refinement of every scene (FULL hulls),
+        each through its own evaluator's evaluate_final_tricp.
 
         choices/active: [S, k_max]; seg_pts [S, k_max, N, 3] / seg_mask
         [S, k_max, N]. Returns numpy (costs [S, 3], settled [S, 3, k_max, 4,
-        4]), _tricp_final_core's rows per scene. The JAX package vmaps the
+        4]), the padding objects at the identity. The JAX package vmaps the
         scenes in one program; here they run one after another (the TrICP
         chain is a per-object loop of ICP solves, once a sweep)."""
-        seg_pts = torch.as_tensor(seg_pts, dtype=torch.float32, device=self.device)
-        seg_mask = torch.as_tensor(seg_mask, dtype=torch.bool, device=self.device)
-        choices_t = _to_device(np.asarray(choices), self.device, torch.int64)
-        active_t = _to_device(np.asarray(active), self.device, torch.bool)
-        out = [
-            _tricp_final_core(
-                _scene_consts(self.consts_full, s), self.cam_pose_stacked[s],
-                self.render_nrm_stacked[s], seg_pts[s], seg_mask[s], self.cfg, self.h,
-                self.w, self.splat_radius, choices_t[s], active_t[s],
-            )
-            for s in range(len(choices_t))
-        ]
-        return (torch.stack([c for c, _ in out]).cpu().numpy(),
-                torch.stack([st for _, st in out]).cpu().numpy())
+        choices, active = np.asarray(choices), np.asarray(active)
+        settled = np.tile(np.eye(4, dtype=np.float32), (len(self.evaluators), 3, self.k_max, 1, 1))
+        costs = []
+        for s, ev in enumerate(self.evaluators):
+            c3, s3 = ev.evaluate_final_tricp(choices[s, :ev.k], active[s, :ev.k],
+                                             seg_pts[s][:ev.k], seg_mask[s][:ev.k])
+            costs.append(c3)
+            settled[s, :, :ev.k] = s3
+        return np.stack(costs), settled
 
 
 def uct_search_multi(
@@ -991,94 +965,29 @@ def uct_search_multi(
     max_iterations: Optional[int] = None,
     stats: Optional[dict] = None,
 ) -> List[tuple[np.ndarray, float]]:
-    """S concurrent UCT searches sharing one leaf batch a round.
+    """S concurrent UCT searches sharing one leaf batch a round:
+    _search_rounds on S trees (tree s seeded with seed + s), in batches of
+    max(leaf_batch, leaf_batch_multi) rows rounded up to the mesh size.
 
-    Each round splits max(leaf_batch, leaf_batch_multi) rows (rounded up to
-    the mesh size) across the still-running trees, collects their pending
-    leaves with virtual loss, evaluates all of them in one batch padded to
-    that fixed size (repeating the first row), and backs up per tree; up to
-    cfg.mcts.inflight_batches rounds are queued before the oldest is read.
-    Tree s is seeded with seed + s. Returns per scene (best assignment
-    [K_s], best cost). stats: a dict that receives search_expansions (per
-    scene), search_budget (per scene), shared_batches and leaves (rows
-    evaluated, padding not counted), and the same two counts as
-    search_leaf_batches and search_leaves. Spans and counters as
-    uct_search's.
+    Returns per scene (best assignment [K_s], best cost). stats: a dict
+    that receives search_expansions (per scene), search_budget (per scene),
+    shared_batches and leaves (rows evaluated, padding not counted), and the
+    same two counts as search_leaf_batches and search_leaves. Spans and
+    counters: _search_rounds'.
     """
     mc = cfg.mcts
-    trees: List[_Tree] = []
-    for si, hs in enumerate(hyp_scores_list):
-        k = msev.ks[si]
-        c = min(mc.branching, hs.shape[1])
-        budget = _search_budget(k, c, max_iterations or mc.max_expansions)
-        trees.append(_make_tree(hs, k, c, budget, seed + si))
-    deadline = time.monotonic() + mc.max_search_seconds
-    k_max = msev.k_max
+    trees = [_scene_tree(hs, msev.ks[si], cfg, max_iterations, seed + si)
+             for si, hs in enumerate(hyp_scores_list)]
     batch = max(mc.leaf_batch, mc.leaf_batch_multi)
     batch += (-batch) % msev.n_shards
-    counts = {"shared_batches": 0, "leaves": 0}
-    empty_round = object()  # a round of cached-terminal backups only
-
-    def collect_round():
-        live = [si for si, t in enumerate(trees) if not (t.done or t.root.exhausted)]
-        if not live:
-            return None
-        quota = max(1, batch // len(live))
-        rows_scene: List[int] = []
-        rows_choices: List[np.ndarray] = []
-        pend_per_scene: List[tuple] = []
-        with tracing.span("search.collect"):
-            for si in live:
-                pend = _collect_batch(trees[si], mc.alpha, quota)
-                pend_per_scene.append((si, pend))
-                for _, choices in pend:
-                    row = np.full(k_max, -1, np.int64)
-                    row[: trees[si].k] = choices
-                    rows_scene.append(si)
-                    rows_choices.append(row)
-        if not rows_choices:
-            return empty_round
-        counts["shared_batches"] += 1
-        counts["leaves"] += len(rows_choices)
-        with tracing.span("search.leaf_eval"):
-            pad = (-len(rows_choices)) % batch  # fixed batch-size multiples
-            rows_scene += [rows_scene[0]] * pad
-            rows_choices += [rows_choices[0]] * pad
-            choices_arr = np.stack(rows_choices)
-            costs_dev, _settled = msev.evaluate_async(np.asarray(rows_scene), choices_arr,
-                                                      choices_arr >= 0)
-        return pend_per_scene, costs_dev
-
-    def backup_round(round_result):
-        pend_per_scene, costs_dev = round_result
-        with tracing.span("search.backup"):
-            costs = costs_dev.cpu().numpy()
-            ofs = 0
-            for si, pend in pend_per_scene:
-                _backup(trees[si], pend, costs[ofs: ofs + len(pend)])
-                ofs += len(pend)
-
-    depth = max(1, mc.inflight_batches)
-    inflight = []  # queued rounds, oldest first
-    while time.monotonic() < deadline:
-        nxt = collect_round()
-        if nxt is not None and nxt is not empty_round:
-            inflight.append(nxt)
-        if len(inflight) > depth or (nxt in (None, empty_round) and inflight):
-            backup_round(inflight.pop(0))
-        if nxt is empty_round:
-            continue
-        if nxt is None and not inflight:
-            break
-    # A deadline exit: back up the queued rounds (their work is done).
-    for r in inflight:
-        backup_round(r)
-    tracing.count(leaf_batches=counts["shared_batches"], leaves=counts["leaves"])
+    leaf_batches, leaves = _search_rounds(
+        trees, cfg, batch, msev.k_max,
+        lambda rows_scene, choices, active: msev.evaluate_async(rows_scene, choices, active)[0])
     if stats is not None:
         stats.update(search_expansions=[t.expansions for t in trees],
-                     search_budget=[t.budget for t in trees], **counts,
-                     search_leaf_batches=counts["shared_batches"],
-                     search_leaves=counts["leaves"])
+                     search_budget=[t.budget for t in trees],
+                     shared_batches=leaf_batches, leaves=leaves,
+                     search_leaf_batches=leaf_batches, search_leaves=leaves)
     return [(t.best_assign, t.best_cost) for t in trees]
 
 
@@ -1090,60 +999,36 @@ def mcts_select_multi(scene_rows, db, cfg, seed=0, mesh=None, segs_list=None, de
     inputs mcts_select takes. Every search runs concurrently through one
     MultiSceneLeafEvaluator, and the final chosen-assignment settles of all
     scenes run as one batch. segs_list: optional per-scene segments aligned
-    with scene_rows; with cfg.mcts.tricp_final they add the TrICP final pass
-    per scene. mesh: split every leaf batch's rows over its devices (the
-    host trees are unchanged, so the results are the unsplit ones). Runs on
-    the mesh's first device, else on `device` (the card unless "cpu").
-    stats: receives uct_search_multi's counts. Returns the per-scene
-    refined estimate lists, in input order.
+    with scene_rows; with cfg.mcts.tricp_final the final pass is instead
+    mcts_select's (_final_pass) a scene, through the scene's own evaluator
+    and seeded with seed + s. mesh: split every leaf batch's rows over its
+    devices (the host trees are unchanged, so the results are the unsplit
+    ones). Runs on the mesh's first device, else on `device` (the card
+    unless "cpu"). stats: receives uct_search_multi's counts. Returns the
+    per-scene refined estimate lists, in input order.
     """
     live = [(i, row) for i, row in enumerate(scene_rows) if len(row[0]) > 0]
     out: List[list] = [row[0] for row in scene_rows]
     if not live:
         return out
     dev = mesh.device_list[0] if mesh is not None else device
+    built = [_scene_evaluator(est, sc, db, tp, dc, cfg, dev) for _i, (est, sc, tp, dc) in live]
+    msev = MultiSceneLeafEvaluator([ev for ev, _hs, _remake in built], mesh=mesh)
+    results = uct_search_multi(msev, [hs for _ev, hs, _remake in built], cfg, seed=seed,
+                               stats=stats)
 
-    def make_evaluator(row, scale=None):
-        estimates, sc, table_pose, depth_clean = row
-        hyp_world, hyp_scores, obj_hulls = _scene_search_inputs(estimates, sc, db, cfg)
-        ev = BatchedLeafEvaluator(obj_hulls, hyp_world, depth_clean, sc.intrinsics, sc.cam_pose,
-                                  table_pose, cfg, render_scale=scale, device=dev)
-        return ev, hyp_scores
-
-    built = [make_evaluator(row) for _i, row in live]
-    evaluators = [ev for ev, _hs in built]
-    msev = MultiSceneLeafEvaluator(evaluators, mesh=mesh)
-    results = uct_search_multi(msev, [hs for _ev, hs in built], cfg, seed=seed, stats=stats)
-
-    # Final pass: every scene's chosen assignment in one batch, with the FULL
-    # hulls; with segments, the TrICP refinement per scene as well.
-    s = len(live)
-    choices = np.full((s, msev.k_max), -1, np.int64)
-    active = np.zeros((s, msev.k_max), bool)
-    for si, (assign, _cost) in enumerate(results):
-        choices[si, : len(assign)] = assign
-        active[si, : len(assign)] = True
     if cfg.mcts.tricp_final and segs_list is not None:
-        seg_rows = [_segs_to_arrays(segs_list[orig_i], msev.k_max) for orig_i, _row in live]
-        costs3, settled3 = msev.evaluate_final_tricp(
-            choices, active, torch.stack([r[0].to(msev.device) for r in seg_rows]),
-            torch.stack([r[1].to(msev.device) for r in seg_rows]),
-        )
-        settled = settled3[np.arange(s), [_tricp_pick(costs3[si]) for si in range(s)]]
-        if cfg.mcts.final_polish_rounds > 0:
-            # Each scene's polish through its own evaluator at the polish
-            # scale (the k_max padding rows stay as they are).
-            for si in range(s):
-                k_s = evaluators[si].k
-                pev = evaluators[si]
-                if cfg.mcts.final_polish_scale != cfg.mcts.render_scale:
-                    pev, _hs = make_evaluator(live[si][1], cfg.mcts.final_polish_scale)
-                settled[si, :k_s], _c = _final_polish(
-                    pev, settled[si, :k_s], np.ones(k_s, bool), cfg, seed=seed + si)
+        settled = [_final_pass(ev, remake, assign, segs_list[orig_i], seed + si)
+                   for si, ((ev, _hs, remake), (orig_i, _row), (assign, _cost))
+                   in enumerate(zip(built, live, results))]
     else:
-        _, settled = msev.evaluate_final(np.arange(s), choices, active)
+        # Every scene's chosen assignment in one batch, with the FULL hulls.
+        choices = np.full((len(live), msev.k_max), -1, np.int64)
+        for si, (assign, _cost) in enumerate(results):
+            choices[si, : len(assign)] = assign
+        _, settled = msev.evaluate_final(np.arange(len(live)), choices, choices >= 0)
 
     for si, (orig_i, (estimates, sc, _tp, _dc)) in enumerate(live):
         out[orig_i] = _install_assignment(
-            estimates, results[si][0], settled[si, : len(estimates)], sc.cam_pose)
+            estimates, results[si][0], settled[si][: len(estimates)], sc.cam_pose)
     return out

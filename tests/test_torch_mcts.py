@@ -307,6 +307,66 @@ def test_mcts_select_spans_its_final_pass(decoy, search, with_segs):
     assert np.linalg.norm(got[0].pose_world[:3, 3] - s["true_pose"][:3, 3]) < 0.01
 
 
+def test_mcts_select_queues_each_leaf_batch_through_the_scene_evaluator(decoy, monkeypatch):
+    # The benchmark's leaf check (gpubench/tests/test_gpubench_search_leaves.py)
+    # hooks BatchedLeafEvaluator.__init__ and evaluate_async(choices, active):
+    # the one-scene search builds one such evaluator and queues every leaf
+    # batch it counts through it, on the scene's own constants (no leading
+    # row axis, no per-row gather of stacked scenes).
+    from physimglobalpose_tpu_torch.ops import physics
+
+    s = decoy
+    tcfg, _ = _cfgs(leaf_batch=4, branching=3, max_search_seconds=600.0, max_expansions=12)
+    obj = s["obj"]
+    db = {"box": types.SimpleNamespace(
+        hull_pts=obj["hull_pts"], hull_mask=obj["hull_mask"], hull_eqs=obj["hull_eqs"],
+        validation_pts=obj["render_pts"], validation_nrm=np.zeros_like(obj["render_pts"]))}
+    sc = types.SimpleNamespace(intrinsics=K_INTR, cam_pose=s["cam_pose"], scene_dir="/scenes/decoy")
+    hyps = decoy_hyps(s)[0]
+    est = [ObjectPoseEstimate(name="box", pose_cam=hyps[0], pose_world=hyps[0], score=0.9,
+                              hypotheses=hyps,
+                              hypothesis_scores=np.array([0.9, 0.5, 0.8], np.float32))]
+    seg_pts, seg_mask = _seg_of(obj["render_pts"], s["true_pose"])
+    built, queued, settled_on = [], [], []
+    init = mcts.BatchedLeafEvaluator.__init__
+    evaluate_async = mcts.BatchedLeafEvaluator.evaluate_async
+    settle = physics.settle_in_order
+
+    def keeping_init(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        built.append(self)
+
+    def keeping_evaluate_async(self, choices, active):
+        queued.append((self, np.array(choices), np.array(active)))
+        return evaluate_async(self, choices, active)
+
+    def keeping_settle(consts, *args, **kwargs):
+        settled_on.append(consts)
+        return settle(consts, *args, **kwargs)
+
+    monkeypatch.setattr(mcts.BatchedLeafEvaluator, "__init__", keeping_init)
+    monkeypatch.setattr(mcts.BatchedLeafEvaluator, "evaluate_async", keeping_evaluate_async)
+    monkeypatch.setattr(physics, "settle_in_order", keeping_settle)
+    stats = {}
+    with tracing.span("search") as sp:
+        mcts.mcts_select(est, sc, db, s["table_pose"], s["obs"], tcfg, seed=3, search="uct",
+                         segs=[types.SimpleNamespace(pts=seg_pts, mask=seg_mask)], device="cpu",
+                         stats=stats)
+    assert len(built) == 1
+    ev = built[0]
+    assert stats["search_leaf_batches"] == sp.counts["leaf_batches"] == len(queued) >= 1
+    for owner, choices, active in queued:
+        assert owner is ev and choices.shape == (tcfg.mcts.leaf_batch, ev.k)
+        np.testing.assert_array_equal(active, choices >= 0)
+    # One settle a leaf batch on the search's constants, then the final pass's
+    # on the full hulls' (the same dict when nothing is decimated).
+    assert len(settled_on) == len(queued) + 1
+    assert all(c is ev.consts for c in settled_on[:-1]) and settled_on[-1] is ev.consts_full
+    for consts in settled_on:
+        assert consts["hull_pts"].shape[0] == ev.k and consts["hull_pts"].dim() == 3
+        assert consts["hyp_world"].dim() == 4 and consts["obs"].dim() == 2
+
+
 def test_tree_exhaustion_terminates_enumeration():
     tree = mcts._make_tree(np.array([[0.9, 0.5, 0.8]], np.float32), k=1, c=3, budget=100, seed=0)
     pend = mcts._collect_batch(tree, alpha=5000.0, quota=3)

@@ -31,8 +31,10 @@ from physimglobalpose_tpu_torch.parallel import mesh as mesh_mod, scene_sweep
 from physimglobalpose_tpu_torch.pipeline import api, mcts
 from physimglobalpose_tpu_torch.pipeline.api import ObjectPoseEstimate
 from test_torch_e2e import BOXES, _cfg
+from physimglobalpose_tpu_torch.utils import tracing
 from test_torch_mcts import (  # noqa: F401  (decoy is a fixture)
-    K_INTR, TOL_COST, _cfgs, _rot_z, _seg_of, assert_leaves_close, decoy, evaluators, pose_at,
+    K_INTR, TOL_COST, _cfgs, _rot_z, _seg_of, assert_leaves_close, box_object, decoy, evaluators,
+    pose_at, render_obs,
 )
 
 
@@ -130,6 +132,39 @@ def test_uct_search_multi_matches_jax(decoy):
     for (a, c), (sa, sc) in zip(got, split):
         np.testing.assert_array_equal(sa, a)
         np.testing.assert_allclose(sc, c, rtol=1e-6)
+
+
+def test_uct_search_multi_on_one_scene_is_uct_search(decoy):
+    # With leaf_batch_multi <= leaf_batch the shared search's one tree takes
+    # the same batches as the one-scene search (k 2, c 4, budget 21 in
+    # batches of 6 with two in flight, some padded): the same assignment,
+    # cost and counts.
+    s = decoy
+    objs = [s["obj"], box_object(0.05, seed=3)]
+    truth_b = pose_at(0.09, -0.02, 0.885)
+    s2 = dict(s, obs=render_obs([(objs[0], s["true_pose"]), (objs[1], truth_b)]))
+    rng = np.random.default_rng(1)
+    hyps = np.tile(np.eye(4, dtype=np.float32), (2, 4, 1, 1))
+    hyps[0, :, :3, 3] = s["true_pose"][:3, 3] + np.c_[rng.uniform(-0.05, 0.05, (4, 2)), np.zeros(4)]
+    hyps[1, :, :3, 3] = truth_b[:3, 3] + np.c_[rng.uniform(-0.05, 0.05, (4, 2)), np.zeros(4)]
+    hyps[0, 2], hyps[1, 1] = s["true_pose"], truth_b
+    cfgs = _cfgs(leaf_batch=6, leaf_batch_multi=4, branching=4, max_search_seconds=600.0)
+    ev, _ = evaluators(s2, objs, hyps, cfgs)
+    hyp_scores = rng.uniform(0.3, 0.9, (2, 4)).astype(np.float32)
+    one, many = {}, {}
+    with tracing.span("search") as sp_one:
+        assign, cost = mcts.uct_search(ev, hyp_scores, cfgs[0], seed=3, stats=one)
+    with tracing.span("search") as sp_many:
+        [(m_assign, m_cost)] = mcts.uct_search_multi(mcts.MultiSceneLeafEvaluator([ev]),
+                                                     [hyp_scores], cfgs[0], seed=3, stats=many)
+    np.testing.assert_array_equal(m_assign, assign)
+    assert m_cost == cost
+    assert (many["search_leaf_batches"], many["search_leaves"]) == (
+        one["search_leaf_batches"], one["search_leaves"])
+    assert many["search_expansions"] == [one["search_expansions"]]
+    assert many["search_budget"] == [one["search_budget"]] == [21]
+    assert sp_many.counts == sp_one.counts
+    assert one["search_leaves"] < 6 * one["search_leaf_batches"]  # some batch was padded
 
 
 def test_tricp_multi_matches_single_and_jax(decoy):
