@@ -10,7 +10,8 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    against its plain PyTorch version on the card at the shapes its path gives
    it, at ragged shapes and on constructed exact ties (RAGGED_LCP), then timed
    alone, weighted and unweighted:
-   [lcp] the per-hypothesis LCP kernel, fp32 tier; [lcp-tiers] its "default"
+   [lcp] the per-hypothesis LCP kernel, fp32 tier (timed also on segments of
+   210 and 320 valid points of 1,024); [lcp-tiers] its "default"
    and "high3" tiers; [lcp-hb] the hypothesis-block LCP kernel, also against
    the per-hypothesis kernel, on constructed cases (model points at delta,
    far hypotheses, a 1 m box, ties, delta^2 on a row's nearest d2 and one
@@ -684,9 +685,28 @@ def phase_lcp(device) -> dict:
         f"plain_ms={plain_ms:.3f} cdist_yardstick_ms={cdist_ms:.3f}")
     log(f"[lcp] bound: {flops:.3e} FLOP (8/pair) -> {bound_ms:.3f} ms, share {bound_ms / kernel_ms:.3f}; "
         f"16 FLOP/pair count {16.0 * pairs:.3e} -> {flop16_ms:.3f} ms, share {flop16_ms / kernel_ms:.3f}")
+    # The same call on segments of 210 and 320 valid points of 1,024 (about
+    # the share the benchmark's frames fill) and on a full one: the kernel
+    # scans the valid points only. Bound: 8 FLOP a valid pair.
+    valid_ms = {}
+    for n_valid in (210, 320, ns):
+        vargs = lcp_inputs(11, h, nv, ns, ns - n_valid, device)
+        err = float((lcp.lcp_scores(*vargs) - lcp.lcp_scores_plain(*vargs)).abs().max())
+        if err > TOL_LCP / nv:
+            fail(f"lcp_segside disagrees with plain on {n_valid} valid segment points")
+        worst = max(worst, err)
+        vpacked = packed_lcp_args(vargs)
+        ms = valid_ms[n_valid] = cuda_time_ms(lambda: lcp.lcp_segside(*vpacked, True), reps=5,
+                                              inner=2)
+        vbound_ms = max((8.0 * h * nv * n_valid + 40.0 * h * nv) / PEAK_FP32_FLOPS,
+                        bytes_moved / PEAK_HBM_BYTES) * 1e3
+        log(f"[lcp] valid H={h} Nv={nv} Ns={ns} valid={n_valid} weighted=True: "
+            f"kernel_ms={ms:.3f} bound_ms={vbound_ms:.3f} share {vbound_ms / ms:.3f} "
+            f"max_abs_err={err:.3e}")
     return dict(max_abs_err=worst, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 unweighted_ms=kernel_u_ms, unweighted_warp_items_ms=cores_u_ms,
-                lcp_scores_ms=scores_ms, cdist_yardstick_ms=cdist_ms, flop16_bound_ms=flop16_ms)
+                lcp_scores_ms=scores_ms, cdist_yardstick_ms=cdist_ms, flop16_bound_ms=flop16_ms,
+                valid_ms=valid_ms)
 
 
 def _pair_ops_s(pairs: float, tier: str | None) -> tuple[float, float]:

@@ -19,7 +19,9 @@
 // nearest segment point j* minimises
 //   d2 = |s_j|^2 + |u_i|^2 - 2 s_j . u_i
 // (the same expansion as the TPU kernels, so both round alike). Masked or padded
-// segment points carry |s|^2 = 1e9 and never match. The point contributes
+// segment points carry |s|^2 = 1e9 and never match (lcp_segside_kernel leaves
+// them out when it stages the segment; the other kernels scan them). The point
+// contributes
 //   unweighted: 1[d2* <= delta^2]
 //   weighted:   1[d2* <= delta^2] * 1[|n_j* . R n_i| >= cos_gate] * prob_j*,
 // where exact ties in d2 take the max prob and the max |ndot| (the TPU
@@ -60,6 +62,13 @@
 //    items takes 4 in place of 8), and the grid covers H x model tiles whatever
 //    H is: 32 hypotheses of 4,096 points are 1,024 warps on 256 blocks, not 8
 //    blocks. After the segment is staged the warps of a block never meet again.
+//    A block stages only the segment's valid points, in index order from slot
+//    0 (a ballot per warp, a prefix over the block's warps), and its scans stop
+//    at their count rounded up to a chunk: a padded segment costs what its
+//    valid points cost, and every block finds the same count, so it never
+//    leaves the device (block 0 adds it to the caller's counter). The order
+//    does not move a score: the nearest d2 is an exact minimum and ties take
+//    maxima.
 //    A call with many items gives a warp four of them in turn, so the staging
 //    is shared by more work. A warp writes one partial sum per item; a second
 //    kernel adds a hypothesis's tiles in index order (a model of one tile is
@@ -71,14 +80,15 @@
 //    d2 are common). After the scan a slot within delta^2 recomputes d2 over
 //    those chunks with the same instructions, hence the same bits, and takes
 //    prob and |ndot| of every point that equals the minimum; the model normal
-//    is rotated and the normal dot taken only there. The lanes walk their
-//    chunks in rotated order so that 32 different chunks are read without bank
-//    conflicts; the order does not matter, the tie rule is a max. The per-pair
-//    branch, the rotated normal and two of the three state words of the
-//    earlier design are gone from the loop. ptxas gives the weighted variants
-//    128 registers in every tier at kS = 8 (123 / 120 / 168 before, fp32 /
-//    "default" / "high3"; it spends them on unrolling, a cap measured slower)
-//    and 64 / 64 / 101 unweighted; 80 / 80 / 119 weighted at kS = 4;
+//    is rotated and the normal dot taken only there. The pose and the normals
+//    of all such slots are loaded first, so their latencies overlap, and a
+//    chunk's 32 compares fill a bit mask with no branch: at H 10,000, Nv 4,096
+//    and 210 valid points this pass takes ~0.8 ms where it took ~2.2 (H100).
+//    The lanes walk their chunks in rotated order so that 32 different chunks
+//    are read without bank conflicts; the order does not matter, the tie rule
+//    is a max. ptxas gives the weighted variants 123 / 123 / 165 registers at
+//    kS = 8 (fp32 / "default" / "high3") and 64 / 64 / 103 at kS = 4 (28
+//    bytes spilled in the first two), the unweighted 64 / 64 / 101 at kS = 8;
 //  - lcp_segside_mma_kernel (unweighted): in the lowered tiers d2 is a product
 //    of bf16 operands, which one mma.sync computes for 16 model points x 8
 //    segment points, leaving one min per pair to the CUDA cores. The matrix
@@ -112,6 +122,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 32;        // lcp_segside_kernel: segment points a chunk of the weighted scan
 constexpr int kItemsPerWarp = 4;  // the warp-item kernels: items a warp takes in a large call
 constexpr int kSMs = 132;         // H100 SXM; only sizes the grid
+constexpr float kMasked = 1e9f;   // |s|^2 of a masked point (ops/lcp.py _BIG)
 
 constexpr int kFp32 = 0;
 constexpr int kBf16 = 1;
@@ -174,22 +185,23 @@ __device__ __forceinline__ void make_slot(Slot& s, const float* r, float mx, flo
 
 // Shared memory: [Ns] positions, then [Ns] lo parts ("high3"), then [Ns]
 // normals + prob (weighted).
+// Point j of the segment goes to slot d.
 template <int kTier, bool kWeighted>
 __device__ __forceinline__ void stage_segment_point(const float4* __restrict__ seg, float4* s_pos,
-                                                    float4* s_lo, float4* s_nrm, int j) {
+                                                    float4* s_lo, float4* s_nrm, int j, int d) {
   float4 p = seg[2 * j];
   if constexpr (kTier == kBf16) {
     p = make_float4(bf(p.x), bf(p.y), bf(p.z), bf(p.w));
   } else if constexpr (kTier == kHigh3) {
     const float4 hi = make_float4(bf(p.x), bf(p.y), bf(p.z), bf(p.w));
-    s_lo[j] = make_float4(bf(p.x - hi.x), bf(p.y - hi.y), bf(p.z - hi.z), 0.f);
+    s_lo[d] = make_float4(bf(p.x - hi.x), bf(p.y - hi.y), bf(p.z - hi.z), 0.f);
     p = make_float4(hi.x, hi.y, hi.z, __fadd_rn(hi.w, bf(p.w - hi.w)));
   }
-  s_pos[j] = p;
+  s_pos[d] = p;
   if constexpr (kWeighted) {
     float4 n = seg[2 * j + 1];
     if constexpr (kTier == kBf16) n = make_float4(bf(n.x), bf(n.y), bf(n.z), n.w);
-    s_nrm[j] = n;
+    s_nrm[d] = n;
   }
 }
 
@@ -202,12 +214,50 @@ __device__ __forceinline__ void stage_segment_chunks(const float4* __restrict__ 
                                                      int Ns, int Nsp) {
   for (int j = threadIdx.x; j < Nsp; j += blockDim.x) {
     if (j < Ns) {
-      stage_segment_point<kTier, kWeighted>(seg, s_pos, s_lo, s_nrm, j);
+      stage_segment_point<kTier, kWeighted>(seg, s_pos, s_lo, s_nrm, j, j);
     } else {
       s_pos[j] = make_float4(0.f, 0.f, 0.f, INFINITY);
       if constexpr (kTier == kHigh3) s_lo[j] = make_float4(0.f, 0.f, 0.f, 0.f);
     }
   }
+}
+
+// lcp_segside_kernel's staging: only the segment's valid points (|s|^2 not
+// kMasked, as ops/lcp.pack_segment marks them), in index order, from slot 0,
+// then points at infinity up to a whole number of chunks. Each round of
+// blockDim points is placed by a ballot per warp and a prefix over the
+// block's warps. Returns the valid count, the same in every thread.
+template <int kTier, bool kWeighted>
+__device__ __forceinline__ int stage_segment_compact(const float4* __restrict__ seg,
+                                                     float4* s_pos, float4* s_lo, float4* s_nrm,
+                                                     int Ns) {
+  __shared__ int s_warp_valid[kWarps];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
+  int n = 0;
+  for (int j0 = 0; j0 < Ns; j0 += blockDim.x) {
+    const int j = j0 + threadIdx.x;
+    const bool valid = j < Ns && seg[2 * j].w != kMasked;
+    const unsigned ballot = __ballot_sync(0xffffffffu, valid);
+    if (lane == 0) s_warp_valid[w] = __popc(ballot);
+    __syncthreads();
+    int d = n;
+    for (int v = 0; v < n_warps; ++v) {
+      const int c = s_warp_valid[v];
+      d += v < w ? c : 0;
+      n += c;
+    }
+    if (valid) {
+      d += __popc(ballot & ((1u << lane) - 1u));
+      stage_segment_point<kTier, kWeighted>(seg, s_pos, s_lo, s_nrm, j, d);
+    }
+    __syncthreads();  // before the next round overwrites s_warp_valid
+  }
+  const int n_scan = (n + kChunk - 1) / kChunk * kChunk;
+  for (int j = n + threadIdx.x; j < n_scan; j += blockDim.x) {
+    s_pos[j] = make_float4(0.f, 0.f, 0.f, INFINITY);
+    if constexpr (kTier == kHigh3) s_lo[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  return n;
 }
 
 template <int kTier>
@@ -287,17 +337,24 @@ __device__ __forceinline__ void load_pose(const float* __restrict__ tr, int h, f
 
 // ---- lcp_segside_kernel: a warp per (hypothesis, model tile) item.
 
-// Unweighted scan: the running nearest d2 of kS slots over the padded segment.
+// Unweighted scan: the running nearest d2 of kS slots over the padded segment,
+// a chunk of kChunk points at a time: a loop of fixed length inside (with the
+// count staged at run time as its bound, one loop over all points measured 13 %
+// slower on a full segment, H100).
 template <int kTier, int kS>
 __device__ __forceinline__ void scan_nearest(Slot (&slot)[kS], const float4* s_pos,
                                              const float4* s_lo, int Nsp) {
+  for (int c = 0; c < Nsp; c += kChunk) {
 #pragma unroll 8
-  for (int j = 0; j < Nsp; ++j) {
-    const float4 s = s_pos[j];
-    float4 l = make_float4(0.f, 0.f, 0.f, 0.f);
-    if constexpr (kTier == kHigh3) l = s_lo[j];
+    for (int jj = 0; jj < kChunk; ++jj) {
+      const float4 s = s_pos[c + jj];
+      float4 l = make_float4(0.f, 0.f, 0.f, 0.f);
+      if constexpr (kTier == kHigh3) l = s_lo[c + jj];
 #pragma unroll
-    for (int k = 0; k < kS; ++k) slot[k].best = fminf(slot[k].best, pair_d2<kTier>(s, l, slot[k]));
+      for (int k = 0; k < kS; ++k) {
+        slot[k].best = fminf(slot[k].best, pair_d2<kTier>(s, l, slot[k]));
+      }
+    }
   }
 }
 
@@ -334,7 +391,9 @@ __device__ __forceinline__ void scan_nearest_chunks(Slot (&slot)[kS], unsigned (
 // segment point if its normal agrees, max prob and max |ndot| over exact ties.
 // d2 is recomputed over the chunks named in `hit` with the scan's
 // instructions; lane L starts at point L of each chunk so that the lanes'
-// reads fall on different banks. A chunk that shares its bit without holding
+// reads fall on different banks. The 32 compares of a chunk fill a bit mask
+// with no branch (unrolled, they overlap), and only the points in it read
+// their normal and probability. A chunk that shares its bit without holding
 // the minimum costs its 32 points and changes nothing.
 template <int kTier>
 __device__ __forceinline__ float nearest_attributes(const Slot& q, unsigned hit, int lane,
@@ -344,12 +403,18 @@ __device__ __forceinline__ float nearest_attributes(const Slot& q, unsigned hit,
   float pb = -INFINITY, ab = -1.f;
   for (; hit != 0u; hit &= hit - 1u) {
     for (int c = (__ffs(hit) - 1) * kChunk; c < Nsp; c += 32 * kChunk) {
+      unsigned eq = 0u;
+#pragma unroll 8
       for (int jj = 0; jj < kChunk; ++jj) {
         const int j = c + ((jj + lane) & (kChunk - 1));
         const float4 s = s_pos[j];
         float4 l = make_float4(0.f, 0.f, 0.f, 0.f);
         if constexpr (kTier == kHigh3) l = s_lo[j];
-        if (j < Ns && pair_d2<kTier>(s, l, q) == q.best) {
+        eq |= (pair_d2<kTier>(s, l, q) == q.best) ? (1u << jj) : 0u;
+      }
+      for (; eq != 0u; eq &= eq - 1u) {
+        const int j = c + ((__ffs(eq) - 1 + lane) & (kChunk - 1));
+        if (j < Ns) {
           const float4 n = s_nrm[j];
           pb = fmaxf(pb, n.w);
           ab = fmaxf(ab, normal_dot<kTier>(n, q));
@@ -362,18 +427,24 @@ __device__ __forceinline__ float nearest_attributes(const Slot& q, unsigned hit,
 
 // Grid: ceil(H * n_mtiles / (warps of the block * items_per_warp)) blocks. Item
 // it = h * n_mtiles + mt is hypothesis h on model points [mt, mt + 1) * 32 * kS;
-// lane L holds points mt * 32 * kS + k * 32 + L, k < kS.
+// lane L holds points mt * 32 * kS + k * 32 + L, k < kS. The scans cover the
+// segment's n valid points (stage_segment_compact), n_scan rounded up to a
+// chunk; block 0 adds n_scan to *scan_points where it is given.
 template <int kTier, bool kWeighted, int kS>
 __global__ void __launch_bounds__(kThreads)
 lcp_segside_kernel(LCP_KERNEL_ARGS, float* __restrict__ partial /* [H, n_mtiles] */,
-                   int n_mtiles, int items_per_warp) {
+                   int n_mtiles, int items_per_warp, unsigned long long* scan_points) {
   extern __shared__ float4 smem[];
   const int Nsp = (Ns + kChunk - 1) / kChunk * kChunk;
   float4* s_pos = smem;
   float4* s_lo = smem + Nsp;
   float4* s_nrm = smem + (kTier == kHigh3 ? 2 : 1) * Nsp;
 
-  stage_segment_chunks<kTier, kWeighted>(seg, s_pos, s_lo, s_nrm, Ns, Nsp);
+  const int n = stage_segment_compact<kTier, kWeighted>(seg, s_pos, s_lo, s_nrm, Ns);
+  const int n_scan = (n + kChunk - 1) / kChunk * kChunk;
+  if (scan_points != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+    atomicAdd(scan_points, static_cast<unsigned long long>(n_scan));
+  }
   __syncthreads();
 
   const int lane = threadIdx.x & 31;
@@ -383,7 +454,6 @@ lcp_segside_kernel(LCP_KERNEL_ARGS, float* __restrict__ partial /* [H, n_mtiles]
   for (int it = warp * items_per_warp; it < it_end; ++it) {
     const int h = it / n_mtiles;
     const int base = (it - h * n_mtiles) * 32 * kS + lane;
-    const float* r = tr + 12 * h;
 
     Slot slot[kS];
     {
@@ -402,20 +472,29 @@ lcp_segside_kernel(LCP_KERNEL_ARGS, float* __restrict__ partial /* [H, n_mtiles]
       unsigned hit[kS];
 #pragma unroll
       for (int k = 0; k < kS; ++k) hit[k] = 0u;
-      scan_nearest_chunks<kTier, kS>(slot, hit, s_pos, s_lo, Nsp);
+      scan_nearest_chunks<kTier, kS>(slot, hit, s_pos, s_lo, n_scan);
+      // The pose and the model normals of the slots within delta^2 are loaded
+      // before any is used, so their latencies overlap.
+      float rr[12], mn[kS][3];
+      load_pose(tr, h, rr);
 #pragma unroll
       for (int k = 0; k < kS; ++k) {
         const int i = base + k * 32;
+        mn[k][0] = mn[k][1] = mn[k][2] = 0.f;
         if (i < Nv && slot[k].best <= delta2) {
-          float mnx, mny, mnz;
-          load_point(model_nrm, i, Nv, mnx, mny, mnz);
-          rotate_normal<kTier>(slot[k], r, mnx, mny, mnz);
-          acc += nearest_attributes<kTier>(slot[k], hit[k], lane, s_pos, s_lo, s_nrm, Ns, Nsp,
+          load_point(model_nrm, i, Nv, mn[k][0], mn[k][1], mn[k][2]);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kS; ++k) {
+        if (base + k * 32 < Nv && slot[k].best <= delta2) {
+          rotate_normal<kTier>(slot[k], rr, mn[k][0], mn[k][1], mn[k][2]);
+          acc += nearest_attributes<kTier>(slot[k], hit[k], lane, s_pos, s_lo, s_nrm, n, n_scan,
                                            cos_gate);
         }
       }
     } else {
-      scan_nearest<kTier, kS>(slot, s_pos, s_lo, Nsp);
+      scan_nearest<kTier, kS>(slot, s_pos, s_lo, n_scan);
 #pragma unroll
       for (int k = 0; k < kS; ++k) {
         if (base + k * 32 < Nv && slot[k].best <= delta2) acc += 1.f;
@@ -510,7 +589,7 @@ __device__ __forceinline__ void stage_segment_mma(const float4* __restrict__ seg
   for (int j = threadIdx.x; j < Nsp; j += blockDim.x) {
     unsigned w[8] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
     if (j < Ns) {
-      stage_segment_point<kTier, false>(seg, s_pos, s_lo, nullptr, j);
+      stage_segment_point<kTier, false>(seg, s_pos, s_lo, nullptr, j, j);
       const float4 s = s_pos[j];
       if constexpr (kTier == kHigh3) {
         const float4 l = s_lo[j];
@@ -620,7 +699,7 @@ __device__ __forceinline__ unsigned word_from(const unsigned (&w)[7], int offset
 template <int kTier>
 __global__ void __launch_bounds__(kThreads)
 lcp_segside_mma_kernel(LCP_KERNEL_ARGS, float* __restrict__ partial /* [H, n_mtiles] */,
-                       int n_mtiles, int items_per_warp) {
+                       int n_mtiles, int items_per_warp, unsigned long long* scan_points) {
   static_assert(kTier != kFp32, "the float32 tier stays on the CUDA cores");
   constexpr int kRegs = kWordsOf<kTier> / 4;  // registers of a B fragment; an A fragment has 2x
   extern __shared__ float4 smem[];
@@ -628,6 +707,10 @@ lcp_segside_mma_kernel(LCP_KERNEL_ARGS, float* __restrict__ partial /* [H, n_mti
   float4* s_pos = smem;
   float4* s_lo = smem + Nsp;
   unsigned* s_frag = reinterpret_cast<unsigned*>(smem + (kTier == kHigh3 ? 2 : 1) * Nsp);
+  // The filter scans the padded segment whole.
+  if (scan_points != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+    atomicAdd(scan_points, static_cast<unsigned long long>(Nsp));
+  }
 
   stage_segment_mma<kTier>(seg, s_pos, s_lo, s_frag, Ns, Nsp);
   __syncthreads();
@@ -1136,8 +1219,8 @@ int finish(const float* partial, float* out, int H, int n_mtiles, int Nv, cudaSt
 
 #define LCP_LAUNCH_ARGS                                                                    \
   const float *tr, const float *model_pts, const float *model_nrm, const float4 *seg4,    \
-      float *partial, float *out, int H, int Nv, int Ns, float delta2, float cos_gate,    \
-      cudaStream_t st
+      float *partial, float *out, unsigned long long *scan_points, int H, int Nv, int Ns,  \
+      float delta2, float cos_gate, cudaStream_t st
 
 template <int kTier, bool kWeighted, int kS>
 int launch_warp_items(LCP_LAUNCH_ARGS) {
@@ -1147,7 +1230,8 @@ int launch_warp_items(LCP_LAUNCH_ARGS) {
   auto kern = lcp_segside_kernel<kTier, kWeighted, kS>;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   kern<<<g.blocks, g.block_threads, smem, st>>>(tr, model_pts, model_nrm, seg4, out, H, Nv, Ns,
-                                                delta2, cos_gate, partial, n_mtiles, g.per_warp);
+                                                delta2, cos_gate, partial, n_mtiles, g.per_warp,
+                                                scan_points);
   return finish(partial, out, H, n_mtiles, Nv, st);
 }
 
@@ -1161,7 +1245,8 @@ int launch_mma(LCP_LAUNCH_ARGS) {
   auto kern = lcp_segside_mma_kernel<kTier>;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   kern<<<g.blocks, g.block_threads, smem, st>>>(tr, model_pts, model_nrm, seg4, out, H, Nv, Ns,
-                                                delta2, cos_gate, partial, n_mtiles, g.per_warp);
+                                                delta2, cos_gate, partial, n_mtiles, g.per_warp,
+                                                scan_points);
   return finish(partial, out, H, n_mtiles, Nv, st);
 }
 
@@ -1186,14 +1271,14 @@ int launch(int unit, LCP_LAUNCH_ARGS) {
   if constexpr (kTier != kFp32 && !kWeighted) {
     if (unit == kUnitTensor ||
         (unit == kUnitRule && rule_takes_tensor(kTier, kWeighted, H, Nv, Ns))) {
-      return launch_mma<kTier>(tr, model_pts, model_nrm, seg4, partial, out, H, Nv, Ns, delta2,
-                               cos_gate, st);
+      return launch_mma<kTier>(tr, model_pts, model_nrm, seg4, partial, out, scan_points, H, Nv,
+                               Ns, delta2, cos_gate, st);
     }
   }
   if (unit == kUnitTensor) return static_cast<int>(cudaErrorInvalidValue);
 #define LCP_ITEMS(S)                                                                          \
   return launch_warp_items<kTier, kWeighted, S>(tr, model_pts, model_nrm, seg4, partial, out, \
-                                                H, Nv, Ns, delta2, cos_gate, st)
+                                                scan_points, H, Nv, Ns, delta2, cos_gate, st)
   switch (slots_for(H, Nv)) {
     case 8: LCP_ITEMS(8);
     case 4: LCP_ITEMS(4);
@@ -1244,8 +1329,9 @@ int launch_hb(int unit, const float* tr, const float* model_pts, const float* mo
 }
 
 int dispatch(bool hb, int unit, const float* tr, const float* model_pts, const float* model_nrm,
-             const float* seg, float* partial, float* out, unsigned* band_rows, int H, int Nv,
-             int Ns, float delta2, float cos_gate, int weighted, int tier, void* stream) {
+             const float* seg, float* partial, float* out, unsigned* band_rows,
+             long long* scan_points, int H, int Nv, int Ns, float delta2, float cos_gate,
+             int weighted, int tier, void* stream) {
   if (H <= 0) return 0;
   if (Nv <= 0 || Ns <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (static_cast<long long>(H) * ((Nv + 63) / 64) > 0x3fffffffLL) {
@@ -1253,11 +1339,12 @@ int dispatch(bool hb, int unit, const float* tr, const float* model_pts, const f
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float4* seg4 = reinterpret_cast<const float4*>(seg);
+  auto* scanned = reinterpret_cast<unsigned long long*>(scan_points);
 #define LCP_LAUNCH(T, W)                                                                        \
   return hb ? launch_hb<T, W>(unit, tr, model_pts, model_nrm, seg4, out, band_rows, H, Nv, Ns, \
                               delta2, cos_gate, st)                                             \
-            : launch<T, W>(unit, tr, model_pts, model_nrm, seg4, partial, out, H, Nv, Ns,      \
-                           delta2, cos_gate, st)
+            : launch<T, W>(unit, tr, model_pts, model_nrm, seg4, partial, out, scanned, H, Nv, \
+                           Ns, delta2, cos_gate, st)
   if (tier == kFp32) {
     if (weighted) LCP_LAUNCH(kFp32, true);
     LCP_LAUNCH(kFp32, false);
@@ -1283,12 +1370,20 @@ int dispatch(bool hb, int unit, const float* tr, const float* model_pts, const f
 // (hypothesis, model tile) at the smallest tile any of its kernels uses.
 extern "C" int lcp_segside_workspace_tiles(int Nv) { return Nv > 0 ? (Nv + 63) / 64 : 1; }
 
+// The step of lcp_segside's scan counter: a launch on the CUDA cores adds its
+// segment's valid count rounded up to it (the tensor-core filter adds Ns
+// rounded up to its own chunk of 128).
+extern "C" int lcp_segside_scan_step() { return kChunk; }
+
+// scan_points (or null): a device counter to which the launch adds the segment
+// points its scan walked a (hypothesis, model point) pair.
 extern "C" int lcp_segside_launch(const float* tr, const float* model_pts,
                                   const float* model_nrm, const float* seg, float* partial,
-                                  float* out, int H, int Nv, int Ns, float delta2,
-                                  float cos_gate, int weighted, int tier, void* stream) {
-  return dispatch(false, kUnitRule, tr, model_pts, model_nrm, seg, partial, out, nullptr, H, Nv,
-                  Ns, delta2, cos_gate, weighted, tier, stream);
+                                  float* out, long long* scan_points, int H, int Nv, int Ns,
+                                  float delta2, float cos_gate, int weighted, int tier,
+                                  void* stream) {
+  return dispatch(false, kUnitRule, tr, model_pts, model_nrm, seg, partial, out, nullptr,
+                  scan_points, H, Nv, Ns, delta2, cos_gate, weighted, tier, stream);
 }
 
 // The same call on a named unit, for measurements: 1 the CUDA cores, 2 the
@@ -1296,11 +1391,12 @@ extern "C" int lcp_segside_launch(const float* tr, const float* model_pts,
 // scores are the same.
 extern "C" int lcp_segside_launch_on(int unit, const float* tr, const float* model_pts,
                                      const float* model_nrm, const float* seg, float* partial,
-                                     float* out, int H, int Nv, int Ns, float delta2,
-                                     float cos_gate, int weighted, int tier, void* stream) {
+                                     float* out, long long* scan_points, int H, int Nv, int Ns,
+                                     float delta2, float cos_gate, int weighted, int tier,
+                                     void* stream) {
   if (unit != kUnitCores && unit != kUnitTensor) return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch(false, unit, tr, model_pts, model_nrm, seg, partial, out, nullptr, H, Nv, Ns,
-                  delta2, cos_gate, weighted, tier, stream);
+  return dispatch(false, unit, tr, model_pts, model_nrm, seg, partial, out, nullptr, scan_points,
+                  H, Nv, Ns, delta2, cos_gate, weighted, tier, stream);
 }
 
 // The unit lcp_segside_launch takes for such a call: 1 the CUDA cores, 2 the
@@ -1313,8 +1409,8 @@ extern "C" int lcp_segside_hb_launch(const float* tr, const float* model_pts,
                                      const float* model_nrm, const float* seg, float* out,
                                      int H, int Nv, int Ns, float delta2, float cos_gate,
                                      int weighted, int tier, void* stream) {
-  return dispatch(true, kHbUnitRule, tr, model_pts, model_nrm, seg, nullptr, out, nullptr, H, Nv,
-                  Ns, delta2, cos_gate, weighted, tier, stream);
+  return dispatch(true, kHbUnitRule, tr, model_pts, model_nrm, seg, nullptr, out, nullptr,
+                  nullptr, H, Nv, Ns, delta2, cos_gate, weighted, tier, stream);
 }
 
 // The same call on a named unit, for measurements and checks: 1 the CUDA
@@ -1326,8 +1422,8 @@ extern "C" int lcp_segside_hb_launch_on(int unit, const float* tr, const float* 
                                         unsigned* band_rows, int H, int Nv, int Ns, float delta2,
                                         float cos_gate, int weighted, int tier, void* stream) {
   if (unit != kHbUnitCores && unit != kHbUnitTensor) return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch(true, unit, tr, model_pts, model_nrm, seg, nullptr, out, band_rows, H, Nv, Ns,
-                  delta2, cos_gate, weighted, tier, stream);
+  return dispatch(true, unit, tr, model_pts, model_nrm, seg, nullptr, out, band_rows, nullptr, H,
+                  Nv, Ns, delta2, cos_gate, weighted, tier, stream);
 }
 
 // The unit lcp_segside_hb_launch takes for such a call: 1 or 2, as above.

@@ -24,7 +24,9 @@ coordinates centred at the segment:
   tier, the CUDA cores otherwise); uses_hypothesis_block picks between them;
 - lcp_scores_plain, their plain version.
 Exactly tied nearest distances take the max probability and the max |ndot|
-over all ties (the TPU kernel's tie rule).
+over all ties (the TPU kernel's tie rule). lcp_segside's kernel scans only
+the segment's valid points, whose count stays on the card; it adds the points
+it scanned to a counter of the device that take_scan_counts reads.
 
 Streaming, for a segment of any size, in the model frame without centring
 (lcp_scores_stream, lcp_scores_stream_wide): the segment passes by in tiles
@@ -53,6 +55,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import torch
 
@@ -280,13 +283,68 @@ def _count_launch(wrapper, rc, tier):
     wrapper.tier_launches[tier] += 1
 
 
+# ---------------------------------------------------------- the scan counters
+#
+# lcp_segside's kernel scans a segment's valid points, rounded up to a chunk of
+# SCAN_CHUNK (the count never leaves the card). Per device the package keeps
+# two counts: lcp_scan_points, the points the launches scanned (the kernel adds
+# them to an int64 on the card), and lcp_slot_points, the launches' Ns (the
+# host knows them). lcp_scores's CPU route adds the same numbers, from the mask,
+# for the calls that lcp_segside takes on the card. take_scan_counts reads
+# both after the caller's own read-back, so the read waits for nothing.
+
+SCAN_CHUNK = 32  # kChunk in csrc/lcp_segside.cu (lcp_segside_scan_step)
+
+_scan_lock = threading.Lock()
+_scan_acc: dict = {}  # device -> int64 [1] on it: the points scanned, summed
+_scan_taken: dict = {}  # device -> the accumulator's value at the last take
+_slot_points: dict = {}  # device -> Ns summed over the calls since the last take
+
+
+def _device_key(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _scan_accumulator(device, ns: int) -> torch.Tensor:
+    """The device's scan accumulator (made on first use); adds ns slot points."""
+    key = _device_key(device)
+    with _scan_lock:
+        acc = _scan_acc.get(key)
+        if acc is None:
+            acc = _scan_acc[key] = torch.zeros(1, dtype=torch.int64, device=key)
+            _scan_taken[key] = 0
+        _slot_points[key] = _slot_points.get(key, 0) + ns
+        return acc
+
+
+def take_scan_counts(*devices) -> dict:
+    """{"lcp_scan_points", "lcp_slot_points"} summed over the devices since
+    the last take on each ({} where no call was counted): the counters a span
+    records. Reads the card's counter, so call it after the stage's own
+    read-back."""
+    scan = slots = 0
+    for key in dict.fromkeys(_device_key(d) for d in devices):
+        with _scan_lock:
+            if key not in _scan_acc:
+                continue
+            total = int(_scan_acc[key].item())
+            scan += total - _scan_taken[key]
+            _scan_taken[key] = total
+            slots += _slot_points.pop(key, 0)
+    return {"lcp_scan_points": scan, "lcp_slot_points": slots} if slots else {}
+
+
 def _launch(wrapper, symbol, tr12, model_pts, model_nrm, segcat, delta2, cos_gate,
             weighted, tier, tiled_sums=False, unit=None, after_out=()):
     """Check the arguments, launch `symbol` on the current stream and count
     it. tiled_sums: the kernel writes one partial sum per (hypothesis, model
-    tile) into a workspace handed in before `out` (lcp_segside). unit: the
-    launcher's leading argument, where it has one. after_out: pointers the
-    launcher takes after `out`."""
+    tile) into a workspace handed in before `out`, and adds the points it
+    scans to the device's scan accumulator handed in after `out`
+    (lcp_segside). unit: the launcher's leading argument, where it has one.
+    after_out: pointers the launcher takes after `out`."""
     name = wrapper.__name__
     h, nv, ns = _check_launch_args(name, tr12, model_pts, model_nrm, segcat)
     if ns > MAX_SEGMENT_POINTS:
@@ -301,6 +359,7 @@ def _launch(wrapper, symbol, tr12, model_pts, model_nrm, segcat, delta2, cos_gat
         n_tiles = _build.load("lcp_segside").lcp_segside_workspace_tiles(nv)
         partial = torch.empty((h, n_tiles), dtype=torch.float32, device=dev)
         head.append(partial.data_ptr())
+        after_out = (_scan_accumulator(dev, ns).data_ptr(), *after_out)
     head += [out.data_ptr(), *after_out]
     types = [ctypes.c_void_p] * len(head)
     if unit is not None:
@@ -335,7 +394,9 @@ def lcp_segside(
         masked), nx, ny, nz, prob.
       matmul_precision: None / "highest", "default" or "high3".
     Returns scores [H] float32. Counts its launches in lcp_segside.launches
-    and, per tier (fp32, "default", "high3"), in lcp_segside.tier_launches.
+    and, per tier (fp32, "default", "high3"), in lcp_segside.tier_launches;
+    the segment points it scans and its Ns in the device's scan counters
+    (take_scan_counts).
     """
     return _launch(lcp_segside, "lcp_segside_launch", tr12, model_pts, model_nrm, segcat,
                    delta2, cos_gate, weighted, TIERS[matmul_precision], tiled_sums=True)
@@ -463,6 +524,10 @@ def lcp_scores(
     if hyp_block and matmul_precision == "high3":
         matmul_precision = None
     if transforms.device.type == "cpu":
+        if not hyp_block:  # the counts lcp_segside's kernel adds on the card
+            valid = seg_mask.sum()
+            _scan_accumulator(transforms.device, seg_pts.shape[0]).add_(
+                (valid + SCAN_CHUNK - 1) // SCAN_CHUNK * SCAN_CHUNK)
         return lcp_scores_plain(
             transforms, model_pts, model_nrm, seg_pts, seg_nrm, seg_prob, seg_mask,
             delta=delta, normal_gate_deg=normal_gate_deg, weighted=weighted,

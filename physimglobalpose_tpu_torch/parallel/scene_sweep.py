@@ -37,7 +37,7 @@ from physimglobalpose_tpu_torch import _torchcfg
 from physimglobalpose_tpu_torch.config import PipelineConfig, DEFAULT_CONFIG
 from physimglobalpose_tpu_torch.geometry import depthio
 from physimglobalpose_tpu_torch.models.objectdb import ObjectDB
-from physimglobalpose_tpu_torch.ops import icp as icp_mod, ppf
+from physimglobalpose_tpu_torch.ops import icp as icp_mod, lcp, ppf
 from physimglobalpose_tpu_torch.parallel import mesh as mesh_mod
 from physimglobalpose_tpu_torch.parallel.mesh import DeviceMesh
 from physimglobalpose_tpu_torch.pipeline import hypothesis, scene as scene_mod, segmentation
@@ -279,6 +279,15 @@ def _dispatch_jobs(
     return dict(job_names=job_names, prepared=prepared, packed=packed[:j])
 
 
+def _scan_counts(mesh: Optional[DeviceMesh], dev) -> dict:
+    """The LCP scan counters of the job batches' devices since the last
+    read (ops/lcp.take_scan_counts), for the sweep.jobs span after its
+    read-back. Pipelined, the next chunk was dispatched before this one's
+    read-back, so a chunk's span can hold the next chunk's counts; their sum
+    over the call is exact."""
+    return lcp.take_scan_counts(*(mesh.device_list if mesh is not None else [dev]))
+
+
 def _finalize_jobs(state: dict) -> Dict[int, List[ObjectPoseEstimate]]:
     """Copy a dispatched batch's packed results to the host (the one
     synchronous copy) and build the per-scene estimate lists."""
@@ -336,7 +345,8 @@ def sweep_scenes(
     share, measured though overlapped.
     The call is one span "sweep" (utils/tracing) with the children
     sweep.prepare (to its synchronize), sweep.jobs (the job batch's dispatch
-    and finalize) and, in MCTS mode, sweep.search; pipelined, one
+    and finalize; counters lcp_scan_points and lcp_slot_points, as on
+    estimate_pose's hypotheses span) and, in MCTS mode, sweep.search; pipelined, one
     sweep.prepare and one sweep.jobs a chunk. The timings are those spans'
     durations, and every scene's timings["request_id"] names the call's
     request record.
@@ -365,6 +375,7 @@ def sweep_scenes(
             if state["packed"] is None:
                 return {}
             per_scene = _finalize_jobs(state)
+            sp_jobs.count(**_scan_counts(mesh, dev))
 
         mcts_s = 0.0
         if is_mcts:
@@ -415,6 +426,7 @@ def _sweep_pipelined(sp_sweep, mesh, scene_dirs, db, pipeline_chunks, prep_kwarg
         if inflight is not None:
             in_state, in_jobs = inflight
             per_scene = _finalize_jobs(in_state)
+            in_jobs.count(**_scan_counts(mesh, dispatch_kwargs["device"]))
             in_jobs.close()
             scene_lists += [(pj.scene_dir, per_scene[si])
                             for si, pj in enumerate(in_state["prepared"])]

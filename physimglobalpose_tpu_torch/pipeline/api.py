@@ -25,7 +25,7 @@ from physimglobalpose_tpu_torch import _torchcfg
 from physimglobalpose_tpu_torch.config import PipelineConfig, DEFAULT_CONFIG
 from physimglobalpose_tpu_torch.geometry import se3
 from physimglobalpose_tpu_torch.models.objectdb import ObjectDB
-from physimglobalpose_tpu_torch.ops import icp as icp_mod
+from physimglobalpose_tpu_torch.ops import icp as icp_mod, lcp
 from physimglobalpose_tpu_torch.pipeline import hypothesis, mcts, scene as scene_mod, segmentation
 from physimglobalpose_tpu_torch.pipeline.selection import lcp_select
 from physimglobalpose_tpu_torch.utils.debug import DebugDump
@@ -234,7 +234,9 @@ def estimate_pose(
     load_scene, remove_table, segmentation, hypotheses, icp_refine or
     search, write_result. The timings are those spans' durations, and
     timings["request_id"] names the request record that holds them (the
-    caller's, where the call runs inside one).
+    caller's, where the call runs inside one). The hypotheses span counts
+    the LCP scan (ops/lcp.take_scan_counts): lcp_scan_points, the segment
+    points the kernel scanned, and lcp_slot_points, its calls' Ns.
 
     The FCN modes take nn_predictor(color, class_ids), by default the
     shipped checkpoint `fcn_variant` ("small" or "prior"; fcn_tta averages
@@ -379,6 +381,7 @@ def estimate_pose(
                             hypothesis_scores=top_scores.cpu().numpy(),
                         ))
             _torchcfg.synchronize(dev)
+            sp_hyp.count(**lcp.take_scan_counts(dev))
         timings["hypothesis_s"] = sp_hyp.duration
 
         # The searches take the hypotheses and overwrite the poses with the

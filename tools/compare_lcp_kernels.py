@@ -33,7 +33,14 @@ torch.profiler beside it). Sections:
          its staged one;
   units  this tree's unweighted lcp_segside on its two units, the CUDA cores
          and the tensor-core filter, over a grid of lowered-tier shapes: what
-         the launcher's routing rule rests on.
+         the launcher's routing rule rests on;
+  valid  lcp_segside at the scene shape (H 10,000, Nv 4,096, Ns 1,024) with
+         210, 320 and 1,024 valid segment points, weighted and unweighted, fp32:
+         scores bit for bit the other tree's;
+  frames lcp_segside on the LCP calls of estimate_pose on frames of the
+         benchmark's cells apc3_gt.serve_lcp and hard3_occluded.serve_lcp
+         (gpubench: the cell's configuration, FRAMES frames from a fixed seed):
+         scores bit for bit the other tree's, each call timed in turns.
 The inputs are physimglobalpose_tpu_torch/kernel_inputs.py's, the timers
 chip_smoke.py's; a device time is null where the profiler dropped spans
 (chip_smoke.device_ms), but for icp-stream's (the mean of each kernel's kept
@@ -83,9 +90,12 @@ class Kernels:
     def __init__(self, segside: ctypes.CDLL, stream: ctypes.CDLL, icp_lib: ctypes.CDLL,
                  icp_stream: ctypes.CDLL):
         self.segside, self.stream, self.icp, self.icp_stream = segside, stream, icp_lib, icp_stream
-        # A tree whose lcp_segside sums model tiles takes a workspace before `out`.
+        # A tree whose lcp_segside sums model tiles takes a workspace before `out`;
+        # one whose kernel counts the points it scans takes the counter after it.
         self.tiled = hasattr(segside, "lcp_segside_workspace_tiles")
-        segside.lcp_segside_launch.argtypes = [ctypes.c_void_p] * (6 if self.tiled else 5) + _COMMON
+        self.counted = hasattr(segside, "lcp_segside_scan_step")
+        segside.lcp_segside_launch.argtypes = (
+            [ctypes.c_void_p] * (5 + self.tiled + self.counted) + _COMMON)
         segside.lcp_segside_hb_launch.argtypes = [ctypes.c_void_p] * 5 + _COMMON
         for fn in (stream.lcp_stream_launch, stream.lcp_stream_wide_launch):
             fn.argtypes = [ctypes.c_void_p] * 6 + _STREAM_COMMON
@@ -140,8 +150,9 @@ class Kernels:
         elif kernel == "lcp_segside" and self.tiled:
             tiles = self.segside.lcp_segside_workspace_tiles(nv)
             partial = torch.empty((h, tiles), dtype=torch.float32, device=out.device)
+            counter = (None,) if self.counted else ()
             rc = self.segside.lcp_segside_launch(
-                *ptrs, partial.data_ptr(), out.data_ptr(), h, nv, ns, *tail)
+                *ptrs, partial.data_ptr(), out.data_ptr(), *counter, h, nv, ns, *tail)
         else:
             rc = getattr(self.segside, kernel + "_launch")(*ptrs, out.data_ptr(), h, nv, ns, *tail)
         if rc != 0:
@@ -179,6 +190,86 @@ UNIT_GRID = (
     (4096, 256, 1024), (1024, 256, 1024), (256, 256, 1024), (16_384, 128, 1024),
     (256, 4096, 1024), (2048, 4096, 1024), (256, 4096, 256), (32, 4096, 1024),
 )
+
+
+# Valid points of the scene-shape segment in the valid section: the share of
+# a segment that the benchmark's frames fill (about a fifth and a third) and
+# a full one.
+VALID_COUNTS = (210, 320, 1024)
+# The frames section: cells, frames a cell, and the seed of the frames.
+FRAME_CELLS = ("apc3_gt.serve_lcp", "hard3_occluded.serve_lcp")
+FRAMES = 4
+FRAME_SEED = 2**31 + 2501
+
+
+def compare_valid(this, other, device) -> tuple[bool, list]:
+    ok, rows = True, []
+    h, nv, ns = 10_000, 4096, 1024
+    for n_valid in VALID_COUNTS:
+        packed = kernel_inputs.packed_lcp_args(
+            kernel_inputs.lcp_inputs(94, h, nv, ns, ns - n_valid, device))
+        for weighted in (True, False):
+            case_ok, row = compare_pair("valid", "lcp_segside", "lcp_segside_kernel",
+                                        f"valid={n_valid}", packed, weighted, 0, this, other, 3, 1)
+            row["valid"] = n_valid
+            ok &= case_ok and row["bit_identical"]
+            rows.append(row)
+    return ok, rows
+
+
+def frame_calls(cell_name: str, workdir: Path) -> list:
+    """lcp_scores's arguments in estimate_pose on FRAMES frames of a cell,
+    made as the benchmark makes them (its configuration, FRAME_SEED)."""
+    import numpy as np
+
+    from gpubench import drive, scenes, spec
+    from physimglobalpose_tpu_torch.pipeline import api
+
+    conf = spec.cell(cell_name)["config"]
+    prog = drive.Program(conf, str(workdir), str(workdir / "assets"), None)
+    rng = np.random.default_rng(FRAME_SEED)
+    rays = scenes.camera_rays(conf)
+    calls = []
+    orig = lcp.lcp_scores
+
+    def capture(*args, **kwargs):
+        calls.append((args, kwargs))
+        return orig(*args, **kwargs)
+
+    lcp.lcp_scores = capture
+    try:
+        for k in range(FRAMES):
+            scene_dir = str(workdir / "scenes" / f"scene_{k}")
+            scenes.write_scene(scene_dir, scenes.generate(conf, rng, rays), conf)
+            api.estimate_pose(scene_dir, prog.db, dataset=conf["dataset"],
+                              segmentation_mode=conf["segmentation_mode"],
+                              hypothesis_mode=conf["hypothesis_mode"], verification_mode="LCP",
+                              cfg=prog.cfg, seed=k, write_result=False, device=prog.device)
+    finally:
+        lcp.lcp_scores = orig
+    return calls
+
+
+def compare_frames(this, other, device) -> tuple[bool, list]:
+    import tempfile
+
+    ok, rows = True, []
+    for cell_name in FRAME_CELLS:
+        with tempfile.TemporaryDirectory() as tmp:
+            calls = frame_calls(cell_name, Path(tmp))
+        for i, (args, kwargs) in enumerate(calls):
+            if kwargs.get("matmul_precision") is not None or lcp.uses_hypothesis_block(
+                    args[1].shape[0], args[3].shape[0]):
+                continue  # only calls that take lcp_segside
+            packed = kernel_inputs.packed_lcp_args(
+                args, delta=kwargs.get("delta", 0.005), gate_deg=kwargs.get("normal_gate_deg", 30.0))
+            case_ok, row = compare_pair(
+                "frames", "lcp_segside", "lcp_segside_kernel", f"{cell_name} call {i}", packed,
+                kwargs.get("weighted", True), 0, this, other, 3, 1)
+            row.update(cell=cell_name, valid=int(args[6].sum()))
+            ok &= case_ok and row["bit_identical"]
+            rows.append(row)
+    return ok, rows
 
 
 def time_units(device) -> tuple[bool, list]:
@@ -350,7 +441,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other-csrc", required=True, type=Path)
     ap.add_argument("--out", type=Path)
-    sections = ["lcp", "hb", "wide", "icp", "icp-stream", "units"]
+    sections = ["lcp", "hb", "wide", "icp", "icp-stream", "units", "valid", "frames"]
     ap.add_argument("--sections", nargs="+", default=sections, choices=sections)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -400,6 +491,12 @@ def main() -> int:
     if "units" in args.sections:
         units_ok, summary["units"] = time_units(device)
         ok &= units_ok
+    if "valid" in args.sections:
+        valid_ok, summary["valid"] = compare_valid(this, other, device)
+        ok &= valid_ok
+    if "frames" in args.sections:
+        frames_ok, summary["frames"] = compare_frames(this, other, device)
+        ok &= frames_ok
     summary["ok"] = ok
     print(json.dumps(summary))
     if args.out:
