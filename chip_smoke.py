@@ -2801,8 +2801,9 @@ def phase_sweep(device, workdir: str, setup: dict) -> dict:
         fail(f"[sweep] lcp_segside launched {launches} times, expected {want}")
     # The polish: one kernel launch a card for every (padded) job, counted on
     # the call's sweep.jobs span.
-    polish = tracing.record(swept[dirs[0]].timings["request_id"]).find("sweep.jobs").counts
-    log(f"[sweep] sweep.jobs counts {polish}")
+    counts = tracing.record(swept[dirs[0]].timings["request_id"]).find("sweep.jobs").counts
+    log(f"[sweep] sweep.jobs counts {counts}")
+    polish = {k: counts.get(k) for k in ("polish_poses", "polish_launches")}
     if polish != {"polish_poses": want, "polish_launches": cards}:
         fail(f"[sweep] the polish counted {polish}, expected {want} poses in {cards} launches")
     piped = sweep(pipeline_chunks=2)
@@ -2859,9 +2860,8 @@ def phase_sweep_mcts(device, setup: dict, sweep_info: dict, leaf_stats: dict) ->
     - with branching 4 (a tree of 85 nodes, enumerated in one batch),
       mcts_select_multi equal to one mcts_select a scene, to the bit;
     - one shared batch's launches a leaf against [leaf]'s;
-    - sweep_scenes(verification_mode="MCTS") once, its poses logged beside the
-      JAX sweep's table-pose finding (not held: that sweep hands the search
-      remove_table's camera-frame table pose)."""
+    - sweep_scenes(verification_mode="MCTS") once: it hands each search the
+      serial path's table box, so every object within ADD-S 1 cm."""
     from physimglobalpose_tpu_torch.config import DEFAULT_CONFIG
     from physimglobalpose_tpu_torch.parallel import mesh as mesh_mod, scene_sweep
     from physimglobalpose_tpu_torch.pipeline import api, mcts
@@ -2961,7 +2961,7 @@ def phase_sweep_mcts(device, setup: dict, sweep_info: dict, leaf_stats: dict) ->
         f"{prof.get('launches')}, {per_leaf} a leaf against [leaf]'s {leaf_stats.get('launches')} "
         f"/ {cfg.mcts.leaf_batch} = {single_per_leaf} a leaf")
 
-    # The sweep's own MCTS mode (the JAX sweep's table pose), poses not held.
+    # The sweep's own MCTS mode, on the serial path's table box.
     t0 = time.perf_counter()
     swept = scene_sweep.sweep_scenes(mesh, dirs, db, cfg=cfg, seed=0, verification_mode="MCTS")
     torch.cuda.synchronize()
@@ -2970,8 +2970,12 @@ def phase_sweep_mcts(device, setup: dict, sweep_info: dict, leaf_stats: dict) ->
                                                        device) * 1000, 2)
                                  for o in swept[d].objects}
                   for i, d in enumerate(dirs)}
-    log(f"[sweep-mcts] sweep_scenes(MCTS), remove_table's camera-frame table pose as in the JAX "
-        f"sweep: {sweep_mcts_s:.3f} s, ADD-S mm (not held) {json.dumps(sweep_adds)}")
+    worst = max(v for a in sweep_adds.values() for v in a.values())
+    if worst >= SEARCH_ADDS_BAR * 1000:
+        fail(f"[sweep-mcts] sweep_scenes(MCTS): ADD-S {worst:.2f} mm >= "
+             f"{SEARCH_ADDS_BAR * 1000:.1f} mm")
+    log(f"[sweep-mcts] sweep_scenes(MCTS): {sweep_mcts_s:.3f} s, ADD-S mm "
+        f"{json.dumps(sweep_adds)}")
     return {"search_s": search_s, "single_s": single_s, "stats": stats, "adds_m": adds,
             "same_as_single": same, "shared_batch": b, "shared_batch_ms": batch_ms,
             "shared_batch_launches": prof.get("launches"), "launches_per_leaf": per_leaf,

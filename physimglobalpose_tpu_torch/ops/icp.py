@@ -12,8 +12,11 @@ trim_fraction of in-range matches. Hypotheses run in chunks of h_chunk, so
 the [h_chunk, Ns, Nm] distance block is the largest tensor built.
 
 Four refiners:
-- refine_icp: plain PyTorch, every option (icp_single is its loop for one
-  pose without the finite guard);
+- refine_icp: plain PyTorch, every option; its loop is icp_steps, a
+  generator without the finite guard (the MCTS TrICP final pass runs it,
+  JAX's ops/icp._icp_single), and lockstep drives several such loops at
+  once (refine_icp_each, the TrICP passes of a sweep's scenes), one wait
+  for the card a point-to-point iteration for all of them;
 - polish_icp: the final polish of estimate_pose and of the scene sweep, K
   poses each against its own model and segment, refine_icp's point-to-plane
   Welsch function. On the card it is one launch of csrc/icp_polish.cu
@@ -76,18 +79,19 @@ def _skew(k: torch.Tensor) -> torch.Tensor:
     )
 
 
-def _solve_point_to_point(p, q, w):
-    """Weighted Kabsch per batch row: (R, t) minimizing sum w |R p + t - q|^2.
-
-    p, q: [B, N, 3]; w: [B, N]. Returns rot [B, 3, 3], t [B, 3].
-    """
+def _kabsch_matrix(p, q, w):
+    """The weighted Kabsch solve's cross-covariance h [B, 3, 3] and the
+    weighted centroids pc, qc [B, 3] (p, q: [B, N, 3]; w: [B, N])."""
     wsum = torch.clamp(torch.sum(w, dim=-1, keepdim=True), min=1e-6)
     pc = torch.sum(p * w[..., None], dim=-2) / wsum
     qc = torch.sum(q * w[..., None], dim=-2) / wsum
     x = (p - pc[:, None]) * w[..., None]
     y = q - qc[:, None]
-    h = x.transpose(-1, -2) @ y  # [B, 3, 3]
-    u, _, vt = torch.linalg.svd(h)
+    return x.transpose(-1, -2) @ y, pc, qc
+
+
+def _kabsch_rotation(u, vt, pc, qc):
+    """(R, t) of the weighted Kabsch solve from the SVD u, vt of its h."""
     v = vt.transpose(-1, -2)
     d = torch.sign(torch.linalg.det(v @ u.transpose(-1, -2)))
     diag = torch.diag_embed(torch.stack([torch.ones_like(d), torch.ones_like(d), d], dim=-1))
@@ -122,6 +126,16 @@ def _icp_chunk(tf, model_pts, model_nrm, seg_pts, seg_mask, iters, trim_fraction
                max_corr_dist, point_to_plane, exact_trim, nn_refresh):
     """Refine tf [B, 4, 4] (nn_refresh > 1 reuses correspondences for that
     many solves, re-solving against the model-frame matches in between)."""
+    return lockstep([icp_steps(tf, model_pts, model_nrm, seg_pts, seg_mask, iters,
+                               trim_fraction, max_corr_dist, point_to_plane, exact_trim,
+                               nn_refresh)])[0]
+
+
+def icp_steps(tf, model_pts, model_nrm, seg_pts, seg_mask, iters, trim_fraction,
+              max_corr_dist, point_to_plane, exact_trim, nn_refresh):
+    """_icp_chunk's refinement as a generator: each point-to-point solve
+    yields its Kabsch matrices h [B, 3, 3] and is sent back their SVD (u,
+    vt); it returns the refined tf. lockstep drives several at once."""
     seg_sq = torch.sum(seg_pts * seg_pts, dim=-1)
 
     def correspond(tf):
@@ -152,7 +166,9 @@ def _icp_chunk(tf, model_pts, model_nrm, seg_pts, seg_mask, iters, trim_fraction
         if point_to_plane:
             drot, dt = _solve_point_to_plane(p, seg_b, n_model @ rot.transpose(-1, -2), w)
         else:
-            drot, dt = _solve_point_to_point(p, seg_b, w)
+            h, pc, qc = _kabsch_matrix(p, seg_b, w)
+            u, vt = yield h
+            drot, dt = _kabsch_rotation(u, vt, pc, qc)
         out = torch.zeros_like(tf)
         out[:, :3, :3] = drot @ rot
         out[:, :3, 3] = torch.einsum("bij,bj->bi", drot, t) + dt
@@ -163,20 +179,36 @@ def _icp_chunk(tf, model_pts, model_nrm, seg_pts, seg_mask, iters, trim_fraction
     while done < iters:
         corr = correspond(tf)
         for _ in range(min(max(nn_refresh, 1), iters - done)):
-            tf = solve(tf, *corr)
+            tf = yield from solve(tf, *corr)
             done += 1
     return tf
 
 
-def icp_single(transform, model_pts, model_nrm, seg_pts, seg_mask, iters, trim_fraction,
-               max_corr_dist, point_to_plane, exact_trim=False, nn_refresh=1):
-    """Refine one pose [4, 4] with no finite guard: the counterpart of the JAX
-    package's ops/icp._icp_single, which the MCTS TrICP final pass calls and
-    guards itself."""
-    return _icp_chunk(
-        transform[None], model_pts, model_nrm, seg_pts, seg_mask, iters, trim_fraction,
-        max_corr_dist, point_to_plane, exact_trim, nn_refresh,
-    )[0]
+def lockstep(steps: list) -> list:
+    """Drive generators that yield Kabsch matrices and take back their SVD
+    as icp_steps does (or that yield from it) together; returns what each
+    returns. Each round's matrices of every generator go through one
+    torch.linalg.svd call: it synchronises with the card to check its
+    result, so refinements run in lockstep wait once a round where run one
+    after another they wait once each. The SVD of a stack of matrices is
+    each matrix's own, so every refinement gets the answer it gets alone."""
+    out = [None] * len(steps)
+    sent = [None] * len(steps)
+    while True:
+        pending = {}
+        for i, g in enumerate(steps):
+            if out[i] is None:
+                try:
+                    pending[i] = g.send(sent[i])
+                except StopIteration as stop:
+                    out[i] = stop.value
+        if not pending:
+            return out
+        hs = list(pending.values())
+        u, _, vt = torch.linalg.svd(hs[0] if len(hs) == 1 else torch.cat(hs))
+        sizes = [h.shape[0] for h in hs]
+        for i, ui, vti in zip(pending, u.split(sizes), vt.split(sizes)):
+            sent[i] = (ui, vti)
 
 
 def refine_icp(
@@ -201,9 +233,27 @@ def refine_icp(
             tf, model_pts, model_nrm, seg_pts, seg_mask, iters, trim_fraction,
             max_corr_dist, point_to_plane, exact_trim, nn_refresh,
         )
-        ok = torch.all(torch.isfinite(ref).reshape(ref.shape[0], -1), dim=-1)
-        out.append(torch.where(ok[:, None, None], ref, tf))
+        out.append(_finite_or_input(ref, tf))
     return torch.cat(out)
+
+
+def _finite_or_input(ref, tf):
+    """refine_icp's guard: a pose whose refinement went non-finite keeps tf's."""
+    ok = torch.all(torch.isfinite(ref).reshape(ref.shape[0], -1), dim=-1)
+    return torch.where(ok[:, None, None], ref, tf)
+
+
+def refine_icp_each(jobs, iters: int = 20, trim_fraction: float = 0.8,
+                    max_corr_dist: float = 0.02, point_to_plane: bool = True) -> list:
+    """refine_icp of several independent jobs, (transforms [H, 4, 4] with H
+    <= 64, model_pts, model_nrm, seg_pts, seg_mask) each: returns each job's
+    refine_icp answer, bit for bit, the refinements run in lockstep
+    (lockstep: one wait for the card a point-to-point iteration for all of
+    them)."""
+    refined = lockstep([icp_steps(tf, mp, mn, sp, sm, iters, trim_fraction, max_corr_dist,
+                                  point_to_plane, False, 1)
+                        for tf, mp, mn, sp, sm in jobs])
+    return [_finite_or_input(ref, job[0]) for ref, job in zip(refined, jobs)]
 
 
 # ------------------------------------------------------------ the final polish

@@ -127,11 +127,22 @@ def refine_table_pose(
     point-to-point ICP of the canonical table-top cloud against the plane
     inliers (50 iterations, 1 cm correspondence cap in the reference). A
     planar model constrains tilt and height, what the settle depends on."""
-    dist = torch.abs(scene_pts @ plane4[:3] + plane4[3])
-    inl = scene_mask & (dist < threshold)
-    cloud = canonical_table_cloud(half_extents, device=scene_pts.device)
-    refined = icp_mod.refine_icp(
-        table_pose[None], cloud, torch.zeros_like(cloud), scene_pts, inl,
-        iters=iters, trim_fraction=0.8, max_corr_dist=max_corr_dist, point_to_plane=False,
-    )
-    return refined[0]
+    return refine_table_poses([(table_pose, scene_pts, scene_mask, plane4)], half_extents,
+                              threshold, iters, max_corr_dist)[0]
+
+
+def refine_table_poses(tables, half_extents: tuple[float, float, float],
+                       threshold: float = 0.005, iters: int = 50,
+                       max_corr_dist: float = 0.01) -> list:
+    """refine_table_pose of several tables, (table_pose, scene_pts,
+    scene_mask, plane4) each, their ICPs together (ops/icp.refine_icp_each):
+    each table's answer is the one it gets alone."""
+    cloud = canonical_table_cloud(half_extents, device=tables[0][1].device)
+    jobs = []
+    for table_pose, scene_pts, scene_mask, plane4 in tables:
+        dist = torch.abs(scene_pts @ plane4[:3] + plane4[3])
+        inl = scene_mask & (dist < threshold)
+        jobs.append((table_pose[None], cloud, torch.zeros_like(cloud), scene_pts, inl))
+    refined = icp_mod.refine_icp_each(jobs, iters=iters, trim_fraction=0.8,
+                                      max_corr_dist=max_corr_dist, point_to_plane=False)
+    return [r[0] for r in refined]

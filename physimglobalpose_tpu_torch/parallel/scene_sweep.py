@@ -10,11 +10,12 @@ its devices (parallel/mesh.py), each device running its contiguous share.
 
 Random streams. The port's serial estimate_pose draws everything from one
 torch.Generator(device).manual_seed(seed) in a fixed order: the table
-removal's subsample and MSAC draws, each object's segment subsample, then
-each object's generation draws. Here every scene gets its own generator,
-seeded with `seed` on the sweep's first device, and consumes it in exactly
-that order (the generation draws through hypothesis.draw_generation, handed
-to the job batch as injected draws), so the sweep equals the serial
+removal's subsample and MSAC draws, each object's segment subsample, each
+object's generation draws, then in MCTS and GREEDY mode the subsample of the
+search's table box. Here every scene gets its own generator, seeded with
+`seed` on the sweep's first device, and consumes it in exactly that order
+(the generation draws through hypothesis.draw_generation, handed to the job
+batch as injected draws), so the sweep equals the serial
 estimate_pose of every scene, bit for bit on one card as on the CPU: the
 voxel grid's sums are a segmented reduction in sorted order (ops/voxel.py),
 the same order in every run.
@@ -59,8 +60,13 @@ class _SceneJobs:
     # The scene's generator, positioned after the table and segment draws:
     # the generation draws come next (_dispatch_jobs takes them).
     gen: torch.Generator
-    table_pose: torch.Tensor  # [4, 4] camera frame, remove_table's (MCTS reads it)
+    table_pose: torch.Tensor  # [4, 4] camera frame, remove_table's
     depth_clean: torch.Tensor  # [H, W] table-removed depth (the MCTS leaf observation)
+    # What the MCTS search's world-frame table box is refined from
+    # (scene.physics_table_pose): the raw depth, the intrinsics and the plane.
+    depth: torch.Tensor  # [H, W]
+    intr: torch.Tensor  # [3, 3]
+    plane: torch.Tensor  # [4]
 
 
 def _segments(depth_clean, prob_of, intr, names, db, cfg, gen) -> Segment3D:
@@ -90,7 +96,7 @@ def prepare_scene(
     gen = torch.Generator(device=dev).manual_seed(seed)
     intr = torch.as_tensor(sc.intrinsics, dtype=torch.float32, device=dev)
     depth = torch.as_tensor(sc.depth, dtype=torch.float32, device=dev)
-    depth_clean, _plane, table_pose = scene_mod.remove_table(depth, intr, cfg, generator=gen)
+    depth_clean, plane4, table_pose = scene_mod.remove_table(depth, intr, cfg, generator=gen)
     class_ids = [db.class_of(n) for n in sc.object_names]
     prob_images = segmentation.build_prob_images(
         segmentation_mode, class_ids, class_mask=sc.class_mask, nn_predictor=nn_predictor,
@@ -102,7 +108,8 @@ def prepare_scene(
                                         device=dev),
         intr, sc.object_names, db, cfg, gen,
     )
-    return _SceneJobs(scene_dir, sc, list(sc.object_names), segs, gen, table_pose, depth_clean)
+    return _SceneJobs(scene_dir, sc, list(sc.object_names), segs, gen, table_pose, depth_clean,
+                      depth, intr, plane4)
 
 
 def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -182,11 +189,11 @@ def prepare_scenes(
 
     out = []
     for si, sc in enumerate(scs):
-        depth_clean, _plane, table_pose = tables[si]
+        depth_clean, plane4, table_pose = tables[si]
         segs = _segments(depth_clean, prob_of_scene(si), intrs[si], sc.object_names, db, cfg,
                          gens[si])
         out.append(_SceneJobs(scene_dirs[si], sc, list(sc.object_names), segs, gens[si],
-                              table_pose, depth_clean))
+                              table_pose, depth_clean, depths[si], intrs[si], plane4))
     return out
 
 
@@ -311,6 +318,19 @@ def _finalize_jobs(state: dict) -> Dict[int, List[ObjectPoseEstimate]]:
     return per_scene
 
 
+def _search_tables(prepared: List[_SceneJobs], cfg: PipelineConfig) -> List[np.ndarray]:
+    """Every scene's table box for the MCTS search: estimate_pose's
+    (scene.physics_table_pose), its subsample drawn from the scene's
+    generator, which stands where estimate_pose's does then: after the
+    generation draws. The scenes' refinements run together
+    (scene.physics_table_poses): 50 ICP iterations, each one SVD and one
+    wait for the card for all the scenes (ops/icp.refine_icp_each)."""
+    return scene_mod.physics_table_poses(
+        [(pj.depth, pj.intr, pj.plane, pj.table_pose,
+          torch.as_tensor(pj.sc.cam_pose, dtype=torch.float32, device=pj.depth.device), pj.gen)
+         for pj in prepared], cfg)
+
+
 def sweep_scenes(
     mesh: Optional[DeviceMesh],
     scene_dirs: Sequence[str],
@@ -335,10 +355,14 @@ def sweep_scenes(
     shared leaf batches split over its devices, results on its first), or
     None for one device (`device`: the card unless "cpu").
     verification_mode="MCTS" runs every scene's search concurrently through
-    pipeline/mcts.mcts_select_multi, with the camera-frame table pose of
-    remove_table (as the JAX sweep does; estimate_pose gives its search a
-    world-frame box refined from the raw depth); the pre-search polish is
-    skipped there, as estimate_pose skips it.
+    pipeline/mcts.mcts_select_multi, each on the table box that
+    estimate_pose gives its search (scene.physics_table_pose: refined from
+    the raw depth, world frame, local z up), its subsample drawn from the
+    scene's generator where estimate_pose draws it (_search_tables; the JAX
+    sweep hands its search remove_table's camera-frame pose instead). The
+    pre-search polish is skipped there, as estimate_pose skips it, and each
+    scene's timings gain its tree's search_expansions and
+    search_deadline_cut.
     pipeline_chunks > 1 (LCP mode) splits the scenes into that many chunks
     and prepares chunk i+1 while the device runs chunk i; results are the
     unchunked sweep's. timings then report preprocess_host_s, the host's
@@ -346,8 +370,10 @@ def sweep_scenes(
     The call is one span "sweep" (utils/tracing) with the children
     sweep.prepare (to its synchronize), sweep.jobs (the job batch's dispatch
     and finalize; counters lcp_scan_points and lcp_slot_points, as on
-    estimate_pose's hypotheses span) and, in MCTS mode, sweep.search; pipelined, one
-    sweep.prepare and one sweep.jobs a chunk. The timings are those spans'
+    estimate_pose's hypotheses span) and, in MCTS mode, sweep.search (the
+    table boxes, mcts_select_multi's rounds and its search.final; counters
+    leaf_batches, leaves and leaf_rows); pipelined, one sweep.prepare and
+    one sweep.jobs a chunk. The timings are those spans'
     durations, and every scene's timings["request_id"] names the call's
     request record.
     """
@@ -378,18 +404,24 @@ def sweep_scenes(
             sp_jobs.count(**_scan_counts(mesh, dev))
 
         mcts_s = 0.0
+        search_stats = [{} for _ in prepared]
         if is_mcts:
             from physimglobalpose_tpu_torch.pipeline import mcts as mcts_mod
 
             with tracing.span("sweep.search") as sp_search:
+                stats = {}
+                tables = _search_tables(prepared, cfg)
                 refined = mcts_mod.mcts_select_multi(
-                    [(per_scene[si], pj.sc, pj.table_pose.cpu().numpy(), pj.depth_clean)
+                    [(per_scene[si], pj.sc, tables[si], pj.depth_clean)
                      for si, pj in enumerate(prepared)],
                     db, cfg, seed=seed, mesh=mesh, segs_list=[pj.segs for pj in prepared],
-                    device=dev,
+                    device=dev, stats=stats,
                 )
             per_scene = dict(enumerate(refined))
             mcts_s = sp_search.duration
+            search_stats = [{key: stats[key][si]
+                             for key in ("search_expansions", "search_deadline_cut")}
+                            for si in range(len(prepared))]
 
     prep_s, device_s = sp_prep.duration, sp_jobs.duration
     n_scenes = len(prepared)
@@ -400,6 +432,7 @@ def sweep_scenes(
             "mcts_s": mcts_s / n_scenes,
             "scenes_per_sec": n_scenes / (prep_s + device_s + mcts_s),
             "request_id": sp_sweep.request_id,
+            **search_stats[si],
         })
         for si, pj in enumerate(prepared)
     }

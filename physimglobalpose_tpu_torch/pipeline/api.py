@@ -87,26 +87,6 @@ def _padded_stack(clouds) -> np.ndarray:
     return out
 
 
-def _physics_table_pose(depth, intr, plane4, table_pose, cam_pose, cfg, gen) -> np.ndarray:
-    """The table box for the settle, in the world frame, on the host.
-
-    The table frame is ICP-refined against the raw depth's plane inliers
-    (getTableParams parity, SceneCfg.cpp:87-157). remove_table fits it in the
-    camera frame; physics needs it in the world frame (gravity along world
-    -z) with its local z up (the contact model's top face is local +z), and
-    the box is centred on its pose (PhySim.cpp:22-48), so its origin moves
-    down by the half extent from the surface."""
-    refined = scene_mod.refine_table_pose_from_depth(
-        depth, intr, plane4, table_pose, cfg, generator=gen
-    )
-    world = se3.to_world(refined, cam_pose).cpu().numpy()
-    if world[2, 2] < 0:
-        world[:3, 1] *= -1.0  # flip y and z columns:
-        world[:3, 2] *= -1.0  # still right-handed
-    world[:3, 3] -= cfg.physics.table_half_extents[2] * world[:3, 2]
-    return world
-
-
 def _dump_results(dbg, estimates, db, prob_images, sc, intr, cfg, verification_mode) -> None:
     """The debug dump's per-object artifacts, the final assignment's mesh
     render (MCTS and GREEDY) and the final pose overlay."""
@@ -415,7 +395,8 @@ def estimate_pose(
             timings["icp_refine_s"] = sp_icp.duration
 
         if verification_mode in ("MCTS", "GREEDY"):
-            table_world = _physics_table_pose(depth, intr, plane4, table_pose, cam_pose, cfg, gen)
+            table_world = scene_mod.physics_table_pose(depth, intr, plane4, table_pose,
+                                                       cam_pose, cfg, gen)
             with tracing.span("search") as sp_search:
                 estimates = mcts.mcts_select(
                     estimates, sc, db, table_world, depth_clean, cfg, seed=seed,

@@ -71,11 +71,21 @@ class _Node:
     # exhausted has evaluated every reachable assignment and stops.
     exhausted: bool = False
 
-    def ucb(self, alpha: float, parent_n: int) -> float:
-        n = self.n + self.virtual
-        if n == 0:
-            return -math.inf
-        return self.qval / n - alpha * math.sqrt(2 * math.log(max(parent_n, 1)) / n)
+
+def _min_ucb_child(node: _Node, alpha: float) -> _Node:
+    """The child of least UCB qval/n - alpha sqrt(2 ln N / n), n and N
+    counting virtual loss, an unvisited child first; ties to the first in
+    insertion order, as min() gives them. The parent's 2 ln N is taken once
+    for all children: the same operations on the same values as a child at
+    a time."""
+    log_term = 2 * math.log(max(node.n + node.virtual, 1))
+    best, best_v = None, math.inf
+    for ch in node.children.values():
+        n = ch.n + ch.virtual
+        v = -math.inf if n == 0 else ch.qval / n - alpha * math.sqrt(log_term / n)
+        if best is None or v < best_v:
+            best, best_v = ch, v
+    return best
 
 
 def _to_device(a, device: torch.device, dtype=None) -> torch.Tensor:
@@ -200,7 +210,16 @@ _TRICP_MODEL_POINTS = 1024  # strided model-cloud budget for the ICP products
 
 def _tricp_refine_cam(poses_c, model_pts, model_nrm, model_mask, seg_pts,
                       seg_mask, active, cfg):
-    """Sequential unexplained-segment trimmed ICP, camera frame.
+    """_tricp_refine_steps run alone."""
+    return icp_mod.lockstep([_tricp_refine_steps(poses_c, model_pts, model_nrm, model_mask,
+                                                 seg_pts, seg_mask, active, cfg)])[0]
+
+
+def _tricp_refine_steps(poses_c, model_pts, model_nrm, model_mask, seg_pts,
+                        seg_mask, active, cfg):
+    """Sequential unexplained-segment trimmed ICP, camera frame, as a
+    generator of ICP steps (ops/icp.icp_steps; icp_mod.lockstep drives it
+    beside other scenes').
 
     UCTState::performTrICP (UCTState.cpp:121-204) semantics: for each placed
     object in placement order, drop segment points within
@@ -225,13 +244,14 @@ def _tricp_refine_cam(poses_c, model_pts, model_nrm, model_mask, seg_pts,
             )
             seg_m = seg_m & (torch.amin(d2, dim=-1) > mc.tricp_removal_radius ** 2)
         mp = torch.where(model_mask[i][:, None], model_pts[i], far)
-        tf = icp_mod.icp_single(
-            poses_c[i], mp, model_nrm[i], seg_pts[i], seg_m,
+        tf = (yield from icp_mod.icp_steps(
+            poses_c[i][None], mp, model_nrm[i], seg_pts[i], seg_m,
             iters=mc.tricp_iters, trim_fraction=mc.tricp_trim,
             max_corr_dist=mc.tricp_max_corr_dist,
             point_to_plane=False,  # PCL TrimmedICP is point-to-point
             exact_trim=True,  # the trim is the outlier model here
-        )
+            nn_refresh=1,
+        ))[0]
         ok = active[i] & torch.all(torch.isfinite(tf)) & (torch.sum(seg_m) >= 10)
         tf = torch.where(ok, tf, poses_c[i])
         out.append(tf)
@@ -459,8 +479,13 @@ class BatchedLeafEvaluator:
         return costs.cpu().numpy(), settled.cpu().numpy()
 
     def evaluate_final_tricp(self, choices: np.ndarray, active: np.ndarray, seg_pts, seg_mask):
-        """Final settle + TrICP refinement (FULL hulls): three candidate
-        final states through the same settle/cost path,
+        """final_tricp_steps run alone."""
+        return icp_mod.lockstep([self.final_tricp_steps(choices, active, seg_pts, seg_mask)])[0]
+
+    def final_tricp_steps(self, choices: np.ndarray, active: np.ndarray, seg_pts, seg_mask):
+        """Final settle + TrICP refinement (FULL hulls), as a generator of
+        ICP steps (icp_mod.lockstep drives it beside other scenes'): three
+        candidate final states through the same settle/cost path,
           0: raw chosen hypotheses -> settle
           1: TrICP -> settle   (reference expandNode order, Search.cpp:43-47)
           2: settle -> TrICP polish (cost re-rendered).
@@ -478,13 +503,15 @@ class BatchedLeafEvaluator:
         mp, mm, mn = (x[:, ::stride] for x in (consts["render_pts"], consts["render_mask"],
                                                self.render_nrm))
         cam_inv = consts["cam_pose_inv"]
-        refined_c = _tricp_refine_cam(cam_inv @ poses_w, mp, mn, mm, seg_pts, seg_mask, active, cfg)
+        refined_c = yield from _tricp_refine_steps(cam_inv @ poses_w, mp, mn, mm, seg_pts,
+                                                   seg_mask, active, cfg)
         # Candidates 0 and 1 settle as two rows of one batch.
         c01, s01 = _settle_render_cost(
             consts, cfg, *view, torch.stack([poses_w, self.cam_pose @ refined_c]),
             active[None].expand(2, self.k),
         )
-        polish_c = _tricp_refine_cam(cam_inv @ s01[0], mp, mn, mm, seg_pts, seg_mask, active, cfg)
+        polish_c = yield from _tricp_refine_steps(cam_inv @ s01[0], mp, mn, mm, seg_pts,
+                                                  seg_mask, active, cfg)
         s2 = self.cam_pose @ polish_c
         c2 = _render_cost_of_poses(consts, cfg, *view, s2, active)
         costs, settled = torch.cat([c01, c2[None]]), torch.cat([s01, s2[None]])
@@ -550,8 +577,7 @@ def _collect_batch(tree: _Tree, alpha: float, quota: int) -> List[tuple]:
     for _ in range(quota):
         node = tree.root
         while node.depth < tree.k and len(node.children) == tree.c:
-            parent_n = node.n + node.virtual
-            node = min(node.children.values(), key=lambda ch: ch.ucb(alpha, parent_n))
+            node = _min_ucb_child(node, alpha)
         if node.depth == tree.k and node.cached_cost is not None:
             # Deterministic terminal re-visit: back up the cached cost now,
             # no device work. (_backup pairs with a virtual-loss increment
@@ -626,11 +652,12 @@ def _search_rounds(trees: List[_Tree], cfg: PipelineConfig, batch: int, k_max: i
     backed up once cfg.mcts.inflight_batches are queued. Spans:
     search.collect, search.leaf_eval (the enqueue), search.backup (the wait
     and the backup). Returns (leaf batches, leaves without the padding),
-    also counted on the caller's span as leaf_batches and leaves."""
+    also counted on the caller's span as leaf_batches and leaves, beside
+    leaf_rows: the rows queued, padding included."""
     mc = cfg.mcts
     deadline = time.monotonic() + mc.max_search_seconds
     inflight: List[tuple] = []  # (pending leaves a tree, device costs), oldest first
-    leaf_batches = leaves = 0
+    leaf_batches = leaves = rows = 0
 
     def backup(pend, costs_dev):
         with tracing.span("search.backup"):
@@ -653,6 +680,7 @@ def _search_rounds(trees: List[_Tree], cfg: PipelineConfig, batch: int, k_max: i
             leaves += n
             with tracing.span("search.leaf_eval"):
                 size = n + (-n) % batch
+                rows += size
                 rows_scene = np.empty(size, np.int64)
                 choices = np.full((size, k_max), -1, np.int64)
                 ofs = 0
@@ -673,7 +701,7 @@ def _search_rounds(trees: List[_Tree], cfg: PipelineConfig, batch: int, k_max: i
     # done, and the best assignment may be in them.
     for queued in inflight:
         backup(*queued)
-    tracing.count(leaf_batches=leaf_batches, leaves=leaves)
+    tracing.count(leaf_batches=leaf_batches, leaves=leaves, leaf_rows=rows)
     return leaf_batches, leaves
 
 
@@ -776,18 +804,25 @@ def _scene_evaluator(estimates, sc, db, table_pose, depth_clean, cfg, device):
 
 
 def _final_pass(evaluator: BatchedLeafEvaluator, remake, assign, segs, seed: int) -> np.ndarray:
-    """One scene's final state: the chosen assignment [K] settled with the
-    FULL hulls, as world poses [K, 4, 4]. With segments and
-    cfg.mcts.tricp_final, the TrICP refinement's min-cost row of {raw,
-    tricp->settle, settle->tricp} (_tricp_pick), then the optional
-    _final_polish on remake(cfg.mcts.final_polish_scale), the scene's
-    evaluator at that scale, where it differs from the search's."""
+    """_final_pass_steps run alone."""
+    return icp_mod.lockstep([_final_pass_steps(evaluator, remake, assign, segs, seed)])[0]
+
+
+def _final_pass_steps(evaluator: BatchedLeafEvaluator, remake, assign, segs, seed: int):
+    """One scene's final state, as a generator of ICP steps that returns it
+    (icp_mod.lockstep drives several scenes' in lockstep): the chosen
+    assignment [K] settled with the FULL hulls, as world poses [K, 4, 4].
+    With segments and cfg.mcts.tricp_final, the TrICP refinement's min-cost
+    row of {raw, tricp->settle, settle->tricp} (_tricp_pick), then the
+    optional _final_polish on remake(cfg.mcts.final_polish_scale), the
+    scene's evaluator at that scale, where it differs from the search's."""
     cfg, k, mc = evaluator.cfg, evaluator.k, evaluator.cfg.mcts
     if not (mc.tricp_final and segs is not None):
         _, settled = evaluator.evaluate_final(assign[None, :], np.ones((1, k), bool))
         return settled[0]
     seg_pts, seg_mask = _segs_to_arrays(segs, k)
-    costs3, settled3 = evaluator.evaluate_final_tricp(assign, np.ones(k, bool), seg_pts, seg_mask)
+    costs3, settled3 = yield from evaluator.final_tricp_steps(assign, np.ones(k, bool), seg_pts,
+                                                              seg_mask)
     settled_row = settled3[_tricp_pick(costs3)]
     if mc.final_polish_rounds > 0:
         scale = mc.final_polish_scale
@@ -939,22 +974,23 @@ class MultiSceneLeafEvaluator:
 
     def evaluate_final_tricp(self, choices: np.ndarray, active: np.ndarray, seg_pts, seg_mask):
         """Final settles + TrICP refinement of every scene (FULL hulls),
-        each through its own evaluator's evaluate_final_tricp.
+        each through its own evaluator's final_tricp_steps.
 
         choices/active: [S, k_max]; seg_pts [S, k_max, N, 3] / seg_mask
         [S, k_max, N]. Returns numpy (costs [S, 3], settled [S, 3, k_max, 4,
         4]), the padding objects at the identity. The JAX package vmaps the
-        scenes in one program; here they run one after another (the TrICP
-        chain is a per-object loop of ICP solves, once a sweep)."""
+        scenes in one program; here the TrICP chains (per-object loops of
+        ICP solves) run in lockstep (icp_mod.lockstep), each scene's answer
+        the one it gets alone."""
         choices, active = np.asarray(choices), np.asarray(active)
         settled = np.tile(np.eye(4, dtype=np.float32), (len(self.evaluators), 3, self.k_max, 1, 1))
-        costs = []
-        for s, ev in enumerate(self.evaluators):
-            c3, s3 = ev.evaluate_final_tricp(choices[s, :ev.k], active[s, :ev.k],
-                                             seg_pts[s][:ev.k], seg_mask[s][:ev.k])
-            costs.append(c3)
+        answers = icp_mod.lockstep([
+            ev.final_tricp_steps(choices[s, :ev.k], active[s, :ev.k], seg_pts[s][:ev.k],
+                                 seg_mask[s][:ev.k])
+            for s, ev in enumerate(self.evaluators)])
+        for s, (ev, (_c3, s3)) in enumerate(zip(self.evaluators, answers)):
             settled[s, :, :ev.k] = s3
-        return np.stack(costs), settled
+        return np.stack([c3 for c3, _s3 in answers]), settled
 
 
 def uct_search_multi(
@@ -970,10 +1006,11 @@ def uct_search_multi(
     max(leaf_batch, leaf_batch_multi) rows rounded up to the mesh size.
 
     Returns per scene (best assignment [K_s], best cost). stats: a dict
-    that receives search_expansions (per scene), search_budget (per scene),
-    shared_batches and leaves (rows evaluated, padding not counted), and the
-    same two counts as search_leaf_batches and search_leaves. Spans and
-    counters: _search_rounds'.
+    that receives search_expansions, search_budget and search_deadline_cut
+    (per scene, as uct_search gives them for one), shared_batches and
+    leaves (rows evaluated, padding not counted), and the same two counts as
+    search_leaf_batches and search_leaves. Spans and counters:
+    _search_rounds'.
     """
     mc = cfg.mcts
     trees = [_scene_tree(hs, msev.ks[si], cfg, max_iterations, seed + si)
@@ -986,6 +1023,7 @@ def uct_search_multi(
     if stats is not None:
         stats.update(search_expansions=[t.expansions for t in trees],
                      search_budget=[t.budget for t in trees],
+                     search_deadline_cut=[not (t.done or t.root.exhausted) for t in trees],
                      shared_batches=leaf_batches, leaves=leaves,
                      search_leaf_batches=leaf_batches, search_leaves=leaves)
     return [(t.best_assign, t.best_cost) for t in trees]
@@ -1004,8 +1042,13 @@ def mcts_select_multi(scene_rows, db, cfg, seed=0, mesh=None, segs_list=None, de
     and seeded with seed + s. mesh: split every leaf batch's rows over its
     devices (the host trees are unchanged, so the results are the unsplit
     ones). Runs on the mesh's first device, else on `device` (the card
-    unless "cpu"). stats: receives uct_search_multi's counts. Returns the
-    per-scene refined estimate lists, in input order.
+    unless "cpu"). stats: receives uct_search_multi's counts, its per-scene
+    lists in input order (None for a scene without objects, which runs no
+    search). Returns the per-scene refined estimate lists, in input order.
+
+    Spans (utils/tracing): the rounds (uct_search_multi's), then one
+    search.final around every scene's final pass and install, as
+    mcts_select opens it for one.
     """
     live = [(i, row) for i, row in enumerate(scene_rows) if len(row[0]) > 0]
     out: List[list] = [row[0] for row in scene_rows]
@@ -1016,19 +1059,29 @@ def mcts_select_multi(scene_rows, db, cfg, seed=0, mesh=None, segs_list=None, de
     msev = MultiSceneLeafEvaluator([ev for ev, _hs, _remake in built], mesh=mesh)
     results = uct_search_multi(msev, [hs for _ev, hs, _remake in built], cfg, seed=seed,
                                stats=stats)
+    if stats is not None:
+        for key in ("search_expansions", "search_budget", "search_deadline_cut"):
+            per_scene = [None] * len(scene_rows)
+            for (orig_i, _row), v in zip(live, stats[key]):
+                per_scene[orig_i] = v
+            stats[key] = per_scene
 
-    if cfg.mcts.tricp_final and segs_list is not None:
-        settled = [_final_pass(ev, remake, assign, segs_list[orig_i], seed + si)
-                   for si, ((ev, _hs, remake), (orig_i, _row), (assign, _cost))
-                   in enumerate(zip(built, live, results))]
-    else:
-        # Every scene's chosen assignment in one batch, with the FULL hulls.
-        choices = np.full((len(live), msev.k_max), -1, np.int64)
-        for si, (assign, _cost) in enumerate(results):
-            choices[si, : len(assign)] = assign
-        _, settled = msev.evaluate_final(np.arange(len(live)), choices, choices >= 0)
+    with tracing.span("search.final"):
+        if cfg.mcts.tricp_final and segs_list is not None:
+            # The scenes' TrICP passes wait for the card at every ICP
+            # iteration: in lockstep they wait once a round for all scenes.
+            settled = icp_mod.lockstep([
+                _final_pass_steps(ev, remake, assign, segs_list[orig_i], seed + si)
+                for si, ((ev, _hs, remake), (orig_i, _row), (assign, _cost))
+                in enumerate(zip(built, live, results))])
+        else:
+            # Every scene's chosen assignment in one batch, with the FULL hulls.
+            choices = np.full((len(live), msev.k_max), -1, np.int64)
+            for si, (assign, _cost) in enumerate(results):
+                choices[si, : len(assign)] = assign
+            _, settled = msev.evaluate_final(np.arange(len(live)), choices, choices >= 0)
 
-    for si, (orig_i, (estimates, sc, _tp, _dc)) in enumerate(live):
-        out[orig_i] = _install_assignment(
-            estimates, results[si][0], settled[si][: len(estimates)], sc.cam_pose)
+        for si, (orig_i, (estimates, sc, _tp, _dc)) in enumerate(live):
+            out[orig_i] = _install_assignment(
+                estimates, results[si][0], settled[si][: len(estimates)], sc.cam_pose)
     return out

@@ -19,7 +19,7 @@ import torch
 
 from physimglobalpose_tpu_torch import _torchcfg  # noqa: F401  (precision setup)
 from physimglobalpose_tpu_torch.config import PipelineConfig, DEFAULT_CONFIG
-from physimglobalpose_tpu_torch.geometry import depthio, pointcloud
+from physimglobalpose_tpu_torch.geometry import depthio, pointcloud, se3
 from physimglobalpose_tpu_torch.ops import plane, voxel
 
 
@@ -162,16 +162,57 @@ def refine_table_pose_from_depth(
     frame against up to 4,096 of the raw depth's plane-inlier points (camera
     frame). priority is the optional injected draw of the subsample (see
     compact_mask_indices); it comes from `generator` when not given."""
+    return refine_table_poses_from_depth(
+        [(depth, intrinsics, plane4, table_pose, generator, priority)], cfg)[0]
+
+
+def refine_table_poses_from_depth(scenes, cfg: PipelineConfig = DEFAULT_CONFIG) -> list:
+    """refine_table_pose_from_depth of several scenes, (depth, intrinsics,
+    plane4, table_pose, generator, priority) each: each subsample drawn as
+    that function draws it, then the refinements together
+    (plane.refine_table_poses), each answer the one it gets alone."""
     pre = cfg.preprocess
-    pts, valid = pointcloud.backproject(depth, intrinsics, pre.depth_min, pre.depth_max)
-    flat_pts = pts.reshape(-1, 3)
-    dist = torch.abs(flat_pts @ plane4[:3] + plane4[3])
-    inl = valid.reshape(-1) & (dist < pre.plane_dist_threshold)
-    sub, sub_mask = pointcloud.compact_masked_points(flat_pts, inl, 4096, generator, priority)
-    return plane.refine_table_pose(
-        table_pose, sub, sub_mask, plane4, cfg.physics.table_half_extents,
-        threshold=pre.plane_dist_threshold,
-    )
+    tables = []
+    for depth, intrinsics, plane4, table_pose, generator, priority in scenes:
+        pts, valid = pointcloud.backproject(depth, intrinsics, pre.depth_min, pre.depth_max)
+        flat_pts = pts.reshape(-1, 3)
+        dist = torch.abs(flat_pts @ plane4[:3] + plane4[3])
+        inl = valid.reshape(-1) & (dist < pre.plane_dist_threshold)
+        sub, sub_mask = pointcloud.compact_masked_points(flat_pts, inl, 4096, generator, priority)
+        tables.append((table_pose, sub, sub_mask, plane4))
+    return plane.refine_table_poses(tables, cfg.physics.table_half_extents,
+                                    threshold=pre.plane_dist_threshold)
+
+
+def physics_table_pose(depth, intr, plane4, table_pose, cam_pose, cfg, gen) -> np.ndarray:
+    """The table box for the search's settle, in the world frame, on the
+    host; physics_table_poses of one scene."""
+    return physics_table_poses([(depth, intr, plane4, table_pose, cam_pose, gen)], cfg)[0]
+
+
+def physics_table_poses(scenes, cfg: PipelineConfig) -> List[np.ndarray]:
+    """The table boxes for the searches' settles of several scenes, (depth,
+    intr, plane4, table_pose, cam_pose, gen) each, in the world frame, on
+    the host. Each table frame is ICP-refined against its raw depth's plane
+    inliers (refine_table_poses_from_depth, the subsample drawn from `gen`;
+    the scenes' refinements together, each answer the one it gets alone).
+    remove_table fits it in the camera frame; physics needs it in the world
+    frame (gravity along world -z) with its local z up (the contact model's
+    top face is local +z), and the box is centred on its pose
+    (PhySim.cpp:22-48), so its origin moves down by the half extent from the
+    surface."""
+    refined = refine_table_poses_from_depth(
+        [(depth, intr, plane4, table_pose, gen, None)
+         for depth, intr, plane4, table_pose, _cam, gen in scenes], cfg)
+    boxes = []
+    for r, (*_, cam_pose, _gen) in zip(refined, scenes):
+        world = se3.to_world(r, cam_pose).cpu().numpy()
+        if world[2, 2] < 0:
+            world[:3, 1] *= -1.0  # flip y and z columns:
+            world[:3, 2] *= -1.0  # still right-handed
+        world[:3, 3] -= cfg.physics.table_half_extents[2] * world[:3, 2]
+        boxes.append(world)
+    return boxes
 
 
 def scene_from_arrays(

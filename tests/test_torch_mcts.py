@@ -274,7 +274,9 @@ def test_search_counts_the_leaf_batches_it_collected(decoy, monkeypatch):
     batches = [p for p in collected if p]
     assert stats["search_leaf_batches"] == len(batches) >= 2
     assert stats["search_leaves"] == sum(map(len, batches))
-    assert search.counts == {"leaf_batches": len(batches), "leaves": stats["search_leaves"]}
+    # Each batch is queued padded to the batch size of 2.
+    assert search.counts == {"leaf_batches": len(batches), "leaves": stats["search_leaves"],
+                             "leaf_rows": 2 * len(batches)}
     assert len(search.find_all("search.leaf_eval")) == len(batches)
     assert len(search.find_all("search.backup")) == len(batches)
     assert len(search.find_all("search.collect")) == len(collected)

@@ -7,13 +7,15 @@ rad of JAX's (test_torch_mcts.py's bars); the rows split over 8 CPU entries
 (5 rows, padded to 8) equal to the unsplit batch; the same assignments as
 JAX's uct_search_multi; mcts_select_multi equal to one mcts_select a scene.
 
-And the JAX sweep's MCTS table pose, confirmed on the CPU with the JAX
-package on a scene whose camera is not the identity: sweep_scenes hands
-mcts_select_multi remove_table's camera-frame, unrefined table pose, while
-estimate_pose gives mcts_select the world-frame box refined from the raw
-depth and shifted down by its half extent. The port's sweep does what the
-JAX sweep does."""
+And the sweep's MCTS table pose, on the CPU, on a scene whose camera is
+not the identity: the JAX sweep hands mcts_select_multi remove_table's
+camera-frame, unrefined table pose, while estimate_pose gives mcts_select
+the world-frame box refined from the raw depth and shifted down by its half
+extent. The port's sweep hands its searches the port's serial box, bit for
+bit, and a swept MCTS call then answers each box within ADD-S 1 cm of the
+truth (the camera-frame pose does not), with its spans and counters."""
 
+import dataclasses
 import types
 
 import numpy as np
@@ -30,7 +32,7 @@ from physimglobalpose_tpu_torch.models import objectdb
 from physimglobalpose_tpu_torch.parallel import mesh as mesh_mod, scene_sweep
 from physimglobalpose_tpu_torch.pipeline import api, mcts
 from physimglobalpose_tpu_torch.pipeline.api import ObjectPoseEstimate
-from test_torch_e2e import BOXES, _cfg
+from test_torch_e2e import BOXES, H as H_E2E, W as W_E2E, _adds, _cfg
 from physimglobalpose_tpu_torch.utils import tracing
 from test_torch_mcts import (  # noqa: F401  (decoy is a fixture)
     K_INTR, TOL_COST, _cfgs, _rot_z, _seg_of, assert_leaves_close, box_object, decoy, evaluators,
@@ -253,26 +255,31 @@ def table_scene(tmp_path_factory):
     )
 
 
-def test_jax_sweep_hands_the_search_the_camera_frame_table_pose(table_scene, monkeypatch):
+def _capture_multi(seen, key):
+    def fake(scene_rows, *a, stats=None, **k):
+        seen[key] = [np.array(row[2], np.float64) for row in scene_rows]
+        if stats is not None:
+            none = [None] * len(scene_rows)
+            stats.update(search_expansions=none, search_budget=none, search_deadline_cut=none)
+        return [row[0] for row in scene_rows]
+    return fake
+
+
+def _capture_single(seen, key):
+    def fake(estimates, sc, db, table_pose, *a, **k):
+        seen.setdefault(key, []).append(np.array(table_pose, np.float64))
+        return estimates
+    return fake
+
+
+def test_the_port_sweep_hands_the_search_the_serial_box_where_the_jax_sweep_does_not(
+        table_scene, monkeypatch):
     s = table_scene
     seen = {}
-
-    def capture_multi(key):
-        def fake(scene_rows, *a, **k):
-            seen[key] = np.array(scene_rows[0][2], np.float64)
-            return [row[0] for row in scene_rows]
-        return fake
-
-    def capture_single(key):
-        def fake(estimates, sc, db, table_pose, *a, **k):
-            seen[key] = np.array(table_pose, np.float64)
-            return estimates
-        return fake
-
-    monkeypatch.setattr(jmcts, "mcts_select_multi", capture_multi("jax_sweep"))
-    monkeypatch.setattr(jmcts, "mcts_select", capture_single("jax_serial"))
-    monkeypatch.setattr(mcts, "mcts_select_multi", capture_multi("port_sweep"))
-    monkeypatch.setattr(mcts, "mcts_select", capture_single("port_serial"))
+    monkeypatch.setattr(jmcts, "mcts_select_multi", _capture_multi(seen, "jax_sweep"))
+    monkeypatch.setattr(jmcts, "mcts_select", _capture_single(seen, "jax_serial"))
+    monkeypatch.setattr(mcts, "mcts_select_multi", _capture_multi(seen, "port_sweep"))
+    monkeypatch.setattr(mcts, "mcts_select", _capture_single(seen, "port_serial"))
     jsweep.sweep_scenes(None, [s["sd"]], s["jdb"], cfg=s["jcfg"], verification_mode="MCTS")
     japi.estimate_pose(s["sd"], s["jdb"], verification_mode="MCTS", cfg=s["jcfg"],
                        write_result=False)
@@ -280,25 +287,118 @@ def test_jax_sweep_hands_the_search_the_camera_frame_table_pose(table_scene, mon
                              device="cpu")
     api.estimate_pose(s["sd"], s["db"], verification_mode="MCTS", cfg=s["cfg"],
                       write_result=False, device="cpu")
+    (jax_sweep,), (jax_serial,) = seen["jax_sweep"], seen["jax_serial"]
+    (port_sweep,), (port_serial,) = seen["port_sweep"], seen["port_serial"]
 
     # The JAX sweep: remove_table's pose as fitted, in the camera frame.
     prepared = jsweep.prepare_scene(s["sd"], s["jdb"], cfg=s["jcfg"], seed=0)
-    np.testing.assert_allclose(seen["jax_sweep"], np.asarray(prepared.table_pose), atol=1e-6)
+    np.testing.assert_allclose(jax_sweep, np.asarray(prepared.table_pose), atol=1e-6)
     # The serial path: a world-frame box, local z up, its top at the table.
     half = s["jcfg"].physics.table_half_extents[2]
-    for key in ("jax_serial", "port_serial"):
-        serial = seen[key]
+    for key, serial in (("jax_serial", jax_serial), ("port_serial", port_serial)):
         assert serial[2, 2] > 0.99, key
         assert abs(serial[2, 3] + half) < 0.005, key  # the box's top face at world z = 0
     # The camera looks down at 45 degrees: the camera-frame pose's z axis is
     # far from world up, and its origin is the plane anchor ~0.6 m ahead.
-    sweep = seen["jax_sweep"]
-    assert abs(sweep[2, 2]) < 0.9 and sweep[2, 3] > 0.3
-    world = s["cam"] @ sweep
-    assert np.abs(world[:3, 3] - seen["jax_serial"][:3, 3]).max() > 0.1
-    # The port's sweep and serial path each do what the JAX package's do.
-    port_prepared = scene_sweep.prepare_scene(s["sd"], s["db"], cfg=s["cfg"], seed=0,
-                                              device="cpu")
-    np.testing.assert_allclose(seen["port_sweep"], port_prepared.table_pose.numpy(), atol=1e-6)
-    np.testing.assert_allclose(seen["port_sweep"], seen["jax_sweep"], atol=2e-3)
-    np.testing.assert_allclose(seen["port_serial"][:3, :3], seen["jax_serial"][:3, :3], atol=2e-2)
+    assert abs(jax_sweep[2, 2]) < 0.9 and jax_sweep[2, 3] > 0.3
+    world = s["cam"] @ jax_sweep
+    assert np.abs(world[:3, 3] - jax_serial[:3, 3]).max() > 0.1
+    # The port's sweep hands its search the port's serial box, bit for bit,
+    # and that box is the JAX serial one within the packages' plane fits.
+    np.testing.assert_array_equal(port_sweep, port_serial)
+    np.testing.assert_allclose(port_serial[:3, :3], jax_serial[:3, :3], atol=2e-2)
+
+
+def test_every_scene_of_a_swept_call_gets_its_serial_table_box(table_scene, tmp_path,
+                                                               monkeypatch):
+    """Two scenes under different cameras in one sweep call, at another
+    seed: each scene's search gets the box estimate_pose gives that scene's
+    search, to the bit (each scene's generator stands where estimate_pose's
+    does when the box's subsample is drawn)."""
+    s = table_scene
+    other = tmp_path / "scene"
+    write_scene_dir(other, camera_pose(distance=0.7, elevation_deg=55.0), BOXES, tmp_path)
+    dirs = [s["sd"], str(other)]
+    seen = {}
+    monkeypatch.setattr(mcts, "mcts_select_multi", _capture_multi(seen, "sweep"))
+    monkeypatch.setattr(mcts, "mcts_select", _capture_single(seen, "serial"))
+    scene_sweep.sweep_scenes(None, dirs, s["db"], cfg=s["cfg"], seed=5,
+                             verification_mode="MCTS", device="cpu")
+    for d in dirs:
+        api.estimate_pose(d, s["db"], verification_mode="MCTS", cfg=s["cfg"], seed=5,
+                          write_result=False, device="cpu")
+    assert len(seen["sweep"]) == len(seen["serial"]) == 2
+    for swept, serial in zip(seen["sweep"], seen["serial"]):
+        np.testing.assert_array_equal(swept, serial)
+        assert serial[2, 2] > 0.99
+    assert np.abs(seen["serial"][0] - seen["serial"][1]).max() > 0  # two scenes, two boxes
+
+
+SWEEP_MCTS = dict(leaf_batch=8, leaf_batch_multi=16, branching=4, max_expansions=40)
+
+
+@pytest.fixture(scope="module")
+def swept(tmp_path_factory):
+    """One swept MCTS call over two scenes of test_torch_e2e.py's boxes under
+    two cameras, at that test's search sizes (leaf batches of 8, shared ones
+    of 16, 4 hypotheses an object, 40 expansions): the result, the ground
+    truth in each camera's frame, the objects and their database, and the
+    call's request record."""
+    tmp = tmp_path_factory.mktemp("swept")
+    cfg = dataclasses.replace(_cfg(tconfig), render=tconfig.RenderConfig(width=W_E2E, height=H_E2E),
+                              mcts=tconfig.MCTSConfig(**SWEEP_MCTS))
+    dirs, truth = [], {}
+    for i, cam in enumerate((camera_pose(distance=0.6), camera_pose(distance=0.65,
+                                                                    elevation_deg=50.0))):
+        sd = tmp / f"scene_{i}"
+        gt = write_scene_dir(sd, cam, BOXES, tmp)
+        dirs.append(str(sd))
+        truth[str(sd)] = {n: np.linalg.inv(cam) @ p for n, p in gt.items()}
+    objs = {nm: objectdb.prepare_object(nm, str(tmp / f"{nm}.ply"), cls, [180, 180, 180],
+                                        config=cfg, cache_dir=str(tmp / "cache"), device="cpu")
+            for nm, cls, *_ in BOXES}
+    db = objectdb.ObjectDB(objs, {o.class_id: nm for nm, o in objs.items()})
+    res = scene_sweep.sweep_scenes(None, dirs, db, cfg=cfg, seed=0, verification_mode="MCTS",
+                                   device="cpu")
+    return dict(res=res, truth=truth, objs=objs, db=db, cfg=cfg,
+                record=tracing.record(res[dirs[0]].timings["request_id"]))
+
+
+def test_a_swept_mcts_call_answers_each_object_within_1cm(swept):
+    for sd, result in swept["res"].items():
+        assert [o.name for o in result.objects] == [b[0] for b in BOXES]
+        for est in result.objects:
+            pts = swept["objs"][est.name].validation_pts[::2]
+            assert _adds(est.pose_cam, swept["truth"][sd][est.name], pts) < 0.01, (sd, est.name)
+
+
+def test_the_swept_search_counts_its_rows_and_spans_its_final_passes(swept):
+    cfg = swept["cfg"]
+    rec = swept["record"]
+    search = rec.find("sweep.search")
+    assert search is not None
+    counts = search.counts
+    batch = max(cfg.mcts.leaf_batch, cfg.mcts.leaf_batch_multi)
+    # Every shared batch is queued at its full size: real leaves and padding.
+    assert counts["leaf_rows"] == batch * counts["leaf_batches"]
+    assert 0 < counts["leaves"] <= counts["leaf_rows"]
+    finals = search.find_all("search.final")
+    assert len(finals) == 1 and 0.0 < finals[0].duration < search.duration
+    assert len(rec.find_all("search.final")) == 1  # the final passes of both scenes in one span
+    budget = sum(4**i for i in range(len(BOXES) + 1))
+    for result in swept["res"].values():
+        assert result.timings["search_deadline_cut"] is False
+        assert 0 < result.timings["search_expansions"] <= budget
+
+
+def test_the_camera_frame_table_puts_a_swept_answer_off(swept, monkeypatch):
+    """The search on remove_table's camera-frame pose, as the JAX sweep
+    hands it: the same call then misses the 1 cm bar on some object."""
+    monkeypatch.setattr(scene_sweep, "_search_tables",
+                        lambda prepared, cfg: [pj.table_pose.cpu().numpy() for pj in prepared])
+    sd = next(iter(swept["res"]))
+    res = scene_sweep.sweep_scenes(None, [sd], swept["db"], cfg=swept["cfg"], seed=0,
+                                   verification_mode="MCTS", device="cpu")
+    worst = max(_adds(est.pose_cam, swept["truth"][sd][est.name],
+                      swept["objs"][est.name].validation_pts[::2]) for est in res[sd].objects)
+    assert worst > 0.01, worst

@@ -241,3 +241,53 @@ def test_the_reference_reads_the_programs_config_by_field_name(boxes):
     ref = both(s, cfg)[1]
     assert ref.physics["steps"] == 7 and not ref.sequential
     assert ref.obs.shape == (H // 2, W // 2) and ref.splat_radius == 0
+
+
+def other_scene(s, seed, keep, shift_x):
+    """Another scene of the same boxes: the objects `keep`, their rest poses
+    moved shift_x along x, hypotheses redrawn from `seed` near them (slot 0
+    at rest), and the observation rendered from that truth."""
+    rng = np.random.default_rng(seed)
+    objs = [s["objs"][i] for i in keep]
+    truth = s["truth"][list(keep)].copy()
+    truth[:, 0, 3] += shift_x
+    hyp = np.tile(truth[:, None], (1, HYPS, 1, 1))
+    for i in range(len(keep)):
+        for c in range(1, HYPS):
+            hyp[i, c, :3, :3] = rotation(rng, 20.0)
+            hyp[i, c, :3, 3] += [rng.uniform(-0.02, 0.02), rng.uniform(-0.02, 0.02),
+                                 rng.uniform(0.0, 0.015)]
+    blank = sr.scene(objs, hyp, np.zeros((H, W), np.float32), K_INTR, s["cam"], s["table"],
+                     config(1, True))
+    obs = sr.render(blank, torch.as_tensor(truth), [True] * len(keep)).numpy()
+    return dict(objs=objs, hyp=hyp, truth=truth, table=s["table"], cam=s["cam"], obs=obs)
+
+
+def test_shared_batch_rows_match_the_reference_on_their_own_scenes(boxes):
+    """A MultiSceneLeafEvaluator batch over three scenes (3, 2 and 3
+    objects, so the scenes' constants are padded to a common shape): every
+    row agrees with the reference of the scene it names, full and partial
+    placements mixed."""
+    cfg = config(1, True)
+    scenes = [boxes, other_scene(boxes, 7, (1, 2), 0.0), other_scene(boxes, 8, (0, 1, 2), 0.01)]
+    built = [both(sc, cfg) for sc in scenes]
+    msev = mcts.MultiSceneLeafEvaluator([ev for ev, _ref in built])
+    rng = np.random.default_rng(31)
+    n = 12
+    scene_idx = np.arange(n) % len(scenes)
+    choices = np.full((n, msev.k_max), -1, np.int64)
+    for b, si in enumerate(scene_idx):
+        k = msev.ks[si]
+        active = rng.random(k) < 0.8 if b >= len(scenes) else np.ones(k, bool)
+        choices[b, :k] = np.where(active, rng.integers(0, HYPS, k), -1)
+    active = choices >= 0
+    costs, settled = msev.evaluate(scene_idx, choices, active)
+    rows = []
+    for b, si in enumerate(scene_idx):
+        k = msev.ks[si]
+        rows.append((built[si][1], choices[b, :k], active[b, :k], (costs[b], settled[b, :k])))
+    got = sr.compare(rows, share=0.0)
+    assert got["ok"], got
+    # The rows did differ from scene to scene: the same placement costs
+    # otherwise on another scene's observation.
+    assert len({round(float(c), 3) for c in costs[:len(scenes)]}) == len(scenes)
